@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --phases build,kernel,grad,train   # the training slice
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -8,9 +9,9 @@ CPU or to a plain version):
 1. build  - nvcc builds dasr_tpu_torch/csrc into build/dasr_tpu_torch/.
 2. kernel - fused_rdb on the card vs its plain PyTorch version on the same
             tensors (nc 64, gc 32; f32 and bf16; the three test shapes and
-            every shape the serve phase gives the kernel; 5-px border band),
-            and the bf16 kernel also vs the f32 computation on the same
-            bf16-rounded inputs.
+            every shape the serve and train phases give the kernel; 5-px
+            border band), and the bf16 kernel also vs the f32 computation on
+            the same bf16-rounded inputs.
 3. serve  - the port's srn_test CLI on a synthetic LRHR set with a
             full-width x4 RRDB_net (nf 64, nb 23, gc 32, seeded weights
             written to a reference-named .pth), plain and chopped; the
@@ -20,6 +21,25 @@ CPU or to a plain version):
             the RDB kernels' device time inside the forward and the
             device's idle share (torch.profiler), and peak memory. It
             needs phase 2, which it then runs too.
+4. grad   - fused_rdb's autograd Function on the card (kernel forward, VJP
+            of the stock dense chain) vs autograd through the plain version
+            on the same tensors: the output, dL/dx and the ten parameter
+            gradients, f32 and bf16, at the three test shapes and every
+            shape the train phase gives the kernel; fwd+bwd times.
+5. train  - the port's srn_train CLI on a synthetic DASR corpus written from
+            the seed, at the full width of
+            dasr_tpu/configs/train_DASR_auto_reproduce.json (nf 64, nb 23,
+            batch 6 + 6, HR 128, bf16), TRAIN_STEPS steps with one
+            validation (LPIPS on) and one save: every loss finite, 345 kernel
+            launches per generator forward, every shape it gave the kernel
+            checked in phases 2 and 4; three f32 steps at nb 2 with the
+            kernel vs with the plain version on the card (losses, updates,
+            Adam's first moments); train ms/step (CUDA events, median) and
+            the host's time to issue a step, images/s, peak memory, and,
+            in turns with it for information, the same step on the stock
+            bf16 chain; the device's busy time per step (torch.profiler),
+            the RDB kernels' share and the idle share.
+            It needs phases 2 and 4, which it then runs too.
 
 The line before the last is the kernel report as JSON, and the last line
 is {"ok": true, "device": {...}}.
@@ -44,6 +64,11 @@ KERNEL_SHAPES = ((1, 37, 53), (2, 64, 64), (8, 128, 128))
 # and chopped into 160x160 tiles (128 + 2 x 16 halo), 2 x 2 and 3 x 4 of them
 SERVE_SHAPES = ((1, 256, 256), (1, 339, 510), (4, 160, 160), (12, 160, 160))
 LR_SIZES = ((256, 256),) * 4 + ((339, 510),)  # (h, w) of the synthetic LR set
+# what the train phase gives the kernel: the step's 6 fake + 6 real LR crops
+# of 32x32 (HR 128), and the 64x64 validation images whole
+TRAIN_SHAPES = ((12, 32, 32), (1, 64, 64))
+TRAIN_STEPS = 30
+TRAIN_CONFIG = os.path.join("dasr_tpu", "configs", "train_DASR_auto_reproduce.json")
 SEED = 0
 
 
@@ -138,7 +163,7 @@ def phase_kernel(gpu):
     report = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_abs_err_vs_f32": 0.0}
     checked = set()
     with torch.no_grad():
-        for b, h, w in KERNEL_SHAPES + SERVE_SHAPES:
+        for b, h, w in KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES:
             x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
             x = torch.from_numpy(x_np).to(dev)
             ks = [torch.from_numpy(k).to(dev) for k in ks_np]
@@ -217,24 +242,31 @@ def serve_config(root, name, chop, pth):
     return path
 
 
-def device_idle_share(net, x, iters=3):
-    """(idle share, device ms per forward, RDB kernel ms per forward) from
-    torch.profiler's device events over ``iters`` forwards: idle is the part
-    of the span from the first device event to the last in which no kernel,
-    copy or memset ran. None when the profiler records no device events."""
+def device_profile(fn, iters=3):
+    """torch.profiler's device events over ``iters`` calls of ``fn`` after one
+    untraced call, per call: ``busy`` ms (a kernel, copy or memset ran),
+    ``span`` ms (first device event to last) and ``idle`` = 1 - busy / span,
+    ``rdb`` ms of the RDB kernel, ``events`` (device events), and ``top``, the
+    six kernel names with the most device time. The tracer slows the host,
+    so where the host bounds a call the traced span is longer than an
+    untraced one; busy time is not. None when the profiler records no
+    device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        net(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                net(x)
-            torch.cuda.synchronize()
+    # device events, without the annotations the profiler mirrors onto the
+    # device's timeline (Optimizer.step#Adam.step spans its kernels and gaps)
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("Optimizer."))
     if not spans:
         return None
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -246,8 +278,13 @@ def device_idle_share(net, x, iters=3):
             cur_e = max(cur_e, s1)
     busy += cur_e - cur_s
     span = max(s1 for _, s1, _ in spans) - spans[0][0]
-    rdb_us = sum(s1 - s0 for s0, s1, name in spans if "rdb_level" in name)
-    return 1 - busy / span, span / iters / 1e3, rdb_us / iters / 1e3
+    by_name = {}
+    for s0, s1, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (s1 - s0) / iters / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"idle": 1 - busy / span, "span": span / iters / 1e3, "busy": busy / iters / 1e3,
+            "rdb": sum(v for k, v in by_name.items() if "rdb_level" in k),
+            "events": len(spans) / iters, "top": top}
 
 
 def phase_serve(gpu, checked):
@@ -317,7 +354,7 @@ def phase_serve(gpu, checked):
             print(f"serve {name}: {len(pngs)} PNGs, {vals}, {sec:.2f} s "
                   f"({sec / len(LR_SIZES):.3f} s/image with host metrics and PNG IO)", flush=True)
         print(f"serve: peak device memory {peak / 2**30:.3f} GiB [{gpu}]", flush=True)
-    report["launches"] = launches
+    report["launches_serve"] = launches
 
     # the full network with the kernel vs the plain version, f32, 64x64: the
     # plain version runs on the same card (every RDB5C calls
@@ -331,7 +368,7 @@ def phase_serve(gpu, checked):
         before = fused_rdb.launches
         got = net_gpu(x.cuda())
         launched = fused_rdb.launches - before
-        blocks.fused_rdb = lambda x, ks, bs, params=(): fused_rdb_reference(x, ks, bs)
+        blocks.fused_rdb = fused_rdb_reference
         try:
             want = net_gpu(x.cuda())
         finally:
@@ -362,12 +399,16 @@ def phase_serve(gpu, checked):
     mpix = 1024 * 1024 / (ms / 1e3) / 1e6
     print(f"serve rate: 256x256 LR -> 1024x1024, bf16, batch 1: {ms:.3f} ms/image, "
           f"{mpix:.3f} output Mpix/s [{gpu}]", flush=True)
-    prof = device_idle_share(net_bf16, x)
+    def forward():
+        with torch.no_grad():
+            net_bf16(x)
+
+    prof = device_profile(forward)
     if prof is None:
         print("serve 256x256: torch.profiler recorded no device events; idle share not "
               "measured", flush=True)
     else:
-        idle, dev_ms, kern_ms = prof
+        idle, dev_ms, kern_ms = prof["idle"], prof["span"], prof["rdb"]
         print(f"serve 256x256 (torch.profiler): device span {dev_ms:.3f} ms per forward, "
               f"idle share {100 * idle:.2f}%, rdb_level kernels {kern_ms:.3f} ms "
               f"({100 * kern_ms / dev_ms:.1f}% of the span) [{gpu}]", flush=True)
@@ -376,10 +417,347 @@ def phase_serve(gpu, checked):
     return report
 
 
+GRAD_NAMES = ["x"] + [f"kernel{k + 1}" for k in range(5)] + [f"bias{k + 1}" for k in range(5)]
+
+
+def phase_grad(gpu):
+    """fused_rdb under autograd vs autograd through the plain version."""
+    import torch
+
+    from dasr_tpu_torch.ops.rdb import (
+        LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference, rdb_chain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    report = {"grad_rel_err_f32": 0.0, "grad_rel_err_bf16": 0.0}
+    checked = set()
+    for b, h, w in KERNEL_SHAPES + TRAIN_SHAPES:
+        x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
+        g_np = rng.normal(0, 1, (b, h, w, NC)).astype(np.float32)
+        for dt, tol in ((torch.float32, "grad_f32"), (torch.bfloat16, "grad_bf16")):
+            base = ([torch.from_numpy(x_np).to(dev, dt)]
+                    + [torch.from_numpy(k).to(dev, dt) for k in ks_np]
+                    + [torch.from_numpy(v).to(dev) for v in bs_np])
+            g = torch.from_numpy(g_np).to(dev, dt)
+
+            def leaves():
+                return [t.clone().requires_grad_() for t in base]
+
+            def fwd_bwd(fn, ls):
+                out = fn(ls[0], ls[1:6], ls[6:])
+                return out, torch.autograd.grad(out, ls, g)
+
+            # the Function as on the main path (its chain on cuDNN); the plain
+            # version's autograd with cuDNN off, whose f32 backward of these
+            # convs measured up to 4.7e-3 off the f64 gradient on the H100
+            # (TF32 off), the native path 4e-7
+            before = fused_rdb.launches
+            out, grads = fwd_bwd(fused_rdb, leaves())
+            torch.cuda.synchronize()
+            if fused_rdb.launches - before != LAUNCHES_PER_RDB:
+                fail(f"fused_rdb under autograd did not launch the kernel at {(b, h, w)}")
+            with torch.backends.cudnn.flags(enabled=False):
+                out_p, grads_p = fwd_bwd(fused_rdb_reference, leaves())
+            atol, rtol = TOLERANCES["kernel_f32" if dt == torch.float32 else "kernel_bf16"]
+            compare(out.detach(), out_p.detach(), atol, rtol, f"fused_rdb fwd under grad {dt}")
+            _, rtol = TOLERANCES[tol]
+            worst = (0.0, "")
+            for name, a, p in zip(GRAD_NAMES, grads, grads_p):
+                a, p = a.float(), p.float()
+                rel = ((a - p).norm() / p.norm()).item()
+                if not bool(a.isfinite().all()) or not rel <= rtol:
+                    fail(f"grad {name} {dt} {(b, h, w)}: |got - want| / |want| {rel:.3e} "
+                         f"exceeds {rtol}")
+                elem = ((a - p).abs().max() / p.abs().max()).item()
+                worst = max(worst, (rel, f"{name}; largest element error {elem:.2e} of max|want|"))
+            key = "grad_rel_err_f32" if dt == torch.float32 else "grad_rel_err_bf16"
+            report[key] = max(report[key], worst[0])
+            checked.add((b, h, w, dt))
+            print(f"grad {str(dt):15s} {(b, h, w)}: worst |got - want| / |want| {worst[0]:.3e} "
+                  f"({worst[1]}; limit {rtol}); output max|err| vs plain within "
+                  f"{tol.replace('grad', 'kernel')}", flush=True)
+            if (b, h, w) == TRAIN_SHAPES[0] and dt == torch.bfloat16:
+                ls = leaves()
+                times = {name: cuda_ms(lambda fn=fn: fwd_bwd(fn, ls))
+                         for name, fn in (("kernel", fused_rdb), ("plain", fused_rdb_reference),
+                                          ("chain", rdb_chain))}
+                report["grad_ms"], report["plain_grad_ms"] = times["kernel"], times["plain"]
+                print(f"time fwd+bwd bf16 {(b, h, w)}: kernel + chain VJP {times['kernel']:.4f} ms, "
+                      f"plain version {times['plain']:.4f} ms, stock bf16 chain (context) "
+                      f"{times['chain']:.4f} ms [{gpu}]", flush=True)
+    return report, checked
+
+
+def write_train_corpus(root, rng):
+    """12 HR images at 192x192, 12 fake LRs at 48x48, 12 real LRs at 64x64,
+    12 DDMs (1, 1, 48, 48) in [0, 1], and 2 validation pairs (64x64 LR)."""
+    from dasr_tpu_torch.data.io import save_img
+
+    dirs = {d: os.path.join(root, d) for d in ("hr", "fake", "real", "ddm", "val_hr", "val_lr")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(12):
+        hr = rng.random((192, 192, 3), dtype=np.float32)
+        save_img(hr, os.path.join(dirs["hr"], f"{i:03d}.png"))
+        save_img(hr.reshape(48, 4, 48, 4, 3).mean((1, 3)), os.path.join(dirs["fake"], f"{i:03d}.png"))
+        save_img(rng.random((64, 64, 3), dtype=np.float32), os.path.join(dirs["real"], f"{i:03d}.png"))
+        np.save(os.path.join(dirs["ddm"], f"{i:03d}.npy"),
+                rng.random((1, 1, 48, 48), dtype=np.float32))
+    for i in range(2):
+        lr = rng.random((64, 64, 3), dtype=np.float32)
+        save_img(lr, os.path.join(dirs["val_lr"], f"v{i}.png"))
+        save_img(np.kron(lr, np.ones((4, 4, 1), np.float32)), os.path.join(dirs["val_hr"], f"v{i}.png"))
+    return dirs
+
+
+def train_config(root, dirs, name, niter, nb=NB, bf16=True):
+    """The shipped auto-reproduce configuration with the synthetic corpus."""
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, bf16=bf16)
+    cfg["path"] = {"root": root}
+    cfg["datasets"]["train"].update(dataroot_HR=dirs["hr"], dataroot_fake_LR=dirs["fake"],
+                                    dataroot_real_LR=dirs["real"],
+                                    dataroot_fake_weights=dirs["ddm"], n_workers=6)
+    cfg["datasets"]["val"].update(dataroot_HR=dirs["val_hr"], dataroot_LR=dirs["val_lr"])
+    cfg["network_G"]["nb"] = nb
+    cfg["train"].update(niter=niter, val_freq=niter)
+    cfg["logger"] = {"print_freq": 1, "save_checkpoint_freq": niter}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_train(gpu, checked, checked_grad):
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    import dasr_tpu_torch.nn.blocks as blocks
+    from dasr_tpu_torch.cli import srn_train
+    from dasr_tpu_torch.core.config import parse_srn_options
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import (
+        LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference, rdb_chain)
+
+    rng = np.random.default_rng(SEED)
+    report = {}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = write_train_corpus(root, rng)
+        cfg = train_config(root, dirs, "smoke_train", TRAIN_STEPS)
+
+        # the main path: srn_train through the port's CLI, counted, with the
+        # (B, H, W, dtype, grad mode) of every RDB5C input recorded
+        seen = set()
+
+        def record(mod, args):
+            if isinstance(mod, RDB5C):
+                b, _, h, w = args[0].shape
+                seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+        fused_rdb.launches = 0
+        handle = register_module_forward_pre_hook(record)
+        try:
+            t0 = time.perf_counter()
+            steps, _ = srn_train.main(["-opt", cfg, "--device", "cuda"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            handle.remove()
+        launches = fused_rdb.launches
+        forwards = TRAIN_STEPS + 2  # one G forward per step, one per validation image
+        expected = 3 * NB * LAUNCHES_PER_RDB * forwards
+        print(f"train: {steps} steps in {secs:.2f} s through the CLI (host loader, one "
+              f"validation with LPIPS, one save); fused_rdb launches {launches}, expected "
+              f"{3 * NB} x {LAUNCHES_PER_RDB} x {forwards} = {expected}", flush=True)
+        if steps != TRAIN_STEPS or launches != expected:
+            fail(f"train: {steps} steps and {launches} launches, expected {TRAIN_STEPS} "
+                 f"and {expected}")
+        print(f"train: kernel input shapes {sorted((*k[:3], str(k[3]), k[4]) for k in seen)}",
+              flush=True)
+        missing = {k[:4] for k in seen} - checked
+        missing |= {k[:4] for k in seen if k[4]} - checked_grad
+        if missing:
+            fail(f"the train run gave the kernel shapes phases 2 and 4 did not check: {missing}")
+        run_dir = os.path.join(root, "smoke_train")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r for r in recs if "loss/l_g_total" in r]
+        val = [r for r in recs if "val/psnr" in r]
+        if len(losses) != TRAIN_STEPS or not all(
+                np.isfinite(v) for r in losses for k, v in r.items() if k.startswith("loss/")):
+            fail(f"train: losses missing or not finite in metrics.jsonl ({len(losses)} steps)")
+        if len(val) != 1 or not all(np.isfinite(val[0][f"val/{k}"])
+                                    for k in ("psnr", "ssim", "lpips")):
+            fail(f"train: validation missing or not finite: {val}")
+        if not os.path.exists(os.path.join(run_dir, "training_state", f"{TRAIN_STEPS}.pt")):
+            fail("train: the train state was not saved")
+        first, lastr = losses[0], losses[-1]
+        print("train losses, step 1 -> %d: %s" % (TRAIN_STEPS, ", ".join(
+            f"{k.split('/')[-1]} {first[k]:.4e} -> {lastr[k]:.4e}"
+            for k in sorted(first) if k.startswith("loss/"))), flush=True)
+        print(f"train validation: {({k: v for k, v in val[0].items() if k.startswith('val/')})}",
+              flush=True)
+        report["launches_train"] = launches
+
+        # the device step alone: one host batch on the card, CUDA events
+        def build(config):
+            opt = parse_srn_options(config, is_train=True)
+            model = create_model(opt, torch.device("cuda"))
+            model.init()
+            loader = Loader(create_dataset(opt["datasets"]["train"]), batch_size=6,
+                            num_workers=6, seed=0)
+            return model, loader
+
+        model, loader = build(cfg)
+        host = next(iter(loader))
+        batch = {k: torch.from_numpy(host[k]).cuda().permute(0, 3, 1, 2)
+                 for k in ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w")}
+        tr = model.trainer
+
+        def step_times(rdb, n):
+            # n steps with ``rdb`` in every RDB5C: (CUDA-event ms, host ms to
+            # issue the step) of each
+            out = []
+            blocks.fused_rdb = rdb
+            try:
+                for _ in range(n):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    tr.train_step(batch)
+                    host = (time.perf_counter() - t0) * 1e3
+                    end.record()
+                    torch.cuda.synchronize()
+                    out.append((start.elapsed_time(end), host))
+            finally:
+                blocks.fused_rdb = fused_rdb
+            return out
+
+        # the main path and, for information, the RDBs on the stock bf16
+        # chain, in turns: the host bounds the step and its speed drifts
+        torch.cuda.reset_peak_memory_stats()
+        step_times(fused_rdb, 3)
+        peak = torch.cuda.max_memory_allocated()
+        step_times(rdb_chain, 3)
+        times = {fused_rdb: [], rdb_chain: []}
+        for _ in range(3):
+            for rdb in times:
+                times[rdb] += step_times(rdb, 4)
+        (ms, host_ms), (chain_ms, chain_host_ms) = (
+            tuple(float(v) for v in np.median(times[rdb], axis=0)) for rdb in times)
+        imgs = 12 / (ms / 1e3)
+        print(f"train step, nf {NC} nb {NB} gc {GC}, batch 6 + 6, HR 128, bf16: {ms:.3f} ms/step "
+              f"(median of 12, CUDA events, in turns with the chain below), {imgs:.2f} effective "
+              f"images/s, host {host_ms:.3f} ms to issue a step, peak device memory "
+              f"{peak / 2**30:.3f} GiB [{gpu}]", flush=True)
+        print(f"train step with the RDBs on the stock bf16 chain (cuDNN; information, not the "
+              f"main path): {chain_ms:.3f} ms/step, host {chain_host_ms:.3f} ms to issue a step "
+              f"[{gpu}]", flush=True)
+        prof = device_profile(lambda: tr.train_step(batch))
+        if prof is None:
+            print("train step: torch.profiler recorded no device events; idle share not "
+                  "measured", flush=True)
+        else:
+            # the host bounds this step, and the tracer slows the host: the
+            # idle share is also read against the untraced step time above
+            idle, dev_ms, busy_ms, kern_ms = prof["idle"], prof["span"], prof["busy"], prof["rdb"]
+            idle_untraced = max(0.0, 1 - busy_ms / ms)
+            print(f"train step (torch.profiler): device busy {busy_ms:.3f} ms per step, of "
+                  f"which rdb_level kernels {kern_ms:.3f} ms ({100 * kern_ms / busy_ms:.1f}% "
+                  f"of busy, {100 * kern_ms / ms:.1f}% of the untraced {ms:.3f} ms step); "
+                  f"idle share {100 * idle_untraced:.2f}% of the untraced step, "
+                  f"{100 * idle:.2f}% of the traced span of {dev_ms:.3f} ms; "
+                  f"{prof['events']:.0f} device events per step; most device time: "
+                  + ", ".join(f"{name[:60]} {t:.3f} ms" for name, t in prof["top"])
+                  + f" [{gpu}]", flush=True)
+            report.update(train_idle_share=idle_untraced, train_rdb_share=kern_ms / ms,
+                          train_device_busy_ms=busy_ms)
+        report.update(train_ms_per_step=ms, train_host_ms_per_step=host_ms,
+                      train_images_per_s=imgs, train_peak_mem_bytes=peak,
+                      train_chain_ms_per_step=chain_ms)
+        del model, tr, batch
+
+        # three f32 steps at nb 2, full width: the kernel vs the plain version
+        cfg32 = train_config(root, dirs, "smoke_f32", 3, nb=2, bf16=False)
+        batches = None
+        runs = []
+
+        def flat(ns, moment=False):
+            # one network's trainable params, or Adam's first moments of them
+            ps = ns.params()
+            return torch.cat([(ns.opt.state[p]["exp_avg"] if moment else p.detach()).flatten()
+                              for p in ps])
+
+        for plain in (False, True):
+            # cuDNN off in both runs (see phase_grad): they differ only in the
+            # RDB forward and its backward
+            with torch.backends.cudnn.flags(enabled=False):
+                model, loader = build(cfg32)
+                while batches is None or len(batches) < 3:  # 2 batches an epoch
+                    loader.set_epoch(len(batches or []) // len(loader))
+                    batches = (batches or []) + list(loader)[:3 - len(batches or [])]
+                st = model.trainer.state
+                nets = {"G": st.g, "D_target": st.d_target}
+                init = {name: flat(ns).clone() for name, ns in nets.items()}
+                before = fused_rdb.launches
+                if plain:
+                    blocks.fused_rdb = fused_rdb_reference
+                try:
+                    traj = [model.train_step(b) for b in batches]
+                finally:
+                    blocks.fused_rdb = fused_rdb
+            launched = fused_rdb.launches - before
+            if launched != (0 if plain else 3 * 2 * LAUNCHES_PER_RDB * 3):
+                fail(f"train f32 ({'plain' if plain else 'kernel'}): {launched} kernel launches")
+            runs.append((traj, init, {name: (flat(ns), flat(ns, True))
+                                      for name, ns in nets.items()}))
+        (traj_k, init_k, nets_k), (traj_p, init_p, nets_p) = runs
+        atol, rtol = TOLERANCES["train_loss_f32"]
+        worst_loss = 0.0
+        for i, (a, b) in enumerate(zip(traj_k, traj_p)):
+            for k in b:
+                if k.startswith("loss/"):
+                    err = abs(a[k] - b[k])
+                    worst_loss = max(worst_loss, err / (atol + rtol * abs(b[k])))
+                    if err > atol + rtol * abs(b[k]):
+                        fail(f"train f32 step {i} {k}: kernel {a[k]:.6e} vs plain {b[k]:.6e}")
+        _, utol = TOLERANCES["train_update_f32"]
+        _, mtol = TOLERANCES["train_moment_f32"]
+        parts, bad, perr = [], [], 0.0
+        for name in nets_p:
+            if not torch.equal(init_k[name], init_p[name]):
+                fail(f"train f32: the two runs start from different {name} params")
+            (pk, mk), (pp, mp) = nets_k[name], nets_p[name]
+            # pk - pp is the difference of the two three-step updates
+            upd = ((pk - pp).norm() / (pp - init_p[name]).norm()).item()
+            mom = ((mk - mp).norm() / mp.norm()).item()
+            err = (pk - pp).abs()
+            perr = max(perr, err.max().item())
+            parts.append(f"{name} update {upd:.3e}, first moment {mom:.3e}, params max|err| "
+                         f"{err.max().item():.3e} ({int((err > 2e-5).sum())} of {err.numel()} "
+                         f"past 2e-5)")
+            if not (upd <= utol and mom <= mtol):
+                bad.append(name)
+        print(f"train f32 nb 2 (nf {NC}, gc {GC}), 3 steps, kernel vs plain version on the card, "
+              f"cuDNN off in both: losses within {worst_loss:.3f} of their limit (atol {atol}, "
+              f"rtol {rtol}); |dtheta_kernel - dtheta_plain| / |dtheta_plain| and the same of "
+              f"Adam's first moments (limits {utol}, {mtol}): {'; '.join(parts)}; l_g_total "
+              f"{[round(t['loss/l_g_total'], 6) for t in traj_k]}", flush=True)
+        if bad:
+            fail(f"train f32: the kernel run's updates or moments of {bad} are off the plain run's")
+        report.update(train_f32_param_max_abs_err=perr)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernel,serve",
-                    help="comma-separated subset of build,kernel,serve")
+    ap.add_argument("--phases", default="build,kernel,serve,grad,train",
+                    help="comma-separated subset of build,kernel,serve,grad,train")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -402,16 +780,28 @@ def main(argv=None):
     entry = {
         "name": "fused_rdb", "route": "cuda", "source": "dasr_tpu_torch/csrc/rdb.cu",
         "replaces": "dasr_tpu/ops/pallas_rdb.py:61", "launches": 0,
+        "backward": "autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), "
+                    "as JAX's custom VJP; checked against the plain version in phase grad",
     }
     if "serve" in phases:
         phases.add("kernel")  # serve checks its shapes against phase 2's
-    if "build" in phases or "kernel" in phases:
+    if "train" in phases:
+        phases |= {"kernel", "grad"}  # and train against phases 2 and 4
+    if "build" in phases or "kernel" in phases or "grad" in phases:
         phase_build()
     if "kernel" in phases:
         report, checked = phase_kernel(gpu)
         entry.update(report)
     if "serve" in phases:
         entry.update(phase_serve(gpu, checked))
+    if "grad" in phases:
+        report, checked_grad = phase_grad(gpu)
+        entry.update(report)
+    if "train" in phases:
+        entry.update(phase_train(gpu, checked, checked_grad))
+    # launches: the count from each main path's run, the counter set to 0
+    # just before it; the total of the paths this run drove
+    entry["launches"] = entry.get("launches_serve", 0) + entry.get("launches_train", 0)
 
     print(gpu, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

@@ -6,9 +6,11 @@ commented-JSON options, builds the model, runs every test dataset, saves SR
 PNGs under results/<name>/<set>/, and reports per-image and average
 PSNR/SSIM (+Y) with a scale-px border crop. Returns the per-set averages.
 
+With ``val_lpips: true`` it also reports LPIPS (alex) on the uint8 images,
+on the device (``make_lpips``).
+
 Not ported yet, and refused rather than skipped: ``--mesh``,
-``--spatial_shard``, ``--device_metrics``, ``--metrics_pad_bucket`` and
-``val_lpips: true``.
+``--spatial_shard``, ``--device_metrics`` and ``--metrics_pad_bucket``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import argparse
 import logging
 import os
 import sys
+
+import numpy as np
 
 
 def main(argv=None):
@@ -50,11 +54,6 @@ def main(argv=None):
     from dasr_tpu_torch.models.registry import create_model
 
     opt = parse_srn_options(args.opt, is_train=False)
-    if opt.get("val_lpips"):
-        raise NotImplementedError(
-            "val_lpips: true is not yet ported (ROADMAP A.4, losses/lpips.py); "
-            "set val_lpips: false"
-        )
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     logger = logging.getLogger("base")
@@ -63,6 +62,7 @@ def main(argv=None):
     model = create_model(opt, device)
     model.init()
     model.load()
+    lpips_fn = make_lpips(device) if opt.get("val_lpips") else None
 
     averages = {}
     for _, dataset_opt in sorted((opt.get("datasets") or {}).items()):
@@ -81,13 +81,14 @@ def main(argv=None):
             if "HR" not in data:
                 logger.info(f"{i + 1:3d} - {base}")
                 continue
-            m = sr_metrics(to_uint8(sr), to_uint8(data["HR"]), opt.get("scale", 4))
+            m = sr_metrics(to_uint8(sr), to_uint8(data["HR"]), opt.get("scale", 4), lpips_fn)
             per_image.append(m)
             logger.info(
                 f"{i + 1:3d} - {base:25s} PSNR: {m['psnr']:.6f} dB; "
                 f"SSIM: {m['ssim']:.6f}"
                 + (f"; PSNR_Y: {m['psnr_y']:.6f} dB; SSIM_Y: {m['ssim_y']:.6f}"
                    if "psnr_y" in m else "")
+                + (f"; LPIPS: {m['lpips']:.6f}" if "lpips" in m else "")
             )
 
         if per_image:
@@ -99,7 +100,28 @@ def main(argv=None):
             )
             if "psnr_y" in avg:
                 logger.info(f"\tPSNR_Y: {avg['psnr_y']:.6f} dB; SSIM_Y: {avg['ssim_y']:.6f}")
+            if "lpips" in avg:
+                logger.info(f"\tLPIPS: {avg['lpips']:.6f}")
     return averages
+
+
+def make_lpips(device):
+    """``fn(a, b)`` -> LPIPS (alex, f32) of two (1, H, W, 3) numpy images in
+    [-1, 1], computed on ``device`` (``default_lpips``'s weights)."""
+    import torch
+
+    from dasr_tpu_torch.losses.lpips import default_lpips
+
+    lpips = default_lpips("alex").to(device)
+
+    @torch.no_grad()
+    def compute(a, b):
+        def t(v):
+            return torch.from_numpy(np.ascontiguousarray(v)).permute(0, 3, 1, 2).to(device)
+
+        return float(lpips(t(a), t(b)).reshape(()))
+
+    return compute
 
 
 if __name__ == "__main__":

@@ -5,9 +5,16 @@ dicts of RGB float32 HWC numpy arrays in [0, 1]:
     LR; modcrop at test; random aligned crops + flip/rot at train
     (codes/SRN/data/LRHR_dataset.py:10-128)
   * ``LRDataset``     — 'LR' (codes/SRN/data/LR_dataset.py:7-39)
+  * ``DASRUnpairedDataset`` — 'LRHR_wavelet_unpair_fake_weights_EQ', the
+    DASR training mode: fake LR + aligned DDM + paired HR + random real LR
+    + random unpaired HR, joint augment
+    (codes/SRN/data/LRHR_wavelet_unpairEq_fake_w_dataset.py)
+  * ``DASRUnpairedEqDataset`` — 'LRHR_wavelet_unpair_fake_real_w_EQ': also
+    the per-real-LR DDMs (LRHR_wavelet_unpairEq_dataset.py)
 
-Copied from ``dasr_tpu.data.datasets``. The unpaired training modes come
-with the training slice (ROADMAP A.5).
+Copied from ``dasr_tpu.data.datasets``: the same draws from the same
+per-item ``np.random.Generator``, so the port's batches are the JAX
+package's. The other unpaired modes wait for their trainers (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from dasr_tpu_torch.data.io import list_images, read_img
+from dasr_tpu_torch.data.io import list_images, load_ddm, read_img, resize_linear
 from dasr_tpu_torch.ops.metrics import modcrop
 from dasr_tpu_torch.ops.resize import imresize_np
 
@@ -37,6 +44,13 @@ def _augment(imgs, rng, hflip=True, rot=True):
         return np.ascontiguousarray(img)
 
     return [one(i) for i in imgs]
+
+
+def _rand_crop(img, size, rng):
+    h, w = img.shape[:2]
+    top = rng.integers(0, max(0, h - size) + 1)
+    left = rng.integers(0, max(0, w - size) + 1)
+    return img[top : top + size, left : left + size, :], (int(top), int(left))
 
 
 def _rand_crop_aligned(lr_img, lr_size, rng, hr_shape, scale):
@@ -106,7 +120,105 @@ class LRDataset:
         return {"LR": read_img(self.paths_lr[index]), "LR_path": self.paths_lr[index]}
 
 
-_REGISTRY = {"LRHR": PairedDataset, "LR": LRDataset}
+class DASRUnpairedDataset:
+    """'LRHR_wavelet_unpair_fake_weights_EQ' — the DASR training mode."""
+
+    def __init__(self, opt: Dict):
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.scale = opt.get("scale", 4)
+        self.hr_size = opt.get("HR_size", 128)
+        if opt.get("transfer_uint8"):
+            raise NotImplementedError("transfer_uint8 is not yet ported (ROADMAP A.5)")
+        self._read = read_img
+        self.paths_hr = list_images(opt["dataroot_HR"])
+        self.paths_fake_lr = list_images(opt["dataroot_fake_LR"])
+        self.paths_real_lr = list_images(opt["dataroot_real_LR"])
+        self.paths_fake_w = (
+            list_images(opt["dataroot_fake_weights"])
+            if opt.get("dataroot_fake_weights")
+            else None
+        )
+
+    def __len__(self):
+        return len(self.paths_fake_lr)
+
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng(index)
+        lr_fake = self._read(self.paths_fake_lr[index])
+        self._last_real_index = int(rng.integers(len(self.paths_real_lr)))
+        lr_real = self._read(self.paths_real_lr[self._last_real_index])
+        fake_w = None
+        if self.paths_fake_w is not None:
+            fake_w = load_ddm(self.paths_fake_w[index])
+            # DDM -> fake-LR size (reference: fake_w_dataset.py:66, bilinear)
+            fake_w = resize_linear(fake_w, lr_fake.shape[1], lr_fake.shape[0])
+        hr = self._read(self.paths_hr[index])
+        hr_unpair = self._read(self.paths_hr[int(rng.integers(len(self.paths_hr)))])
+
+        if self.phase == "train":
+            lr_size = self.hr_size // self.scale
+            lr_fake_c, (t, l) = _rand_crop_aligned(lr_fake, lr_size, rng, hr.shape, self.scale)
+            if fake_w is not None:
+                fake_w = fake_w[t : t + lr_size, l : l + lr_size, :]
+            lr_real, _ = _rand_crop(lr_real, lr_size, rng)
+            hr = hr[
+                t * self.scale : t * self.scale + self.hr_size,
+                l * self.scale : l * self.scale + self.hr_size,
+                :,
+            ]
+            hr_unpair, _ = _rand_crop(hr_unpair, self.hr_size, rng)
+            imgs = [lr_fake_c, lr_real, hr, hr_unpair] + ([fake_w] if fake_w is not None else [])
+            imgs = _augment(
+                imgs, rng, self.opt.get("use_flip", True), self.opt.get("use_rot", True)
+            )
+            lr_fake, lr_real, hr, hr_unpair = imgs[:4]
+            if fake_w is not None:
+                fake_w = imgs[4]
+        item = {
+            "LR_fake": lr_fake,
+            "LR_real": lr_real,
+            "HR": hr,
+            "HR_unpair": hr_unpair,
+            "LR_fake_path": self.paths_fake_lr[index],
+            "HR_path": self.paths_hr[index],
+        }
+        if fake_w is not None:
+            item["fake_w"] = fake_w
+        return item
+
+
+class DASRUnpairedEqDataset(DASRUnpairedDataset):
+    """'LRHR_wavelet_unpair_fake_real_w_EQ': like the DASR mode but also
+    loads per-real-LR DDMs (reference: codes/SRN/data/
+    LRHR_wavelet_unpairEq_dataset.py — DSN --including_source_ddm output)."""
+
+    def __init__(self, opt: Dict):
+        super().__init__(opt)
+        self.paths_real_w = (
+            list_images(opt["dataroot_real_weights"])
+            if opt.get("dataroot_real_weights")
+            else None
+        )
+
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng(index)
+        item = super().__getitem__(index, rng)
+        if self.paths_real_w is not None:
+            i_real = self._last_real_index % len(self.paths_real_w)
+            real_w = load_ddm(self.paths_real_w[i_real])
+            lr = item["LR_real"]
+            real_w = resize_linear(real_w, lr.shape[1], lr.shape[0])
+            item["real_w"] = real_w[: lr.shape[0], : lr.shape[1], :]
+        return item
+
+
+_REGISTRY = {
+    "LRHR": PairedDataset,
+    "LR": LRDataset,
+    "LRHR_wavelet_unpair_fake_weights_EQ": DASRUnpairedDataset,
+    "LRHR_wavelet_unpair_fake_real_w_EQ": DASRUnpairedEqDataset,
+}
 
 
 def create_dataset(opt: Dict):
@@ -114,7 +226,7 @@ def create_dataset(opt: Dict):
     mode = opt["mode"]
     if mode not in _REGISTRY:
         raise NotImplementedError(
-            f"Dataset [{mode}] is not ported yet: dasr_tpu_torch serves the "
-            "'LRHR' and 'LR' modes; the training modes come with ROADMAP A.5"
+            f"Dataset [{mode}] is not ported yet: dasr_tpu_torch has the modes "
+            f"{sorted(_REGISTRY)}; the others come with their trainers (ROADMAP A.9)"
         )
     return _REGISTRY[mode](opt)

@@ -121,3 +121,28 @@ def save_img(img: np.ndarray, path: str) -> None:
         arr = arr[:, :, ::-1]  # RGB -> BGR for cv2
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     cv2.imwrite(path, arr)
+
+
+def load_ddm(path: str) -> np.ndarray:
+    """Load a domain-distance map ``.npy`` to HW1 float32.
+
+    DSN saves DDMs as (1, 1, h, w) (reference:
+    create_dataset_modified.py:14-24,164); the SRN loader takes [0] and
+    transposes (LRHR_wavelet_unpairEq_fake_w_dataset.py:64).
+    """
+    arr = np.asarray(_decode_cached(path), dtype=np.float32)
+    while arr.ndim > 2 and arr.shape[0] == 1:
+        arr = arr[0]
+    if arr.ndim == 3:  # (1, h, w) -> (h, w)
+        arr = arr[0] if arr.shape[0] == 1 else arr[:, :, 0]
+    return arr[:, :, None]
+
+
+def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv2 bilinear resize (DDM -> LR-size alignment, reference:
+    ...fake_w_dataset.py:66). Same-size is the identity and is skipped."""
+    if img.shape[0] == h and img.shape[1] == w:
+        return img if img.ndim == 3 else img[:, :, None]
+    out = cv2.resize(img[:, :, 0] if img.ndim == 3 else img, (w, h),
+                     interpolation=cv2.INTER_LINEAR)
+    return out[:, :, None]

@@ -1,25 +1,27 @@
-"""Model registry — the inference facades of the serving path.
+"""Model registry — the facades of the serving and training paths.
 
 Counterpart of ``dasr_tpu.models.registry``: ``create_model(opt)`` keyed
 like the reference (codes/SRN/models/__init__.py:5-26) and ``define_G``
-(codes/SRN/models/networks.py:83-147). Ported so far: the generator side of
-'sr' (``SRModel``) and 'DASR' (``DASRModel``) with ``RRDB_net``; any other
-model, and any training call, raises ``NotImplementedError`` naming its
-ROADMAP queue item.
+(codes/SRN/models/networks.py:83-147). Ported so far: inference of 'sr'
+(``SRModel``) and 'DASR' (``DASRModel``) with ``RRDB_net``, and the DASR
+trainer (``DASRModel`` with ``is_train``); any other model or trainer
+raises ``NotImplementedError`` naming its ROADMAP queue item.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from dasr_tpu_torch.losses.lpips import default_lpips
 from dasr_tpu_torch.nn.generators import RRDBNet
 from dasr_tpu_torch.ops.tiled import forward_chop, pad_reflect, tiled_apply
 from dasr_tpu_torch.train import checkpoints
+from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 
 logger = logging.getLogger("base")
 
@@ -86,7 +88,7 @@ class _InferenceModel:
                     f"pretrain_model_G {path!r}: dasr_tpu_torch loads reference "
                     "*_G.pth files; orbax checkpoints are JAX-only"
                 )
-            checkpoints.load_rrdbnet_pth(self.g, path)
+            checkpoints.load_pth(self.g, path)
         return self
 
     def _apply_g(self, x):
@@ -126,37 +128,132 @@ class SRModel(_InferenceModel):
     _train_todo = "the 'sr' trainer is not ported yet (ROADMAP A.9)"
 
 
+def srn_config(opt: Dict) -> SRNConfig:
+    """SRNConfig from the options, with the JAX package's defaults."""
+    train = opt.get("train") or {}
+    net_g = opt.get("network_G") or {}
+    net_d = opt.get("network_D") or {}
+    return SRNConfig(
+        scale=opt.get("scale", 4),
+        nf=net_g.get("nf", 64), nb=net_g.get("nb", 23), gc=net_g.get("gc", 32),
+        d_in_nc=net_d.get("in_nc", 9), d_nf=net_d.get("nf", 64),
+        d_n_layers=net_d.get("n_layers", 2),
+        lr_g=train.get("lr_G", 1e-4), lr_d=train.get("lr_D", 1e-4),
+        beta1_g=train.get("beta1_G", 0.9), beta1_d=train.get("beta1_D", 0.9),
+        lr_steps=tuple(int(m) for m in (train.get("lr_steps") or (35000, 80000, 100000, 150000))),
+        lr_gamma=train.get("lr_gamma", 0.5),
+        fs=train.get("fs", "wavelet"),
+        fs_kernel_size=train.get("fs_kernel_size", 5) or 5,
+        norm=bool(train.get("norm", True)),
+        sup_LL=bool(train.get("sup_LL", True)),
+        pixel_weight=train.get("pixel_weight", 1.0),
+        pixel_LL_weight=train.get("pixel_LL_weight", 1.0),
+        pixel_criterion=train.get("pixel_criterion", "l1"),
+        feature_criterion=train.get("feature_criterion", "LPIPS"),
+        feature_weight=train.get("feature_weight", 1.0),
+        gan_type=train.get("gan_type", "vanilla"),
+        ragan=bool(train.get("ragan", False)),
+        gan_H_target=train.get("gan_H_target", 0.005),
+        gan_H_source=train.get("gan_H_source", 0.0) or 0.0,
+        multiweights=bool(opt.get("multiweights", True)),
+        g_update_inter=train.get("G_update_inter", 1) or 1,
+        d_update_inter=train.get("D_update_inter", 1) or 1,
+        seed=int(train.get("manual_seed", 0) or 0),
+        dtype=compute_dtype(opt),
+    )
+
+
 class DASRModel(_InferenceModel):
-    """'DASR' (reference: codes/SRN/models/DASR_model.py): its generator for
-    inference. The discriminators belong to training."""
+    """'DASR' (reference: codes/SRN/models/DASR_model.py). Without
+    ``is_train`` it holds the generator for inference; with it, an
+    ``SRNTrainer`` around the same generator, its discriminators, LPIPS
+    and optimizers (the reference's ``optimize_parameters``)."""
 
     chop_threshold = 320000  # DASR_model.py:337
-    _train_todo = "the DASR train step is not ported yet (ROADMAP A.4)"
+
+    def __init__(self, opt: Dict, device: torch.device):
+        super().__init__(opt, device)
+        self.trainer: Optional[SRNTrainer] = None
+        if opt.get("is_train"):
+            cfg = srn_config(opt)
+            lpips = None
+            if cfg.feature_weight > 0 and cfg.feature_criterion == "LPIPS":
+                lpips = default_lpips("alex", seed=cfg.seed, dtype=cfg.dtype,
+                                      backbone_path=(opt.get("path") or {}).get("lpips_backbone"))
+            self.trainer = SRNTrainer(cfg, self.device, g_model=self.g, lpips=lpips)
+
+    def init(self, seed: Optional[int] = None):
+        """Seeded weights (``train.manual_seed`` by default) on the device;
+        with a trainer, also the discriminators and optimizers."""
+        if self.trainer is None:
+            return super().init(seed or 0)
+        self.trainer.init_state(seed)
+        return self
 
     def load(self):
         paths = self.opt.get("path") or {}
         if paths.get("resume_state"):
             raise NotImplementedError(
-                "resume_state is a training state; resuming is not ported yet (ROADMAP A.5)"
+                "resume_state is not yet ported (ROADMAP A.5): the port saves its train "
+                "state but does not resume from it or from a reference .state"
             )
-        for key in ("pretrain_model_D_target", "pretrain_model_D_source"):
-            if paths.get(key):
-                logger.info(f"{key} not loaded: the inference facade holds G only")
-        return super().load()
+        if self.trainer is None:
+            for key in ("pretrain_model_D_target", "pretrain_model_D_source"):
+                if paths.get(key):
+                    logger.info(f"{key} not loaded: the inference facade holds G only")
+            return super().load()
+        super().load()
+        st = self.trainer.state
+        for key, net in (("pretrain_model_D_target", st.d_target),
+                         ("pretrain_model_D_source", st.d_source)):
+            if paths.get(key) and net is not None:
+                checkpoints.load_pth(net.net, paths[key])
+        return self
+
+    def _trainer(self) -> SRNTrainer:
+        if self.trainer is None or self.trainer.state is None:
+            raise RuntimeError("train_step needs a DASR model created with is_train and init()")
+        return self.trainer
+
+    def train_step(self, batch: Dict) -> Dict[str, float]:
+        """One step on a host batch (NHWC numpy arrays or tensors, as the
+        Loader gives them), with the reference's G/D update cadence
+        (DASR_model.py; ``G_update_inter``/``D_update_inter``). Returns the
+        metrics as floats."""
+        tr = self._trainer()
+        c = tr.cfg
+        dev = {}
+        for k in ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w"):
+            v = torch.as_tensor(batch[k])
+            if v.dtype != torch.float32:
+                raise ValueError(f"train_step: {k} must be float32 in [0, 1], got {v.dtype}")
+            dev[k] = v.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
+        step = tr.state.step
+        metrics = tr.train_step(dev, do_g=step % c.g_update_inter == 0,
+                                do_d=step % c.d_update_inter == 0)
+        values = torch.stack(list(metrics.values())).tolist()  # one device sync
+        return dict(zip(metrics, values))
+
+    @property
+    def step(self) -> int:
+        return self._trainer().state.step
+
+    def save(self, ckpt_dir: str, iter_step: int) -> str:
+        return checkpoints.save_train_state(ckpt_dir, self._trainer().state, iter_step)
+
+    def save_reference_formats(self, out_dir: str, iter_step: int) -> str:
+        return checkpoints.save_reference_formats(out_dir, self._trainer().state, iter_step)
 
 
 def create_model(opt: Dict, device: torch.device = torch.device("cpu")):
     """Trainer registry (reference: codes/SRN/models/__init__.py:5-26)."""
     model = opt.get("model")
-    if opt.get("is_train"):
-        raise NotImplementedError(
-            f"training [{model}] is not ported yet (ROADMAP A.4); "
-            "dasr_tpu_torch serves inference only"
-        )
-    if model == "sr":
-        return SRModel(opt, device)
     if model == "DASR":
         return DASRModel(opt, device)
+    if model == "sr":
+        if opt.get("is_train"):
+            raise NotImplementedError(SRModel._train_todo)
+        return SRModel(opt, device)
     if model in _TRAINERS:
         raise NotImplementedError(f"Model [{model}] is not ported yet (ROADMAP A.9)")
     raise NotImplementedError(f"Model [{model}] not recognized.")

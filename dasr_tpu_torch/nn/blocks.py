@@ -9,8 +9,9 @@ Counterpart of ``dasr_tpu.nn.blocks``:
     module tree carries the reference's parameter names.
 
 ``RDB5C`` runs ``ops.rdb.fused_rdb`` (the hand-written kernel on the card,
-its plain version on the CPU); with a norm layer, another activation or
-another conv order it runs the literal dense chain of ``nn`` layers. The
+its plain version on the CPU; under grad mode through its autograd
+Function); with a norm layer, another activation or another conv order it
+runs the literal dense chain of ``nn`` layers. The
 grouped-scatter regrouping of the JAX module is a TPU rewrite and is not
 ported.
 """
@@ -58,8 +59,11 @@ class RDB5C(nn.Module):
     """Residual Dense Block, 5 convs (block.py:254-286); out = x + 0.2 * conv5.
 
     ``conv{k}`` are reference-named conv blocks (OIHW f32 weights). The
-    kernel path takes the same weights as HWIO in the working dtype; they
-    are prepared once per parameter version and cached here."""
+    kernel path takes the same weights as HWIO in the working dtype. Under
+    grad mode they are differentiable casts of the parameters, made on
+    every call, so autograd routes the gradients back to them; otherwise
+    they are prepared once per parameter version (an optimizer step bumps
+    ``_version``) and cached here."""
 
     def __init__(self, nc: int = 64, gc: int = 32, norm_type: Optional[str] = None,
                  act_type: str = "leakyrelu", mode: str = "CNA"):
@@ -81,6 +85,11 @@ class RDB5C(nn.Module):
     def kernel_weights(self, dtype):
         """(HWIO kernels in ``dtype``, f32 biases) for ``fused_rdb``."""
         convs = self.convs()
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            return (
+                tuple(c.weight.permute(2, 3, 1, 0).to(dtype).contiguous() for c in convs),
+                tuple(c.bias.float() for c in convs),
+            )
         key = (dtype,) + tuple(
             (p.device, p.data_ptr(), p._version) for c in convs for p in (c.weight, c.bias)
         )
@@ -100,7 +109,7 @@ class RDB5C(nn.Module):
             return x + self.conv5(torch.cat(feats, 1)) * 0.2
         ks, bs = self.kernel_weights(x.dtype)
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        return fused_rdb(nhwc, ks, bs, params=self.parameters()).permute(0, 3, 1, 2)
+        return fused_rdb(nhwc, ks, bs).permute(0, 3, 1, 2)
 
 
 class RRDB(nn.Module):

@@ -1,5 +1,5 @@
-"""Residual Dense Block (RDB5C) forward: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""Residual Dense Block (RDB5C): the hand-written CUDA kernel, its plain
+PyTorch version, and the autograd Function that trains through the kernel.
 
 What it computes: exactly ``dasr_tpu.ops.pallas_rdb._scatter_reference``.
 For k = 1..4, x_k = lrelu_0.2(conv3x3_k([x, x_1..x_{k-1}]) + b_k), rounded
@@ -9,7 +9,13 @@ once. Every conv is SAME with zero padding.
 
 Which TPU kernel it replaces: ``dasr_tpu/ops/pallas_rdb.py:_rdb_kernel``,
 launched by ``_fused_rdb_impl`` (the one ``pl.pallas_call`` of the JAX
-package), forward only. The backward comes with the training slice.
+package), and the custom VJP around it (``pallas_rdb.py:276-294``).
+
+Backward: as in JAX, the VJP of the stock dense chain (``rdb_chain``, the
+counterpart of ``_scatter_reference`` in the working type: convs in the
+working type, f32 sums of the level terms, rounding where it rounds),
+recomputed from the saved input and weights. On the card its convs run on
+cuDNN. The JAX package has no backward kernel, so neither has the port.
 
 What bounds it on the H100: arithmetic. The 69 RDBs of the x4 RRDBNet
 (23 RRDBs x 3) are 33.1 of its 35.9 MFLOP per LR pixel, about 2.2 TFLOP per
@@ -72,6 +78,48 @@ network_f32         1e-4    0       the full nb 23 network with the kernel vs th
                                     network on the plain version, f32 on the card; the
                                     JAX-vs-torch CPU check of the reference reached
                                     3.8e-5 at full size (PARITY.md).
+grad_f32            0       1e-2    the Function (kernel forward, VJP of the f32
+                                    ``rdb_chain`` on cuDNN) vs autograd through the plain
+                                    version (cuDNN off) on the same f32 tensors on the
+                                    card: dL/dx and the ten parameter gradients, each
+                                    held in the Frobenius norm, |got - want| <= rtol
+                                    |want| (a weight gradient sums up to 12288
+                                    products, so an elementwise limit says little).
+                                    Not a precision limit: a pre-activation within
+                                    rounding of 0 takes the other slope of the leaky
+                                    ReLU in one computation and not in the other, and
+                                    one such element moves an upstream gradient by up
+                                    to ~1e-3 of its norm; on the H100 f32 gradients
+                                    differed from the f64 one by up to 1.9e-3 that way,
+                                    plain version included, and cuDNN's f32 backward
+                                    of the plain version's convs by up to 4.7e-3 (TF32
+                                    off), so it runs with cuDNN off. A wrong gradient
+                                    is off by O(1).
+grad_bf16           0       1e-1    the same at bf16: two bf16 computations of one
+                                    gradient, neither exact. The chain rounds every conv
+                                    output and every level's gradient to bf16 (2^-9
+                                    relative each), the plain version only where the
+                                    forward rounds; against the f64 gradient of the
+                                    unrounded function both are off by 1-5% (CPU,
+                                    oneDNN bf16 convs), and they differed from each
+                                    other by 0.4-4.9%.
+train_loss_f32      2e-5    2e-3    three f32 DASR steps at nb 2, full width, on the
+                                    card with the kernel vs with the plain version: the
+                                    limits of the CPU check against the JAX trainer.
+train_update_f32    0       5e-2    that run's three-step update of each network's
+                                    params, dtheta = theta_3 - theta_0, in the Frobenius
+                                    norm. Not elementwise: Adam divides each gradient
+                                    element by its own running RMS, so an element whose
+                                    gradient lies within rounding of 0 moves by up to lr
+                                    (1e-4) a step whichever way the rounding tips it; on
+                                    the H100 179 of D_target's 668737 params differed by
+                                    more than 2e-5 (up to 3.6e-4), which made 7.4e-3 of
+                                    its update's norm (G: 5.4e-5), while the CPU check
+                                    against JAX (nf 16) holds 2e-5 elementwise. A wrong
+                                    gradient moves dtheta by O(1) of its norm.
+train_moment_f32    0       1e-2    that run's Adam first moments after the three steps
+                                    (a weighted sum of the step gradients, linear in
+                                    them, where Adam's update is not): held as grad_f32.
 psnr_db             1e-2    0       srn_test per-set PSNR (and PSNR_Y), port vs JAX:
                                     an f32 difference can flip a uint8 rounding.
 ssim                1e-4    0       srn_test per-set SSIM (and SSIM_Y), same reason.
@@ -91,6 +139,11 @@ TOLERANCES = {
     "jax_blocks": (1e-5, 0.0),
     "jax_network": (1e-4, 0.0),
     "network_f32": (1e-4, 0.0),
+    "grad_f32": (0.0, 1e-2),
+    "grad_bf16": (0.0, 1e-1),
+    "train_loss_f32": (2e-5, 2e-3),
+    "train_update_f32": (0.0, 5e-2),
+    "train_moment_f32": (0.0, 1e-2),
     "psnr_db": (1e-2, 0.0),
     "ssim": (1e-4, 0.0),
 }
@@ -126,23 +179,44 @@ def fused_rdb_reference(x, kernels, biases):
     return out.permute(0, 2, 3, 1)
 
 
-def fused_rdb(x, kernels, biases, params=()):
-    """One RDB5C forward: x (B, H, W, nc) NHWC -> (B, H, W, nc).
+def rdb_chain(x, kernels, biases):
+    """The stock dense chain in the working type, differentiable: the
+    counterpart of ``dasr_tpu.ops.pallas_rdb._scatter_reference``.
 
-    ``kernels``: the five HWIO conv kernels (3, 3, nc + k gc, gc or nc);
-    ``biases``: their (cout,) biases; ``params``: the parameters they were
-    prepared from, if any, which must not ask for a gradient either. A CPU
-    tensor goes to ``fused_rdb_reference``. A CUDA tensor launches the
-    kernel, once per level, or raises on what the kernel does not take:
-    there is no fallback.
-    """
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *kernels, *biases, *params)
-    ):
-        raise NotImplementedError(
-            "fused_rdb has no backward yet (ROADMAP B: the backward kernel "
-            "comes with the training slice); call it under torch.no_grad()"
-        )
+    Each source (x, x_1..x_4) is convolved once with its per-source weight
+    block (the concatenated input-channel slices of every later level), in
+    x's dtype; the level terms are summed in f32 with the bias, and x_1..x_4
+    and the output are rounded to the working type where JAX rounds them.
+    x (B, H, W, nc) NHWC; kernels HWIO in x's dtype; biases f32 (cout,).
+    This is what the backward differentiates; on the card its convs run on
+    cuDNN (channels_last)."""
+    dt = x.dtype
+    nc, gc = x.shape[-1], kernels[0].shape[-1]
+    lo = [0] + [nc + s * gc for s in range(4)]
+    width = [nc] + [gc] * 4
+
+    def conv(v, s):
+        w = torch.cat([kernels[j][:, :, lo[s]:lo[s] + width[s], :] for j in range(s, 5)], -1)
+        w = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return F.conv2d(v, w, padding=1).float()
+
+    def bias(k):
+        return biases[k].float().view(1, -1, 1, 1)
+
+    src = x.permute(0, 3, 1, 2)
+    terms = []  # terms[s]: the f32 conv of source s, cout of levels s..5
+    for s in range(5):
+        terms.append(conv(src, s))
+        # level s + 1 sums the slice that each earlier source gives it
+        v = sum(t[:, (s - i) * gc:(s - i) * gc + (gc if s < 4 else nc)]
+                for i, t in enumerate(terms)) + bias(s)
+        if s < 4:
+            src = F.leaky_relu(v, 0.2).to(dt)
+    out = (x.permute(0, 3, 1, 2).float() + 0.2 * v).to(dt)
+    return out.permute(0, 2, 3, 1)
+
+
+def _forward(x, kernels, biases):
     if x.device.type == "cpu":
         return fused_rdb_reference(x, kernels, biases)
     if x.device.type != "cuda":
@@ -150,7 +224,47 @@ def fused_rdb(x, kernels, biases, params=()):
     return _launch(x, kernels, biases)
 
 
-fused_rdb.launches = 0  # kernel launches on the card since the last reset
+class _FusedRDB(torch.autograd.Function):
+    """``jax.custom_vjp`` of ``pallas_rdb.fused_rdb``: the forward runs the
+    kernel (its plain version on the CPU) and keeps x and the ten weights,
+    as JAX's ``_fwd`` does; the backward recomputes ``rdb_chain`` from them
+    and returns its VJP, as JAX's ``_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        return _forward(x, weights[:5], weights[5:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            out = rdb_chain(leaves[0], leaves[1:6], leaves[6:])
+            # grad may arrive as a permuted view of an NCHW gradient
+            got = iter(torch.autograd.grad(out, wanted, grad.contiguous()))
+        return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+def fused_rdb(x, kernels, biases):
+    """One RDB5C: x (B, H, W, nc) NHWC -> (B, H, W, nc).
+
+    ``kernels``: the five HWIO conv kernels (3, 3, nc + k gc, gc or nc) in
+    x's dtype; ``biases``: their f32 (cout,) biases. A CPU tensor goes to
+    ``fused_rdb_reference``. A CUDA tensor launches the kernel, once per
+    level, or raises on what the kernel does not take: there is no
+    fallback. When a gradient is wanted, the call goes through
+    ``_FusedRDB``, whose backward is the VJP of ``rdb_chain``.
+    """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *kernels, *biases)
+    ):
+        return _FusedRDB.apply(x, *kernels, *biases)
+    return _forward(x, kernels, biases)
+
+
+fused_rdb.launches = 0  # forward kernel launches on the card since the last reset
 
 
 def _launch(x, kernels, biases):

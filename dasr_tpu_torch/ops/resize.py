@@ -1,11 +1,15 @@
-"""MATLAB bicubic resize on the host (numpy).
+"""Resizing as dense per-axis resampling matrices.
 
-Copied from the numpy part of ``dasr_tpu.ops.resize`` (reference:
-codes/DSN/utils.py:37-166, codes/SRN/data/util.py:298-434): one dense
-resampling matrix per axis with the symmetric boundary folded in, applied
-as two einsums. ``PairedDataset`` uses it for on-the-fly LR images when
-``dataroot_LR`` is null. The device version (``imresize``) waits for the
-DSN slice.
+* MATLAB bicubic on the host (numpy), copied from ``dasr_tpu.ops.resize``
+  (reference: codes/DSN/utils.py:37-166, codes/SRN/data/util.py:298-434):
+  one matrix per axis with the symmetric boundary folded in, applied as two
+  einsums. ``PairedDataset`` uses it for on-the-fly LR images when
+  ``dataroot_LR`` is null. The device version (``imresize``) waits for the
+  DSN slice.
+* ``bilinear_resize``: torch ``F.interpolate(mode='bilinear',
+  align_corners=False)`` weights as two matrix products on NCHW tensors, as
+  the JAX package computes it. The DASR step upsamples the DDM to HR size
+  with it (``srn_trainer.py:188``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import functools
 import math
 
 import numpy as np
+import torch
 
 
 def _cubic(x: np.ndarray) -> np.ndarray:
@@ -84,3 +89,31 @@ def imresize_np(img: np.ndarray, scale: float, antialiasing: bool = True,
     out = np.einsum("oh,...hwc->...owc", mh, img, optimize=True)
     out = np.einsum("pw,...hwc->...hpc", mw, out, optimize=True)
     return np.clip(out, 0.0, 1.0) if clip else out
+
+
+@functools.lru_cache(maxsize=256)
+def _bilinear_matrix(in_length: int, out_length: int):
+    """torch F.interpolate(mode='bilinear', align_corners=False) weights."""
+    mat = np.zeros((out_length, in_length), dtype=np.float32)
+    if in_length == 1:
+        mat[:, 0] = 1.0
+        return mat
+    ratio = in_length / out_length
+    dst = np.arange(out_length, dtype=np.float64)
+    src = (dst + 0.5) * ratio - 0.5
+    src = np.clip(src, 0, in_length - 1)
+    i0 = np.floor(src).astype(np.int64)
+    i1 = np.minimum(i0 + 1, in_length - 1)
+    frac = src - i0
+    rows = np.arange(out_length)
+    np.add.at(mat, (rows, i0), (1.0 - frac).astype(np.float32))
+    np.add.at(mat, (rows, i1), frac.astype(np.float32))
+    return mat
+
+
+def bilinear_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of ...HW tensors (NCHW), torch align_corners=False
+    parity, in the input's dtype."""
+    mh = torch.from_numpy(_bilinear_matrix(img.shape[-2], out_h)).to(img.device, img.dtype)
+    mw = torch.from_numpy(_bilinear_matrix(img.shape[-1], out_w)).to(img.device, img.dtype)
+    return mh @ img @ mw.T

@@ -101,12 +101,17 @@ def test_pixelshuffle_block_matches_flax(rng):
 
 
 def test_rdb5c_caches_kernel_weights_per_parameter_version():
+    """The cache serves no_grad calls; under grad mode the weights are
+    fresh differentiable casts of the parameters."""
     m = blocks.RDB5C(32, 32)
-    first = m.kernel_weights(torch.float32)
-    assert m.kernel_weights(torch.float32) is first
     with torch.no_grad():
+        first = m.kernel_weights(torch.float32)
+        assert m.kernel_weights(torch.float32) is first
         m.conv1[0].weight.add_(1.0)
-    second = m.kernel_weights(torch.float32)
-    assert second is not first
-    torch.testing.assert_close(second[0][0], m.conv1[0].weight.permute(2, 3, 1, 0))
-    assert m.kernel_weights(torch.bfloat16)[0][0].dtype == torch.bfloat16
+        second = m.kernel_weights(torch.float32)
+        assert second is not first
+        torch.testing.assert_close(second[0][0], m.conv1[0].weight.permute(2, 3, 1, 0))
+        assert m.kernel_weights(torch.bfloat16)[0][0].dtype == torch.bfloat16
+    ks, bs = m.kernel_weights(torch.float32)
+    assert ks[0].requires_grad and bs[0] is m.conv1[0].bias
+    assert m.kernel_weights(torch.float32)[0][0] is not ks[0]

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of dasr_tpu_torch, and
-serving a tiny corpus through its CLI, loads neither jax nor dasr_tpu.
+"""The port stands alone: importing every module of dasr_tpu_torch, serving a
+tiny corpus through its srn_test CLI and training two steps through its
+srn_train CLI load neither jax nor dasr_tpu.
 chip_smoke.py refuses to run without a card and outside the repository.
 
 Subprocesses, because this test process already imported JAX (conftest)."""
@@ -38,6 +39,13 @@ with open(os.path.join(root, "c.json"), "w") as f:
     json.dump(cfg, f)
 avg = srn_test.main(["-opt", os.path.join(root, "c.json"), "--device", "cpu"])
 assert np.isfinite(avg["s"]["psnr"])
+sys.path.insert(0, "tests")
+from test_torch_srn_train_cli import train_config, write_corpus
+from dasr_tpu_torch.cli import srn_train
+troot = os.path.join(root, "train")
+steps, last = srn_train.main(["-opt", train_config(troot, write_corpus(troot, n=2), niter=2),
+                              "--device", "cpu"])
+assert steps == 2 and np.isfinite(last["loss/l_g_total"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """

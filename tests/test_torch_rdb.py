@@ -88,23 +88,36 @@ def test_cpu_path_launches_no_kernel(rng):
 
 
 def test_grad_mode_raises(rng):
+    """Under grad mode fused_rdb goes through its autograd Function, which
+    keeps the no-fallback rule: a device without a kernel still raises."""
     kernels, biases = _params(rng, nc=32, gc=32)
-    x = torch.zeros((1, 8, 8, 32), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fused_rdb(x, [torch.from_numpy(k) for k in kernels], [torch.from_numpy(b) for b in biases])
+    ks = [torch.from_numpy(k) for k in kernels]
+    bs = [torch.from_numpy(b) for b in biases]
+    x = torch.zeros((1, 8, 8, 32), device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_rdb(x, ks, bs)
+    x = torch.from_numpy(rng.random((1, 8, 8, 32), dtype=np.float32)).requires_grad_()
+    out = fused_rdb(x, ks, bs)
+    assert out.grad_fn is not None and "FusedRDB" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        torch.testing.assert_close(out.detach(), fused_rdb(x, ks, bs))
 
 
 def test_grad_mode_raises_for_module_params(rng):
-    """RDB5C hands the kernel detached weights, so fused_rdb checks the
-    parameters they came from."""
+    """RDB5C whose parameters ask for a gradient routes through the autograd
+    Function (the gradient test is in test_torch_rdb_grad.py); on a device
+    with no kernel it raises, under grad mode as under no_grad."""
     from dasr_tpu_torch.nn.blocks import RDB5C
 
     block = RDB5C(nc=32, gc=32)
     x = torch.from_numpy(rng.random((1, 32, 8, 8), dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="backward"):
-        block(x)
+    out = block(x)
+    assert out.requires_grad and out.shape == x.shape
     with torch.no_grad():
-        assert block(x).shape == x.shape
+        torch.testing.assert_close(out.detach(), block(x))
+    block.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        block(torch.zeros((1, 32, 8, 8), device="meta"))
 
 
 def test_unsupported_device_raises(rng):

@@ -48,7 +48,7 @@ def test_pth_round_trip_matches_jax(rng, tmp_path):
     variables, want = _jax_net(16, 8, x)
     path = tmp_path / "net_G.pth"
     torch.save(export_params_to_state_dict(variables, rrdbnet_key_map(NB)), path)
-    net = checkpoints.load_rrdbnet_pth(RRDBNet(nf=16, nb=NB, gc=8), str(path))
+    net = checkpoints.load_pth(RRDBNet(nf=16, nb=NB, gc=8), str(path))
     np.testing.assert_allclose(_port_out(net, x), want, atol=ATOL, rtol=0)
 
 

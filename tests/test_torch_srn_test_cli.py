@@ -82,12 +82,27 @@ def test_unported_flags_are_refused(corpus, flag):
 
 
 def test_val_lpips_is_refused(corpus):
+    """val_lpips is no longer refused: srn_test reports LPIPS (alex, the
+    seeded default weights) beside PSNR/SSIM, and its value is the port's
+    LPIPS on the same uint8 images."""
+    from dasr_tpu_torch.cli.srn_test import make_lpips
+    from dasr_tpu_torch.data.io import read_img
+    from dasr_tpu_torch.eval.evaluate import im2tensor_range, to_uint8
+
     path = _config(corpus, "lpips", False)
     cfg = json.loads(open(path).read())
     cfg["val_lpips"] = True
     open(path, "w").write(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="val_lpips"):
-        srn_test.main(["-opt", path, "--device", "cpu"])
+    got = srn_test.main(["-opt", path, "--device", "cpu"])["synth"]
+    assert set(got) == {"psnr", "ssim", "psnr_y", "ssim_y", "lpips"}
+    fn = make_lpips(torch.device("cpu"))
+    out = corpus / "lpips" / "results" / "lpips" / "synth"
+    want = np.mean([
+        fn(im2tensor_range(to_uint8(read_img(str(out / f"img_{i}.png"))))[None],
+           im2tensor_range(to_uint8(read_img(str(corpus / "hr" / f"img_{i}.png"))))[None])
+        for i in range(3)
+    ])
+    assert np.isfinite(got["lpips"]) and abs(got["lpips"] - want) < 1e-6
 
 
 def test_dasr_model_serves_and_other_models_are_refused(corpus):
@@ -100,12 +115,15 @@ def test_dasr_model_serves_and_other_models_are_refused(corpus):
     assert isinstance(model, DASRModel) and model.chop_threshold == 320000
     sr = model.init().load().test(np.zeros((6, 5, 3), np.float32))
     assert sr.shape == (24, 20, 3) and np.isfinite(sr).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    with pytest.raises(RuntimeError, match="is_train"):
         model.train_step({})
     for name in ("srgan", "De_Resnet", "DASR_Adaptive_Model"):
         opt["model"] = name
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             create_model(opt)
-    opt["model"], opt["is_train"] = "DASR", True
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    opt["model"], opt["is_train"] = "sr", True
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         create_model(opt)
+    # the DASR trainer is ported (ROADMAP A.4): training builds its discriminator
+    opt["model"] = "DASR"
+    assert create_model(opt).trainer is not None
