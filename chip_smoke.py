@@ -7,11 +7,16 @@ Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
 
 1. build  - nvcc builds dasr_tpu_torch/csrc into build/dasr_tpu_torch/.
-2. kernel - fused_rdb on the card vs its plain PyTorch version on the same
-            tensors (nc 64, gc 32; f32 and bf16; the three test shapes and
-            every shape the serve and train phases give the kernel; 5-px
-            border band), and the bf16 kernel also vs the f32 computation on
-            the same bf16-rounded inputs.
+2. kernel - the shared-memory plan compiled into the bf16 kernel vs
+            ops/rdb.py:WgmmaPlan, which the CPU tests emulate; fused_rdb on
+            the card vs its plain PyTorch version on the same tensors (nc
+            64, gc 32; f32 and bf16; the test shapes and every shape the
+            serve and train phases give the kernel, which take both of the
+            bf16 kernel's tiles; 5-px border band), and the bf16 kernel
+            also vs the f32 computation on the same bf16-rounded inputs.
+            At TIMED_SHAPES the bf16 kernel's time per RDB and per level,
+            TFLOP/s, bound and share of it, timed in turns with cuDNN's
+            bf16 dense chain.
 3. serve  - the port's srn_test CLI on a synthetic LRHR set with a
             full-width x4 RRDB_net (nf 64, nb 23, gc 32, seeded weights
             written to a reference-named .pth), plain and chopped; the
@@ -19,8 +24,10 @@ CPU or to a plain version):
             shape they gave it was checked in phase 2; the full network with
             the kernel vs the plain version at f32; ms/image, output Mpix/s,
             the RDB kernels' device time inside the forward and the
-            device's idle share (torch.profiler), and peak memory. It
-            needs phase 2, which it then runs too.
+            device's idle share (torch.profiler), and peak memory; for
+            information, the same forward replayed from a CUDA graph, in
+            turns with the eager one. It needs phase 2, which it then runs
+            too.
 4. grad   - fused_rdb's autograd Function on the card (kernel forward, VJP
             of the stock dense chain) vs autograd through the plain version
             on the same tensors: the output, dL/dx and the ten parameter
@@ -37,7 +44,8 @@ CPU or to a plain version):
             Adam's first moments); train ms/step (CUDA events, median) and
             the host's time to issue a step, images/s, peak memory, and,
             in turns with it for information, the same step on the stock
-            bf16 chain; the device's busy time per step (torch.profiler),
+            bf16 chain; the host's time per step inside the kernel's launch
+            wrapper; the device's busy time per step (torch.profiler),
             the RDB kernels' share and the idle share.
             It needs phases 2 and 4, which it then runs too.
 
@@ -59,7 +67,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NC, GC, NB = 64, 32, 23  # the published DASR generator's widths
-KERNEL_SHAPES = ((1, 37, 53), (2, 64, 64), (8, 128, 128))
+# the test shapes: ragged with the 8x8 tile, B > 1, ragged with B > 1 and the
+# 16x16 tile, and the kernel-report shape
+KERNEL_SHAPES = ((1, 37, 53), (2, 64, 64), (4, 100, 90), (8, 128, 128))
 # what the serve phase gives the kernel: the 256x256 and 339x510 images whole,
 # and chopped into 160x160 tiles (128 + 2 x 16 halo), 2 x 2 and 3 x 4 of them
 SERVE_SHAPES = ((1, 256, 256), (1, 339, 510), (4, 160, 160), (12, 160, 160))
@@ -67,6 +77,9 @@ LR_SIZES = ((256, 256),) * 4 + ((339, 510),)  # (h, w) of the synthetic LR set
 # what the train phase gives the kernel: the step's 6 fake + 6 real LR crops
 # of 32x32 (HR 128), and the 64x64 validation images whole
 TRAIN_SHAPES = ((12, 32, 32), (1, 64, 64))
+# where the bf16 kernel is timed: the kernel-report shape, a serve image,
+# the train step's crops
+TIMED_SHAPES = ((8, 128, 128), (1, 256, 256), (12, 32, 32))
 TRAIN_STEPS = 30
 TRAIN_CONFIG = os.path.join("dasr_tpu", "configs", "train_DASR_auto_reproduce.json")
 SEED = 0
@@ -156,8 +169,17 @@ def cudnn_bf16_chain(x, kernels, biases):
 def phase_kernel(gpu):
     import torch
 
-    from dasr_tpu_torch.ops.rdb import TOLERANCES, fused_rdb, fused_rdb_reference, prepare_weights
+    from dasr_tpu_torch.ops.rdb import (
+        TILES, TOLERANCES, WgmmaPlan, bound_ms, fused_rdb, fused_rdb_reference, kernel_plan,
+        prepare_weights, rdb_cost)
 
+    for cout in (GC, NC):
+        for tile in range(len(TILES)):
+            if kernel_plan(cout, tile) != WgmmaPlan(cout, tile).vector():
+                fail(f"the bf16 kernel's compiled plan (cout {cout}, tile {TILES[tile]}) differs "
+                     f"from ops/rdb.py:WgmmaPlan, which the CPU tests emulate")
+    print(f"kernel plan: the bf16 kernel's compiled shared-memory plan and descriptor offsets "
+          f"equal ops/rdb.py:WgmmaPlan for cout {GC} and {NC}, tiles {TILES}", flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     report = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_abs_err_vs_f32": 0.0}
@@ -194,22 +216,113 @@ def phase_kernel(gpu):
                     report["max_abs_err_vs_f32"] = max(report["max_abs_err_vs_f32"], err32)
                     print(f"kernel bf16 vs f32 plain {(b, h, w)}: max|err| {err32:.3e} "
                           f"(5-px band {band32:.3e}; atol {atol} rtol {rtol})", flush=True)
-                if (b, h, w) == KERNEL_SHAPES[-1]:
+                if dt == torch.float32 and (b, h, w) == TIMED_SHAPES[0]:
                     ms = cuda_ms(lambda: fused_rdb(xd, kd, bd))
                     plain_ms = cuda_ms(lambda: fused_rdb_reference(xd, kd, bd))
-                    flop = 2 * 9 * b * h * w * sum(
-                        (NC + k * GC) * (GC if k < 4 else NC) for k in range(5))
-                    print(f"time {str(dt):15s} {(b, h, w)}: kernel {ms:.4f} ms "
-                          f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms "
-                          f"[{gpu}]", flush=True)
-                    if dt == torch.bfloat16:
-                        report["ms"], report["plain_ms"] = ms, plain_ms
-                        cudnn_ms = cuda_ms(lambda: cudnn_bf16_chain(xd, kd, bd))
-                        print(f"time cuDNN bf16 dense chain {(b, h, w)} (context, not the "
-                              f"plain version): {cudnn_ms:.4f} ms [{gpu}]", flush=True)
-                    else:
-                        report["ms_f32"], report["plain_ms_f32"] = ms, plain_ms
+                    flop, nbytes = rdb_cost(b, h, w, itemsize=4)
+                    bound, by = bound_ms(flop, nbytes, dt)
+                    print(f"time torch.float32 {(b, h, w)}: kernel {ms:.4f} ms "
+                          f"({flop / ms / 1e9:.2f} TFLOP/s; bound {bound:.4f} ms by {by}), "
+                          f"plain {plain_ms:.4f} ms [{gpu}]", flush=True)
+                    report["ms_f32"], report["plain_ms_f32"] = ms, plain_ms
+                if dt == torch.bfloat16 and (b, h, w) in TIMED_SHAPES:
+                    timed = time_bf16(xd, kd, bd, gpu)
+                    if (b, h, w) == TIMED_SHAPES[0]:
+                        report.update(timed)
     return report, checked
+
+
+def time_bf16(x, kd, bd, gpu):
+    """The bf16 kernel at x's shape: per RDB (CUDA events, so at small shapes
+    the host's launch cost shows) in turns with cuDNN's chain (kernel,
+    chain, chain, kernel); per level on the device (torch.profiler), against
+    the bound; the plain version once."""
+    from dasr_tpu_torch.ops.rdb import (
+        bound_ms, fused_rdb, fused_rdb_reference, level_costs, rdb_cost)
+
+    b, h, w, _ = x.shape
+    fns = {"kernel": lambda: fused_rdb(x, kd, bd), "chain": lambda: cudnn_bf16_chain(x, kd, bd)}
+    times = {name: [] for name in fns}
+    for name in ("kernel", "chain", "chain", "kernel"):
+        times[name].append(cuda_ms(fns[name]))
+    ms, chain_ms = (float(np.mean(times[k])) for k in ("kernel", "chain"))
+    host = {name: host_us(fn) for name, fn in fns.items()}
+    plain_ms = cuda_ms(lambda: fused_rdb_reference(x, kd, bd))
+    flop, nbytes = rdb_cost(b, h, w)
+    bound, by = bound_ms(flop, nbytes)
+    print(f"time bf16 {(b, h, w)}: kernel {ms:.4f} ms per RDB ({flop / ms / 1e9:.2f} TFLOP/s), "
+          f"bound {bound:.4f} ms by {by} ({flop / 1e9:.2f} GFLOP at 989 TFLOP/s vs "
+          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), {100 * bound / ms:.1f}% of the bound; "
+          f"in turns: cuDNN bf16 dense chain (yardstick, not the plain version) "
+          f"{chain_ms:.4f} ms; plain version {plain_ms:.4f} ms; each of kernel/chain: "
+          + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items()) + f"; host time "
+          f"to issue one RDB: kernel {host['kernel']:.1f} us (five launches, one library call), "
+          f"chain {host['chain']:.1f} us [{gpu}]", flush=True)
+    report = {"ms": ms, "host_us_per_rdb": host["kernel"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+              "roofline_share": bound / ms, "library_ms": chain_ms,
+              "library": "cuDNN bf16 dense chain (five F.conv2d over the concatenated prefix); "
+                         "no single PyTorch call computes an RDB"}
+    levels, traces = level_device_ms(lambda: fused_rdb(x, kd, bd))
+    if levels is None:
+        fail(f"time bf16 {(b, h, w)}: torch.profiler recorded the kernel's launches in none of "
+             f"three traces")
+    parts = []
+    for k, ((lf, lb), lms) in enumerate(zip(level_costs(b, h, w), levels)):
+        lbound, lby = bound_ms(lf, lb)
+        parts.append(f"level {k + 1} {lms * 1e3:.1f} us ({lf / lms / 1e9:.1f} TFLOP/s; bound "
+                     f"{lbound * 1e3:.1f} us by {lby})")
+    report["device_ms"] = sum(levels)
+    print(f"time bf16 {(b, h, w)} device time per level (torch.profiler, trace {traces} of at "
+          f"most 3; each from the end of the launch before): " + "; ".join(parts) + f"; {report['device_ms']:.4f} ms per RDB "
+          f"on the device, {100 * bound / report['device_ms']:.1f}% of the bound [{gpu}]",
+          flush=True)
+    return report
+
+
+def host_us(fn, iters=50):
+    """Host time in us to issue one ``fn`` call, without waiting for the
+    device (few enough calls that the launch queue does not fill)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def level_device_ms(fn, calls=5):
+    """Median device time in ms of each of the five level launches of one
+    ``fn`` call (an RDB), from torch.profiler's kernel events. A level's
+    span opens while the level before it still runs (programmatic dependent
+    launch), so each level is given the time from the end of the launch
+    before it, or from its own start if that is later, to its own end: the
+    five sum to the RDB's device time. Returns (those times, the number of
+    traces taken), the times None when three traces in a row do not hold
+    the 5 * ``calls`` kernels (one trace in one run held none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for traces in range(1, 4):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and "rdb_level" in e.name)
+        if len(spans) == 5 * calls:
+            break
+    else:
+        return None, traces
+    own = [[s1 - (s0 if i == 0 else max(s0, spans[i - 1][1]))
+            for i, (s0, s1) in enumerate(spans) if i % 5 == k] for k in range(5)]
+    return [float(np.median(t)) / 1e3 for t in own], traces
 
 
 def write_corpus(root, rng):
@@ -269,22 +382,32 @@ def device_profile(fn, iters=3):
                    and not e.name.startswith("Optimizer."))
     if not spans:
         return None
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, s1, _ in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, s1
-        else:
-            cur_e = max(cur_e, s1)
-    busy += cur_e - cur_s
+    busy = union_us(spans)
     span = max(s1 for _, s1, _ in spans) - spans[0][0]
     by_name = {}
     for s0, s1, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (s1 - s0) / iters / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the RDB kernels' time as the union of their spans: each level is a
+    # programmatic dependent launch whose span opens while the level before
+    # it still runs, so a sum of spans would count that time twice
+    rdb = union_us([sp for sp in spans if "rdb_level" in sp[2]])
     return {"idle": 1 - busy / span, "span": span / iters / 1e3, "busy": busy / iters / 1e3,
-            "rdb": sum(v for k, v in by_name.items() if "rdb_level" in k),
-            "events": len(spans) / iters, "top": top}
+            "rdb": rdb / iters / 1e3, "events": len(spans) / iters, "top": top}
+
+
+def union_us(spans):
+    """Length of the union of (start, end, ...) spans sorted by start."""
+    if not spans:
+        return 0.0
+    total, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, s1, *_ in spans[1:]:
+        if s0 > cur_e:
+            total += cur_e - cur_s
+            cur_s, cur_e = s0, s1
+        else:
+            cur_e = max(cur_e, s1)
+    return total + cur_e - cur_s
 
 
 def phase_serve(gpu, checked):
@@ -410,11 +533,46 @@ def phase_serve(gpu, checked):
     else:
         idle, dev_ms, kern_ms = prof["idle"], prof["span"], prof["rdb"]
         print(f"serve 256x256 (torch.profiler): device span {dev_ms:.3f} ms per forward, "
-              f"idle share {100 * idle:.2f}%, rdb_level kernels {kern_ms:.3f} ms "
-              f"({100 * kern_ms / dev_ms:.1f}% of the span) [{gpu}]", flush=True)
+              f"busy {prof['busy']:.3f} ms, idle share {100 * idle:.2f}%, rdb_level kernels "
+              f"{kern_ms:.3f} ms ({100 * kern_ms / dev_ms:.1f}% of the span) [{gpu}]", flush=True)
+    # for information, not the CLI's path: the same forward replayed from a
+    # CUDA graph, which takes the host's per-op cost out, in turns with it
+    graph_ms, eager_ms = serve_graph_ms(net_bf16, x)
+    print(f"serve rate 256x256, bf16, batch 1, in turns: eager {eager_ms:.3f} ms/image, the "
+          f"forward replayed from a CUDA graph (information, not the CLI's path) "
+          f"{graph_ms:.3f} ms/image [{gpu}]", flush=True)
     report.update({"serve_ms_per_image": ms, "serve_out_mpix_s": mpix,
-                   "peak_mem_bytes": peak})
+                   "serve_graph_ms_per_image": graph_ms, "peak_mem_bytes": peak})
     return report
+
+
+def serve_graph_ms(net, x):
+    """(ms per forward replayed from a CUDA graph, ms per eager forward),
+    timed in turns (eager, graph, graph, eager); fails if the replay's
+    output differs from the eager forward's."""
+    import torch
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                net(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = net(x)
+        want = net(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            fail("serve: the CUDA graph's forward differs from the eager forward")
+        times = {"eager": [], "graph": []}
+        for name in ("eager", "graph", "graph", "eager"):
+            fn = graph.replay if name == "graph" else (lambda: net(x))
+            times[name].append(cuda_ms(fn, warmup=2, iters=10))
+    del graph
+    return float(np.mean(times["graph"])), float(np.mean(times["eager"]))
 
 
 GRAD_NAMES = ["x"] + [f"kernel{k + 1}" for k in range(5)] + [f"bias{k + 1}" for k in range(5)]
@@ -486,6 +644,36 @@ def phase_grad(gpu):
                       f"plain version {times['plain']:.4f} ms, stock bf16 chain (context) "
                       f"{times['chain']:.4f} ms [{gpu}]", flush=True)
     return report, checked
+
+
+def launch_host_ms(fn, calls=4):
+    """Host ms per ``fn`` call spent inside ops/rdb.py:_launch, and of that
+    inside the library's dasr_rdb_forward, timed by wrapping both."""
+    import torch
+
+    import dasr_tpu_torch.ops.rdb as rdb
+    from dasr_tpu_torch.kernels import build
+
+    lib = build.load()
+    launch, forward = rdb._launch, lib.dasr_rdb_forward
+    spent = [0.0, 0.0]
+
+    def timed(f, i):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = f(*args)
+            spent[i] += time.perf_counter() - t0
+            return out
+        return call
+
+    rdb._launch, lib.dasr_rdb_forward = timed(launch, 0), timed(forward, 1)
+    try:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        rdb._launch, lib.dasr_rdb_forward = launch, forward
+    return spent[0] / calls * 1e3, spent[1] / calls * 1e3
 
 
 def write_train_corpus(root, rng):
@@ -658,6 +846,11 @@ def phase_train(gpu, checked, checked_grad):
         print(f"train step with the RDBs on the stock bf16 chain (cuDNN; information, not the "
               f"main path): {chain_ms:.3f} ms/step, host {chain_host_ms:.3f} ms to issue a step "
               f"[{gpu}]", flush=True)
+        wrapper_ms, library_ms = launch_host_ms(lambda: tr.train_step(batch))
+        print(f"train step: the host spends {wrapper_ms:.3f} ms of a step inside fused_rdb's "
+              f"launch wrapper (ops/rdb.py:_launch; {3 * NB} RDB forwards, "
+              f"{3 * NB * LAUNCHES_PER_RDB} launches), {library_ms:.3f} ms of it in the library "
+              f"call (tensor maps and launches) [{gpu}]", flush=True)
         prof = device_profile(lambda: tr.train_step(batch))
         if prof is None:
             print("train step: torch.profiler recorded no device events; idle share not "
@@ -678,6 +871,7 @@ def phase_train(gpu, checked, checked_grad):
             report.update(train_idle_share=idle_untraced, train_rdb_share=kern_ms / ms,
                           train_device_busy_ms=busy_ms)
         report.update(train_ms_per_step=ms, train_host_ms_per_step=host_ms,
+                      train_launch_host_ms_per_step=wrapper_ms,
                       train_images_per_s=imgs, train_peak_mem_bytes=peak,
                       train_chain_ms_per_step=chain_ms)
         del model, tr, batch

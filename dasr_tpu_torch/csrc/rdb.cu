@@ -1,8 +1,12 @@
 // Residual Dense Block (RDB5C) forward for Hopper (sm_90a).
 //
 // Replaces dasr_tpu/ops/pallas_rdb.py:_rdb_kernel (built by
-// _fused_rdb_impl). The design note, the tolerances and the Python wrapper
-// are in dasr_tpu_torch/ops/rdb.py.
+// _fused_rdb_impl). The tolerances and the Python wrapper are in
+// dasr_tpu_torch/ops/rdb.py, which also holds the tile plan and states the
+// bf16 kernel's shared-memory plan in Python (WgmmaPlan). The CPU tests
+// (tests/test_torch_rdb_plan.py) emulate the kernel's products through that
+// statement, and chip_smoke.py holds it against the plan compiled here,
+// which dasr_rdb_wgmma_plan exports.
 //
 // One launch computes one level of the block: a 3x3 SAME conv over a
 // channel prefix of [x | x1 | x2 | x3 | x4] as an implicit GEMM
@@ -12,25 +16,57 @@
 //   level 5:    y = x + 0.2 * (acc + b_5), rounded once.
 // Level k reads channels [0, nc) from x and [0, (k-1) gc) from the growth
 // buffer, so the dense concat is never materialised. Input pixels outside
-// the image are staged as zeros, which is the SAME zero padding of every
-// level; output pixels outside the image are not stored.
+// the image read as zeros, which is the SAME zero padding of every level;
+// output pixels outside the image are not stored.
 //
-// A block owns a tile of output pixels, 16 wide, and walks the input
-// channels in chunks of 32: it stages the chunk's input window (the tile
-// plus a 1-pixel halo) in shared memory and accumulates all nine taps in
-// f32.
-//   bf16: tensor cores through WMMA (16x16x16 bf16 -> f32). A 16 x 16 tile;
-//         each of the eight warps owns two output rows (two 16-row A
-//         fragments) against all cout columns, so every weight fragment it
-//         loads feeds two products. The window is double-buffered: cp.async
-//         stages chunk c + 1 while chunk c is multiplied.
-//   f32:  CUDA cores (full f32, no TF32). An 8 x 16 tile; each thread owns
-//         a few pixels times 8 output channels.
-// The C entry point returns cudaGetLastError() after the launch.
+// What bounds it: arithmetic. One RDB (nc 64, gc 32) is 479,232 FLOP per
+// pixel, 62.81 GFLOP at (8, 128, 128): 63.5 us at the H100's 989 TFLOP/s
+// bf16 peak, against 10.2 us for the ~34 MB it must move.
+//
+// bf16, rdb_level_wgmma: a warp-specialised wgmma kernel.
+//   * A block owns a tile of 8x8-pixel sub-blocks: 16x16 pixels, two
+//     consumer warpgroups of two sub-blocks each, or, where 16x16 tiles
+//     would leave more than half the 132 SMs idle, 8x8 and one warpgroup
+//     (ops/rdb.py:tile_plan). Each sub-block is one 64-row wgmma tile with
+//     f32 accumulators in registers (m64n32k16 for levels 1-4, m64n64k16
+//     for level 5).
+//   * K is walked in chunks of 16 input channels x 9 taps. A producer warp
+//     stages each chunk with two TMA loads into a ring of 3-4 shared-memory
+//     stages, signalled by mbarriers (full: bytes arrived; empty: every
+//     warpgroup's products that read it are done):
+//       - the input window (tile + 1-px halo), a 4-D box from x or the
+//         growth buffer; TMA fills the out-of-image part with zeros, which
+//         is the SAME padding. It lands as [row][col][16 ch], 32 bytes a
+//         pixel with no unused channels, in TMA's 32-byte swizzle;
+//       - the chunk's weight rows, a 3-D box read straight from the HWIO
+//         matrix that prepare_weights makes (no repacking), landing as
+//         [tap][ci][cout] in the 64- or 128-byte swizzle. Every warpgroup of
+//         the block reads them from there.
+//     Wide rows matter: TMA costs a few clocks per box row, and boxes of
+//     16-byte rows (8 channels, 8 columns) left this kernel bound by TMA at
+//     about twice its time.
+//   * Both operands come from shared memory through wgmma descriptors in
+//     the same swizzles: A K-major (a row is one window pixel's 16
+//     channels, so a tap's pixel shift moves the start by whole rows), B
+//     MN-major (the transpose bit). All nine taps reuse one staged window.
+//   * Programmatic dependent launch: each level's blocks start (barrier
+//     set-up, the first weight load) on the SMs the previous level frees,
+//     and wait for it to finish (griddepcontrol.wait) before they read or
+//     write an activation.
+//   * Epilogue in registers: the four lanes of a quad exchange their
+//     column pairs so that each holds 8 consecutive channels of a pixel,
+//     then bias + leaky ReLU (levels 1-4) or the residual read as 16-byte
+//     vectors (level 5), rounded once and written as 16-byte stores.
+//   Left for later: fusing levels 1-4 per tile (the five-launch floor is
+//   ~74 us at (8, 128, 128)), a persistent grid, the f32 variant.
+// f32, rdb_level_simt: CUDA cores (full f32, no TF32), an 8 x 16 tile.
+// The C entry point launches the five levels and returns
+// cudaGetLastError() after each launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -41,20 +77,6 @@ constexpr int kTileW = 16;
 constexpr int kHaloW = kTileW + 2;
 constexpr int kChunk = 32;     // input channels staged per step
 constexpr int kThreads = 256;  // 8 warps
-
-// tensor-core path
-constexpr int kTcTileH = 16;
-constexpr int kTcHaloPix = (kTcTileH + 2) * kHaloW;
-// staged pixel stride in elements: 32 channels + 16 unused, 96 bytes, which
-// keeps WMMA's 32-byte pointer alignment and makes the A-fragment loads
-// 2-way rather than 4-way bank conflicted
-constexpr int kTcPixStride = 48;
-
-// dynamic shared memory of the tensor-core kernel: two staged windows and
-// the per-warp f32 epilogue staging
-constexpr int kTcWindowBytes = kTcHaloPix * kTcPixStride * 2;
-constexpr int kTcStageBytes = (kThreads / 32) * 2 * 16 * 16 * 4;
-constexpr int kTcSmemBytes = 2 * kTcWindowBytes + kTcStageBytes;
 
 // CUDA-core path
 constexpr int kSimtTileH = 8;
@@ -84,28 +106,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// 16-byte global -> shared copy that does not wait; `valid` false writes 16
-// zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage input channels [c0, c0 + kChunk) of the (HaloPix / kHaloW, kHaloW)
-// window around the tile whose first output pixel is (y0, x0). `tile` is
-// pixel-major with Stride elements per pixel; pixels outside the image are 0.
-// Channels below nc come from x, the others from the growth buffer.
-// Async: issue cp.async copies and return; else copy through registers.
-template <typename T, int HaloPix, int Stride, bool Async>
+// Stage input channels [c0, c0 + kChunk) of the (kSimtTileH + 2, kHaloW)
+// window around the tile whose first output pixel is (y0, x0) into `tile`,
+// kChunk elements a pixel; pixels outside the image are 0. Channels below
+// nc come from x, the others from the growth buffer.
+template <typename T>
 __device__ __forceinline__ void stage_window(const Level& L, int b, int y0, int x0,
                                              int c0, T* tile) {
   const bool from_x = c0 < L.nc;
@@ -114,7 +119,7 @@ __device__ __forceinline__ void stage_window(const Level& L, int b, int y0, int 
                         : static_cast<const T*>(L.g) + (c0 - L.nc);
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int kVecPerPix = kChunk / kVec;
-  for (int i = threadIdx.x; i < HaloPix * kVecPerPix; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kSimtHaloPix * kVecPerPix; i += blockDim.x) {
     const int pix = i / kVecPerPix;
     const int v = i % kVecPerPix;
     const int gy = y0 + pix / kHaloW - 1;
@@ -122,13 +127,8 @@ __device__ __forceinline__ void stage_window(const Level& L, int b, int y0, int 
     const bool valid = gy >= 0 && gy < L.H && gx >= 0 && gx < L.W;
     const T* from =
         src + (valid ? (static_cast<size_t>(b * L.H + gy) * L.W + gx) * stride + v * kVec : 0);
-    T* to = tile + pix * Stride + v * kVec;
-    if constexpr (Async) {
-      cp_async16(to, from, valid);
-    } else {
-      *reinterpret_cast<uint4*>(to) =
-          valid ? *reinterpret_cast<const uint4*>(from) : make_uint4(0u, 0u, 0u, 0u);
-    }
+    *reinterpret_cast<uint4*>(tile + pix * kChunk + v * kVec) =
+        valid ? *reinterpret_cast<const uint4*>(from) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -146,85 +146,362 @@ __device__ __forceinline__ void store_out(const Level& L, int b, int gy, int gx,
   static_cast<T*>(L.out)[pix * L.out_stride + L.out_off + co] = from_f32<T>(v);
 }
 
-// bf16 level on tensor cores. Warp w computes output rows y0 + 2w and
-// y0 + 2w + 1, pixels x0 .. x0 + 15 of each (the 16 rows of one A
-// fragment), against all COUT columns.
-template <int COUT>
-__global__ void __launch_bounds__(kThreads) rdb_level_wmma(Level L) {
-  using namespace nvcuda;
-  constexpr int kFrags = COUT / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* windows = reinterpret_cast<__nv_bfloat16*>(smem);  // two buffers
-  float* stage = reinterpret_cast<float*>(smem + 2 * kTcWindowBytes);
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: TMA + mbarriers + wgmma.
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTcTileH;
-  const int x0 = blockIdx.x * kTileW;
-  const __nv_bfloat16* wmat = static_cast<const __nv_bfloat16*>(L.w);
+constexpr int kKc = 16;  // input channels per pipeline stage (one wgmma K step)
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kFrags];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int n = 0; n < kFrags; ++n) wmma::fill_fragment(acc[r][n], 0.0f);
+constexpr int align1024(int v) { return (v + 1023) / 1024 * 1024; }
+
+// wgmma descriptor layout type of an operand stored in a swizzle span of
+// 128, 64 or 32 bytes, the same swizzle TMA applied when it wrote it there
+constexpr int swizzle_mode(int span) { return span == 128 ? 1 : span == 64 ? 2 : 3; }
+
+// Shared-memory plan of one (COUT, tile) instantiation. ops/rdb.py:WgmmaPlan
+// states the same plan in Python; the CPU tests emulate the products
+// through it, and chip_smoke.py holds it against this one
+// (dasr_rdb_wgmma_plan). A stage is the window (pixels of kKc * 2 = 32
+// bytes, TMA's 32-byte swizzle) and then the weights ([tap][ci][COUT], rows
+// of 64 or 128 bytes, the swizzle of that width), each region 1024-byte
+// aligned so the swizzle repeats line up.
+template <int COUT, int TH, int TW>
+struct Plan {
+  static constexpr int kSub = (TH / 8) * (TW / 8);          // 8x8 sub-blocks
+  static constexpr int kWarpgroups = kSub < 2 ? 1 : 2;      // consumers
+  static constexpr int kMt = kSub / kWarpgroups;            // sub-blocks per warpgroup
+  static constexpr int kThreads = 128 * kWarpgroups + 32;   // + the producer warp
+  static constexpr int kWinW = TW + 2;
+  static constexpr int kWinPix = (TH + 2) * (TW + 2);
+  static constexpr int kPixBytes = kKc * 2;
+  static constexpr int kWinBytes = align1024(kWinPix * kPixBytes);
+  static constexpr int kWRowBytes = COUT * 2;
+  static constexpr int kWBytes = 9 * kKc * kWRowBytes;
+  static constexpr int kStageBytes = kWinBytes + kWBytes;
+  static constexpr int kTxBytes = kWinPix * kPixBytes + kWBytes;
+  // four stages where two blocks still fit an SM, else three
+  static constexpr int kStages = 4 * kStageBytes <= 110 * 1024 ? 4 : 3;
+  // stages, then the full and empty barriers, plus slack to align the base
+  static constexpr int kSmemBytes = kStages * kStageBytes + 16 * kStages + 1024;
+  // swizzle spans: A a window pixel's row, B a weight row
+  static constexpr int kASpan = kPixBytes;
+  static constexpr int kBSpan = kWRowBytes;
+  static constexpr int kAMode = swizzle_mode(kASpan);
+  static constexpr int kBMode = swizzle_mode(kBSpan);
+  // descriptor byte offsets. A K-major: SBO the next 8 pixels, which are
+  // the next window row; LBO unused. B MN-major: SBO the next 8 input
+  // channels; LBO the next span-wide column group (there is one).
+  static constexpr int kALbo = 16;
+  static constexpr int kASbo = kWinW * kPixBytes;
+  static constexpr int kBLbo = kWBytes;
+  static constexpr int kBSbo = 8 * kWRowBytes;
+  // Byte offset in a stage, before the swizzle, of the A operand of
+  // sub-block sb at tap (dy, dx) = (tap / 3, tap % 3): its row m is output
+  // pixel (8 sr + m / 8, 8 sc + m % 8) of the tile, read at window pixel
+  // (8 sr + m / 8 + dy, 8 sc + m % 8 + dx).
+  __host__ __device__ static constexpr int a_offset(int sb, int tap) {
+    return ((8 * (sb / (TW / 8)) + tap / 3) * kWinW + 8 * (sb % (TW / 8)) + tap % 3) * kPixBytes;
   }
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bw;
+  // ... and of the B operand of a tap: the tap's kKc weight rows
+  __host__ __device__ static constexpr int b_offset(int tap) {
+    return kWinBytes + tap * kKc * kWRowBytes;
+  }
+  static_assert(kSub % kWarpgroups == 0, "sub-blocks split evenly");
+  static_assert(kWBytes % 1024 == 0, "the stages stay 1024-byte aligned");
+};
 
-  const int chunks = L.cin / kChunk;
-  stage_window<__nv_bfloat16, kTcHaloPix, kTcPixStride, true>(L, b, y0, x0, 0, windows);
-  cp_async_commit();
-  for (int ci = 0; ci < chunks; ++ci) {
-    if (ci + 1 < chunks) {
-      // buffer (ci + 1) & 1 was last read in iteration ci - 1, which ended
-      // with a barrier
-      stage_window<__nv_bfloat16, kTcHaloPix, kTcPixStride, true>(
-          L, b, y0, x0, (ci + 1) * kChunk, windows + ((ci + 1) & 1) * (kTcWindowBytes / 2));
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase with this parity has completed. A barrier that never
+// completes (a fault in the kernel) traps after ~10 s rather than hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (each in 16-byte units) and the swizzle mode (see Plan). The
+// hardware swizzles by absolute address, as TMA does, so a start shifted
+// by whole rows (a tap's pixel shift) reads what TMA wrote.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               int swizzle) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) = A (64 x 16, K-major) * B (16 x N, MN-major) + (accumulate
+// ? D : 0), A and B bf16 in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ float2 pick(const float2 (&v)[4], int i) {
+  float2 r = v[0];
+  r = i == 1 ? v[1] : r;
+  r = i == 2 ? v[2] : r;
+  r = i == 3 ? v[3] : r;
+  return r;
+}
+
+// Within each quad, lane j holds the column pairs (8q + 2j, +1) of
+// n-groups q = 0..3; afterwards it holds columns 8j .. 8j + 7 of n-group j,
+// pair i in v[i]. A 4 x 4 transpose by shuffles.
+__device__ __forceinline__ void quad_transpose(float2 (&v)[4], int lane) {
+  const int j = lane & 3;
+  float2 out[4] = {v[0], v[1], v[2], v[3]};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 send = pick(v, (j + k) & 3);
+    const int src = (j - k) & 3;
+    float2 got;
+    got.x = __shfl_sync(0xffffffffu, send.x, (lane & ~3) | src);
+    got.y = __shfl_sync(0xffffffffu, send.y, (lane & ~3) | src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = i == src ? got : out[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = out[i];
+}
+
+template <int COUT, int TH, int TW>
+__global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
+    rdb_level_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const __grid_constant__ CUtensorMap tm_w, Level L) {
+  using P = Plan<COUT, TH, TW>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full0 = base + P::kStages * P::kStageBytes;
+  const uint32_t empty0 = full0 + 8 * P::kStages;
+
+  const int x0 = blockIdx.x * TW;
+  const int y0 = blockIdx.y * TH;
+  const int b = blockIdx.z;
+  const int chunks = L.cin / kKc;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * P::kWarpgroups);  // lane 0 of each consumer warp
     }
-    __syncthreads();  // chunk ci is visible to every warp
-    const __nv_bfloat16* tile = windows + (ci & 1) * (kTcWindowBytes / 2);
-    const int c0 = ci * kChunk;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap % 3;
-#pragma unroll
-      for (int kk = 0; kk < kChunk; kk += 16) {
-        // A row i = output pixel (y0 + 2 warp + r, x0 + i) at tap (dy, dx)
-        const __nv_bfloat16* arow = tile + ((2 * warp + dy) * kHaloW + dx) * kTcPixStride + kk;
-        wmma::load_matrix_sync(a0, arow, kTcPixStride);
-        wmma::load_matrix_sync(a1, arow + kHaloW * kTcPixStride, kTcPixStride);
-        const __nv_bfloat16* wrow = wmat + static_cast<size_t>(tap * L.cin + c0 + kk) * COUT;
-#pragma unroll
-        for (int n = 0; n < kFrags; ++n) {
-          wmma::load_matrix_sync(bw, wrow + n * 16, COUT);
-          wmma::mma_sync(acc[0][n], a0, bw, acc[0][n]);
-          wmma::mma_sync(acc[1][n], a1, bw, acc[1][n]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // The next launch on the stream (the next level) may start its blocks on
+  // the SMs this grid frees; they wait for this grid to finish before they
+  // touch the activations (griddepcontrol.wait below).
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int wg = threadIdx.x / 128;
+  if (wg == P::kWarpgroups) {
+    // producer warp: one thread keeps the ring full
+    if (threadIdx.x % 32 == 0) {
+      for (int it = 0; it < chunks; ++it) {
+        const int s = it % P::kStages;
+        if (it >= P::kStages) mbar_wait(empty0 + 8 * s, ((it / P::kStages) - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, P::kTxBytes);
+        const uint32_t dst = base + s * P::kStageBytes;
+        const int c0 = it * kKc;
+        tma_load_3d(dst + P::b_offset(0), &tm_w, full, 0, c0, 0);
+        // the weights were written before the first level began; x and
+        // the growth buffer only once the previous launch has finished
+        if (it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        if (c0 < L.nc) {
+          tma_load_4d(dst, &tm_x, full, c0, x0 - 1, y0 - 1, b);
+        } else {
+          tma_load_4d(dst, &tm_g, full, c0 - L.nc, x0 - 1, y0 - 1, b);
         }
       }
     }
-    __syncthreads();  // every warp is done with buffer ci & 1
+    return;
   }
 
-  // epilogue, one 16-column slice at a time through this warp's staging
-  float* mine = stage + warp * 2 * 16 * 16;
+  // consumer warpgroup `wg`: sub-blocks wg * kMt .. wg * kMt + kMt - 1. The
+  // accumulators are first written by the first chunk's first products
+  // (accumulate = 0), so that no other instruction defines them while
+  // products are in flight, which would serialise the products.
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  float acc[P::kMt][COUT / 2];
+
+  for (int it = 0; it < chunks; ++it) {
+    const int s = it % P::kStages;
+    mbar_wait(full0 + 8 * s, (it / P::kStages) & 1);
+    const uint32_t stage = base + s * P::kStageBytes;
 #pragma unroll
-  for (int n = 0; n < kFrags; ++n) {
-    wmma::store_matrix_sync(mine, acc[0][n], 16, wmma::mem_row_major);
-    wmma::store_matrix_sync(mine + 256, acc[1][n], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 512; e += 32) {
-      const int gy = y0 + 2 * warp + e / 256;
-      const int gx = x0 + (e / 16) % 16;
-      if (gy < L.H && gx < L.W) store_out<__nv_bfloat16>(L, b, gy, gx, n * 16 + e % 16, mine[e]);
+    for (int mt = 0; mt < P::kMt; ++mt) fence_regs(acc[mt]);
+    wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < P::kMt; ++mt) {
+      const int sb = wg * P::kMt + mt;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint64_t a =
+            wgmma_desc(stage + P::a_offset(sb, tap), P::kALbo, P::kASbo, P::kAMode);
+        const uint64_t bd =
+            wgmma_desc(stage + P::b_offset(tap), P::kBLbo, P::kBSbo, P::kBMode);
+        wgmma_bf16<COUT>(acc[mt], a, bd, it > 0 || tap > 0);
+      }
     }
-    __syncwarp();
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done: release its stage
+#pragma unroll
+    for (int mt = 0; mt < P::kMt; ++mt) fence_regs(acc[mt]);
+    if (it > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % P::kStages));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < P::kMt; ++mt) fence_regs(acc[mt]);
+
+  // epilogue: accumulator d[4q + 2h + e] is row 16 warp + lane / 4 + 8 h,
+  // column 8q + 2 (lane % 4) + e
+  const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(L.x);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(L.out);
+#pragma unroll
+  for (int mt = 0; mt < P::kMt; ++mt) {
+    const int sb = wg * P::kMt + mt;
+    const int sr = sb / (TW / 8);
+    const int sc = sb % (TW / 8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gy = y0 + 8 * sr + 2 * warp + h;
+      const int gx = x0 + 8 * sc + lane / 4;
+      const bool inside = gy < L.H && gx < L.W;
+      const size_t pix = static_cast<size_t>(b * L.H + gy) * L.W + gx;
+#pragma unroll
+      for (int set = 0; set < COUT / 32; ++set) {
+        float2 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[k] = make_float2(acc[mt][4 * (4 * set + k) + 2 * h],
+                             acc[mt][4 * (4 * set + k) + 2 * h + 1]);
+        }
+        quad_transpose(v, lane);
+        const int n0 = 8 * (4 * set + (lane & 3));
+        if (!inside) continue;
+        float t[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          t[2 * i] = v[i].x + __ldg(L.bias + n0 + 2 * i);
+          t[2 * i + 1] = v[i].y + __ldg(L.bias + n0 + 2 * i + 1);
+        }
+        if (L.final_level) {
+          const uint4 r = *reinterpret_cast<const uint4*>(xin + pix * L.nc + n0);
+          const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 rf = __bfloat1622float2(r2[i]);
+            t[2 * i] = rf.x + 0.2f * t[2 * i];
+            t[2 * i + 1] = rf.y + 0.2f * t[2 * i + 1];
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) t[i] = t[i] >= 0.f ? t[i] : 0.2f * t[i];
+        }
+        uint4 packed;
+        __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p2[i] = __floats2bfloat162_rn(t[2 * i], t[2 * i + 1]);
+        *reinterpret_cast<uint4*>(out + pix * L.out_stride + L.out_off + n0) = packed;
+      }
+    }
   }
 }
 
@@ -255,7 +532,7 @@ __global__ void __launch_bounds__(kThreads) rdb_level_simt(Level L) {
 
   for (int c0 = 0; c0 < L.cin; c0 += kChunk) {
     __syncthreads();
-    stage_window<T, kSimtHaloPix, kChunk, false>(L, b, y0, x0, c0, tile);
+    stage_window<T>(L, b, y0, x0, c0, tile);
     __syncthreads();
     for (int tap = 0; tap < 9; ++tap) {
       const int toff = ((tap / 3) * kHaloW + tap % 3) * kChunk;
@@ -287,50 +564,179 @@ __global__ void __launch_bounds__(kThreads) rdb_level_simt(Level L) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+
 // Above 48 KB a block's shared memory must be asked for. The setting is
-// made once per device (bit `dev` of `done`) rather than on every launch.
-template <int COUT>
-cudaError_t allow_wmma_smem() {
+// made once per device (bit `dev` of `done`) and kernel rather than on
+// every launch.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
   static std::atomic<uint64_t> done{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = 1ull << (dev & 63);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(rdb_level_wmma<COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTcSmemBytes);
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
+}
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded, so
+// the library links against the runtime only.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map, zero fill outside the tensor. dims and box innermost
+// first; strides in bytes of dims 1.. .
+bool encode(CUtensorMap* map, int rank, const void* ptr, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+CUtensorMapSwizzle tma_swizzle(int span) {
+  return span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+template <int COUT, int TH, int TW>
+cudaError_t launch_wgmma(const Level& L, cudaStream_t s) {
+  using P = Plan<COUT, TH, TW>;
+  constexpr auto kernel = rdb_level_wgmma<COUT, TH, TW>;
+  const cudaError_t err = allow_smem<kernel>(P::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // x and the growth buffer as (C, W, H, B), boxes of kKc channels over the
+  // tile's window; the weights as (cout, cin, 9), boxes of all columns over
+  // kKc input channels and the nine taps
+  CUtensorMap tm_x, tm_g, tm_w;
+  const cuuint64_t e = 2;  // bytes per element
+  const cuuint32_t win_box[4] = {kKc, TW + 2, TH + 2, 1};
+  const cuuint64_t x_dims[4] = {cuuint64_t(L.nc), cuuint64_t(L.W), cuuint64_t(L.H), cuuint64_t(L.B)};
+  const cuuint64_t x_strides[3] = {L.nc * e, L.W * L.nc * e, cuuint64_t(L.H) * L.W * L.nc * e};
+  const cuuint64_t g_dims[4] = {cuuint64_t(L.gstride), cuuint64_t(L.W), cuuint64_t(L.H),
+                                cuuint64_t(L.B)};
+  const cuuint64_t g_strides[3] = {L.gstride * e, L.W * L.gstride * e,
+                                   cuuint64_t(L.H) * L.W * L.gstride * e};
+  const cuuint32_t w_box[3] = {COUT, kKc, 9};
+  const cuuint64_t w_dims[3] = {cuuint64_t(COUT), cuuint64_t(L.cin), 9};
+  const cuuint64_t w_strides[2] = {COUT * e, cuuint64_t(L.cin) * COUT * e};
+  if (!encode(&tm_x, 4, L.x, x_dims, x_strides, win_box, tma_swizzle(P::kASpan)) ||
+      !encode(&tm_g, 4, L.g, g_dims, g_strides, win_box, tma_swizzle(P::kASpan)) ||
+      !encode(&tm_w, 3, L.w, w_dims, w_strides, w_box, tma_swizzle(P::kBSpan))) {
+    return cudaErrorInvalidValue;
+  }
+  // programmatic dependent launch: this grid may start while the previous
+  // launch on the stream finishes, see griddepcontrol in the kernel
+  cudaLaunchAttribute pdl{};
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3((L.W + TW - 1) / TW, (L.H + TH - 1) / TH, L.B);
+  cfg.blockDim = dim3(P::kThreads);
+  cfg.dynamicSmemBytes = P::kSmemBytes;
+  cfg.stream = s;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_g, tm_w, L);
+}
+
+template <int COUT>
+cudaError_t launch_wgmma_tile(const Level& L, int tile, cudaStream_t s) {
+  switch (tile) {
+    case 0: return launch_wgmma<COUT, 8, 8>(L, s);
+    case 1: return launch_wgmma<COUT, 16, 16>(L, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Plan<COUT, TH, TW> as ints, in the order of ops/rdb.py:WgmmaPlan.vector:
+// kKc, threads, stages, stage bytes, window bytes, weight bytes, bytes a
+// stage expects, dynamic shared memory, A and B swizzle spans, A's LBO and
+// SBO, B's LBO and SBO, B's offset at each tap, A's offset at each
+// (sub-block, tap). At most n are written to out; returns how many there
+// are.
+template <int COUT, int TH, int TW>
+int export_plan(int* out, int n) {
+  using P = Plan<COUT, TH, TW>;
+  int v[14 + 9 + 9 * P::kSub] = {kKc,        P::kThreads, P::kStages, P::kStageBytes,
+                                 P::kWinBytes, P::kWBytes, P::kTxBytes, P::kSmemBytes,
+                                 P::kASpan,  P::kBSpan,   P::kALbo,   P::kASbo,
+                                 P::kBLbo,   P::kBSbo};
+  int i = 14;
+  for (int tap = 0; tap < 9; ++tap) v[i++] = P::b_offset(tap);
+  for (int sb = 0; sb < P::kSub; ++sb) {
+    for (int tap = 0; tap < 9; ++tap) v[i++] = P::a_offset(sb, tap);
+  }
+  for (int j = 0; j < i && j < n; ++j) out[j] = v[j];
+  return i;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
-// Returns a cudaError_t: cudaErrorInvalidValue for an unsupported dtype or
-// cout, else cudaGetLastError() after the launch.
-int dasr_rdb_level(int dtype, const void* x, const void* g, const void* w, const void* bias,
-                   void* out, int B, int H, int W, int nc, int gstride, int cin, int cout,
-                   int out_stride, int out_off, int final_level, void* stream) {
-  Level L{x, g, w, static_cast<const float*>(bias), out, B, H, W, nc, gstride, cin, cout,
-          out_stride, out_off, final_level};
+// The five levels of one RDB, one launch each, in order on `stream`.
+// x (B, H, W, nc); g the growth buffer (B, H, W, 4 gc); w and bias the five
+// levels' (9 * cin, cout) weights and f32 biases; y (B, H, W, nc).
+// kernel: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma). tile (kernel 1
+// only): 0 = 8x8, 1 = 16x16 output pixels a block, see ops/rdb.py:TILES.
+// Returns a cudaError_t: cudaErrorInvalidValue for an unsupported kernel,
+// width or tile, or a tensor map cuTensorMapEncodeTiled refuses; else
+// cudaGetLastError() after each launch, stopping at the first that fails.
+int dasr_rdb_forward(int kernel, const void* x, void* g, const void* const* w,
+                     const void* const* bias, void* y, int B, int H, int W, int nc, int gc,
+                     int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tile_h = dtype == 1 ? kTcTileH : kSimtTileH;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + tile_h - 1) / tile_h, B);
-  if (dtype == 1 && (cout == 64 || cout == 32)) {
-    const cudaError_t err = cout == 64 ? allow_wmma_smem<64>() : allow_wmma_smem<32>();
+  for (int k = 0; k < 5; ++k) {
+    const bool final_level = k == 4;
+    const int cin = nc + k * gc;
+    const int cout = final_level ? nc : gc;
+    Level L{x, g, w[k], static_cast<const float*>(bias[k]), final_level ? y : g, B, H, W,
+            nc, 4 * gc, cin, cout, final_level ? nc : 4 * gc, final_level ? 0 : k * gc,
+            final_level ? 1 : 0};
+    cudaError_t err = cudaSuccess;
+    if (kernel == 1 && (cout == 64 || cout == 32) && cin % kKc == 0) {
+      err = cout == 64 ? launch_wgmma_tile<64>(L, tile, s) : launch_wgmma_tile<32>(L, tile, s);
+    } else if (kernel == 0 && (cout == 64 || cout == 32)) {
+      const dim3 grid((W + kTileW - 1) / kTileW, (H + kSimtTileH - 1) / kSimtTileH, B);
+      auto kern = cout == 64 ? rdb_level_simt<float, 64> : rdb_level_simt<float, 32>;
+      kern<<<grid, kThreads, 0, s>>>(L);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    auto kernel = cout == 64 ? rdb_level_wmma<64> : rdb_level_wmma<32>;
-    kernel<<<grid, kThreads, kTcSmemBytes, s>>>(L);
-  } else if (dtype == 0 && cout == 64) {
-    rdb_level_simt<float, 64><<<grid, kThreads, 0, s>>>(L);
-  } else if (dtype == 0 && cout == 32) {
-    rdb_level_simt<float, 32><<<grid, kThreads, 0, s>>>(L);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
+}
+
+// The bf16 kernel's shared-memory plan for cout (32 or 64) and tile (as in
+// dasr_rdb_forward), see export_plan; -1 for another cout or tile.
+int dasr_rdb_wgmma_plan(int cout, int tile, int* out, int n) {
+  if (cout == 32 && tile == 0) return export_plan<32, 8, 8>(out, n);
+  if (cout == 32 && tile == 1) return export_plan<32, 16, 16>(out, n);
+  if (cout == 64 && tile == 0) return export_plan<64, 8, 8>(out, n);
+  if (cout == 64 && tile == 1) return export_plan<64, 16, 16>(out, n);
+  return -1;
 }
 
 const char* dasr_cuda_error_string(int code) {

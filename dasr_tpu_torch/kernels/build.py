@@ -26,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "dasr_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-ldl",
 )
 
 _lib = None
@@ -89,9 +89,11 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build(verbose)[0]))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dasr_rdb_level.argtypes = [i, vp, vp, vp, vp, vp] + [i] * 10 + [vp]
-    lib.dasr_rdb_level.restype = i
+    vp, i, vpp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+    lib.dasr_rdb_forward.argtypes = [i, vp, vp, vpp, vpp, vp] + [i] * 6 + [vp]
+    lib.dasr_rdb_forward.restype = i
+    lib.dasr_rdb_wgmma_plan.argtypes = [i, i, ctypes.POINTER(i), i]
+    lib.dasr_rdb_wgmma_plan.restype = i
     lib.dasr_cuda_error_string.argtypes = [i]
     lib.dasr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -17,32 +17,48 @@ working type, f32 sums of the level terms, rounding where it rounds),
 recomputed from the saved input and weights. On the card its convs run on
 cuDNN. The JAX package has no backward kernel, so neither has the port.
 
-What bounds it on the H100: arithmetic. The 69 RDBs of the x4 RRDBNet
-(23 RRDBs x 3) are 33.1 of its 35.9 MFLOP per LR pixel, about 2.2 TFLOP per
-256x256 LR image. One level is an implicit GEMM with M = pixels,
-N = cout (32 or 64), K = 9 * cin (cin 64..192): in bf16 the fifth level does
-about 345 FLOP per byte it must move, above the card's ~295 FLOP/byte ridge,
-the first level about 190, below it. So the design keeps the bytes near the
-minimum and puts the FLOPs on the tensor cores:
+What bounds it on the H100: arithmetic. One RDB (nc 64, gc 32) does
+2 * 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64) = 479,232 FLOP
+per pixel: 62.81 GFLOP at (8, 128, 128), 63.5 us at the 989 TFLOP/s bf16
+peak, against 10.2 us for the ~34 MB it must move (x in, y out, 0.48 MB of
+weights); ``rdb_cost`` and ``bound_ms`` compute both. Run as five launches,
+each level also moves its own inputs and output: levels 1-4 lie below the
+card's ~295 FLOP/byte ridge and level 5 above it, a floor of ~74 us at
+(8, 128, 128) (``level_costs``). The 69 RDBs of the x4 RRDBNet are 33.1 of
+its 35.9 MFLOP per LR pixel. So the design keeps the bytes near the minimum
+and puts the FLOPs on the tensor cores:
 
 * a preallocated NHWC growth buffer (B, H, W, 4 gc) takes x_1..x_4; level k
   reads channels [0, nc) of x and [0, (k-1) gc) of the buffer and writes its
   own gc-channel slice, so the dense concat is never copied;
-* input pixels outside the image are staged as zeros, which is the SAME
-  padding of every level, with no per-level masks (the Pallas kernel's
-  ``_mask`` existed only because it kept a whole RDB in one VMEM tile);
-* input channels are staged in shared memory in chunks of 32 and summed
-  over the nine taps in f32. bf16 runs on tensor cores (WMMA 16x16x16):
-  a 16 x 16 output tile per block, two output rows per warp so each weight
-  fragment feeds two products, and the next chunk's window copied with
-  ``cp.async`` while the current one is multiplied. f32 runs on CUDA cores
-  (full f32, no TF32), an 8 x 16 tile per block.
+* input pixels outside the image read as zeros, which is the SAME padding
+  of every level, with no per-level masks (the Pallas kernel's ``_mask``
+  existed only because it kept a whole RDB in one VMEM tile);
+* bf16 runs on Hopper's ``wgmma``: a block owns 8x8-pixel sub-blocks (a
+  tile of 16x16 pixels, or 8x8 where ``tile_plan`` finds too few tiles to
+  fill the SMs), each one 64-row product that one of one or two consumer
+  warpgroups accumulates in f32 registers. K is walked in chunks of 16
+  input channels x 9 taps; a producer warp stages each chunk with two TMA
+  loads into a ring of shared-memory stages signalled by mbarriers: the
+  input window (tile + 1-px halo, zero-filled outside the image by TMA), one
+  box of whole 32-byte pixel rows (the chunk's 16 channels), and the chunk's
+  weight rows, one box of whole 64- or 128-byte rows (all cout columns)
+  read from the HWIO matrix as it is. Every warpgroup of the block reads
+  the weights from there, and all nine taps read the one staged window
+  through shifted ``wgmma`` descriptors. ``WgmmaPlan`` states that layout;
+  the CPU tests emulate the products through it and ``chip_smoke.py`` holds
+  it against the plan compiled into the kernel. Each level is a
+  programmatic dependent launch, so its blocks set up while the previous
+  level drains. The epilogue runs on the accumulators: bias + leaky ReLU or
+  the residual, rounded once, 16-byte stores;
+* f32 runs on CUDA cores (full f32, no TF32), an 8 x 16 tile per block.
 
 Weights are HWIO, which read as (9 * cin, cout) matrices with rows ordered
 (dy, dx, ci), the layout of ``_im2col_weights``; ``prepare_weights`` makes
 them once per parameter version and the modules cache the result. Not done
-yet, and left to later PRs: weights in shared memory, ``wgmma``/TMA,
-fusing levels. The Pallas design (a whole RDB per tile) does not fit: five
+yet, and left to later PRs: fusing levels 1-4 per tile (worth it once the
+kernel nears the five-launch floor), a persistent grid, the f32 variant on
+tensor cores. The Pallas design (a whole RDB per tile) does not fit: five
 on-chip activations of a 16x16 tile already take ~196 KiB of the 227 KB of
 shared memory.
 
@@ -128,6 +144,9 @@ ssim                1e-4    0       srn_test per-set SSIM (and SSIM_Y), same rea
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -149,7 +168,130 @@ TOLERANCES = {
 }
 
 LAUNCHES_PER_RDB = 5  # one kernel launch per level
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# kernel codes of the C entry point: f32 on CUDA cores, bf16 on wgmma
+_KERNEL_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 CUDA
+# cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+# (rows, columns) of output pixels a block of the bf16 kernel owns, by the
+# tile code the C entry point takes
+TILES = ((8, 8), (16, 16))
+
+
+def tile_plan(b, h, w, sms=132):
+    """Tile code for a (b, h, w) level: 16x16, which shares each staged
+    weight chunk among 256 pixels, unless it would leave more than half the
+    SMs without a block; then 8x8. On the H100 16x16 was the faster at
+    (3, 100, 90), 126 blocks, and 8x8 fills the SMs at the train step's
+    (12, 32, 32)."""
+    return 1 if b * -(-h // 16) * -(-w // 16) >= sms // 2 else 0
+
+
+class WgmmaPlan:
+    """The bf16 kernel's shared-memory plan for one (cout, tile code), as
+    ``Plan`` in ``csrc/rdb.cu`` lays it out (byte offsets within a stage,
+    before the swizzle):
+
+    * window: [row][col][kc ch] over the (th + 2) x (tw + 2) window, one
+      32-byte row a pixel, in the 32-byte swizzle;
+    * weights, after the window (1024-byte aligned): [tap][ci][cout] for the
+      chunk's kc input channels, rows of 2 cout bytes in the swizzle of
+      that width.
+
+    ``a_desc`` and ``b_desc`` give each product's (start, leading byte
+    offset, stride byte offset, swizzle span): A K-major (a row is a pixel;
+    SBO the next 8 pixels, which are the next window row), B MN-major (a
+    row is an input channel; SBO the next 8 channels). ``vector`` lists the
+    plan in the order of the library's ``dasr_rdb_wgmma_plan``, which
+    ``kernel_plan`` reads."""
+
+    kc = 16  # input channels per pipeline stage
+
+    def __init__(self, cout, tile):
+        self.cout = cout
+        self.th, self.tw = TILES[tile]
+        self.sub = (self.th // 8) * (self.tw // 8)
+        self.warpgroups = 1 if self.sub < 2 else 2
+        self.mt = self.sub // self.warpgroups
+        self.threads = 128 * self.warpgroups + 32
+        self.win_w = self.tw + 2
+        self.win_pix = (self.th + 2) * (self.tw + 2)
+        self.pix_bytes = 2 * self.kc
+        self.win_bytes = -(-self.win_pix * self.pix_bytes // 1024) * 1024
+        self.wrow_bytes = 2 * cout
+        self.w_bytes = 9 * self.kc * self.wrow_bytes
+        self.stage_bytes = self.win_bytes + self.w_bytes
+        self.tx_bytes = self.win_pix * self.pix_bytes + self.w_bytes
+        self.stages = 4 if 4 * self.stage_bytes <= 110 * 1024 else 3
+        self.smem_bytes = self.stages * self.stage_bytes + 16 * self.stages + 1024
+
+    def sub_block(self, sb):
+        """(row, col) of sub-block sb's first pixel in the tile."""
+        cols = self.tw // 8
+        return 8 * (sb // cols), 8 * (sb % cols)
+
+    def a_desc(self, sb, tap):
+        r, c = self.sub_block(sb)
+        dy, dx = divmod(tap, 3)
+        start = ((r + dy) * self.win_w + c + dx) * self.pix_bytes
+        return start, 16, self.win_w * self.pix_bytes, self.pix_bytes
+
+    def b_desc(self, tap):
+        return (self.win_bytes + tap * self.kc * self.wrow_bytes, self.w_bytes,
+                8 * self.wrow_bytes, self.wrow_bytes)
+
+    def vector(self):
+        _, a_lbo, a_sbo, a_span = self.a_desc(0, 0)
+        _, b_lbo, b_sbo, b_span = self.b_desc(0)
+        return ([self.kc, self.threads, self.stages, self.stage_bytes, self.win_bytes,
+                 self.w_bytes, self.tx_bytes, self.smem_bytes, a_span, b_span, a_lbo, a_sbo,
+                 b_lbo, b_sbo]
+                + [self.b_desc(tap)[0] for tap in range(9)]
+                + [self.a_desc(sb, tap)[0] for sb in range(self.sub) for tap in range(9)])
+
+
+def kernel_plan(cout, tile):
+    """The plan compiled into the bf16 kernel for (cout, tile code), in the
+    order of ``WgmmaPlan.vector``. Loads the library, so it needs nvcc."""
+    from dasr_tpu_torch.kernels import build
+
+    out = (ctypes.c_int * 128)()
+    n = build.load().dasr_rdb_wgmma_plan(cout, tile, out, len(out))
+    if not 0 <= n <= len(out):
+        raise ValueError(f"kernel_plan: no bf16 kernel for cout {cout}, tile {tile}")
+    return list(out[:n])
+
+
+def level_costs(b, h, w, nc=64, gc=32, itemsize=2):
+    """[(FLOP, bytes)] of the five levels run as five launches: each reads
+    its input channels and weights once and writes its output once."""
+    pix = b * h * w
+    out = []
+    for k in range(5):
+        cin, cout = nc + k * gc, gc if k < 4 else nc
+        out.append((2 * 9 * pix * cin * cout,
+                    pix * (cin + cout) * itemsize + 9 * cin * cout * itemsize + 4 * cout))
+    return out
+
+
+def rdb_cost(b, h, w, nc=64, gc=32, itemsize=2):
+    """(FLOP, bytes) of one RDB as one function: x read once, y written
+    once, the weights and biases read once."""
+    macs = sum((nc + k * gc) * (gc if k < 4 else nc) for k in range(5))
+    flop = 2 * 9 * b * h * w * macs
+    nbytes = 2 * b * h * w * nc * itemsize + 9 * macs * itemsize + 4 * (4 * gc + nc)
+    return flop, nbytes
+
+
+def bound_ms(flop, nbytes, dtype=torch.bfloat16):
+    """(the least time in ms the H100 could take, "operations" or "bytes",
+    whichever sets it) at the published peaks."""
+    t_ops = flop / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def prepare_weights(kernels, biases, dtype):
@@ -267,14 +409,17 @@ def fused_rdb(x, kernels, biases):
 fused_rdb.launches = 0  # forward kernel launches on the card since the last reset
 
 
-def _launch(x, kernels, biases):
-    from dasr_tpu_torch.kernels import build
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    if x.dim() != 4 or x.dtype not in _DTYPE_CODE:
+
+def _check(x, kernels, biases):
+    if x.dim() != 4 or x.dtype not in _KERNEL_CODE:
         raise ValueError(f"fused_rdb: x must be 4-D f32 or bf16, got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous() or x.data_ptr() % 32:
         raise ValueError("fused_rdb: x must be contiguous NHWC and 32-byte aligned")
-    b, h, w, nc = x.shape
+    nc = x.shape[-1]
     gc = kernels[0].shape[-1]
     if len(kernels) != 5 or len(biases) != 5 or nc % 32 or gc % 32:
         raise ValueError(f"fused_rdb: takes 5 levels with nc, gc multiples of 32 (nc {nc}, gc {gc})")
@@ -301,20 +446,27 @@ def _launch(x, kernels, biases):
         ):
             raise ValueError(f"fused_rdb: bias {k} must be contiguous f32 ({cout},) on {x.device}")
 
+
+def _launch(x, kernels, biases):
+    """The five level launches of one RDB on x's current stream, in one call
+    into the library: level k reads x and the growth buffer and writes its
+    slice of the buffer (levels 1-4) or y (level 5)."""
+    from dasr_tpu_torch.kernels import build
+
+    _check(x, kernels, biases)
     lib = build.load()
+    b, h, w, nc = x.shape
+    gc = kernels[0].shape[-1]
     growth = torch.empty((b, h, w, 4 * gc), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
-    code = _DTYPE_CODE[x.dtype]
+    ptrs = ctypes.c_void_p * 5
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        for k in range(5):
-            final = k == 4
-            out, stride, off = (y, nc, 0) if final else (growth, 4 * gc, k * gc)
-            rc = lib.dasr_rdb_level(
-                code, x.data_ptr(), growth.data_ptr(), kernels[k].data_ptr(),
-                biases[k].data_ptr(), out.data_ptr(), b, h, w, nc, 4 * gc,
-                nc + k * gc, nc if final else gc, stride, off, int(final), stream,
-            )
-            build.check(lib, rc, f"fused_rdb level {k + 1}")
-            fused_rdb.launches += 1
+        rc = lib.dasr_rdb_forward(
+            _KERNEL_CODE[x.dtype], x.data_ptr(), growth.data_ptr(),
+            ptrs(*(k.data_ptr() for k in kernels)), ptrs(*(v.data_ptr() for v in biases)),
+            y.data_ptr(), b, h, w, nc, gc, tile_plan(b, h, w, _sm_count(x.device.index)),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, rc, "fused_rdb")
+    fused_rdb.launches += LAUNCHES_PER_RDB
     return y

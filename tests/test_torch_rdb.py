@@ -2,7 +2,7 @@
 RDB kernel: its XLA formulation and the Pallas kernel in interpret mode.
 
 On the CPU the wrapper runs its plain PyTorch version; the CUDA kernel is
-checked on the card by the ``cuda``-marked test and by chip_smoke.py."""
+checked on the card by chip_smoke.py and by test_torch_rdb_card.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -135,22 +135,3 @@ def test_cuda_request_without_card_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card(rng):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
-    kernels, biases = _params(rng)
-    x = torch.from_numpy(rng.random((2, 37, 53, 64), dtype=np.float32)).cuda()
-    ks = [torch.from_numpy(k).cuda() for k in kernels]
-    bs = [torch.from_numpy(b).cuda() for b in biases]
-    torch.backends.cudnn.allow_tf32 = False
-    for dt, tol in ((torch.float32, "kernel_f32"), (torch.bfloat16, "kernel_bf16")):
-        kd, bd = prepare_weights(ks, bs, dt)
-        with torch.no_grad():
-            got = fused_rdb(x.to(dt), kd, bd)
-            # the plain version on the same tensors rounds where the kernel does
-            want = fused_rdb_reference(x.to(dt), kd, bd).float()
-        atol, rtol = TOLERANCES[tol]
-        torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
