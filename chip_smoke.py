@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --phases build,kernel,grad,train   # the training slice
+    python3 chip_smoke.py --phases dsn,dataset,pipeline      # stages 1 and 2, and all three
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -48,7 +49,29 @@ CPU or to a plain version):
             wrapper; the device's busy time per step (torch.profiler),
             the RDB kernels' share and the idle share.
             It needs phases 2 and 4, which it then runs too.
+6. dsn    - the port's dsn_train CLI (stage 1) at the aim2019 launcher set
+            (DeResnet nf 64 nb 8 x4, FSD on the avg-pool high-pass, w_tex
+            0.006, batch 8, crop 256, bf16) with --transfer_uint8
+            --device_bicubic on a seeded synthetic corpus, DSN_STEPS steps,
+            one validation and one save: every logged loss finite; three f32
+            steps at nb 2 on the card vs the same steps of the port on the
+            CPU (losses, updates, Adam's first moments); DSN ms/step (CUDA
+            events, median), the host's time to issue a step, images/s, the
+            idle share (torch.profiler) and peak memory.
+7. dataset - the port's dsn_create_dataset CLI (stage 2) from phase 6's
+            checkpoint over seeded targets of 2040x1356 (the tiled path),
+            1020x678 (whole) and 511x383 (ragged), with source DDMs: LR PNG
+            and DDM shapes, DDM values in [0, 1], the tiled generator forward
+            vs the whole-image one on the 1020x678 image; s/image. It needs
+            phase 6, which it then runs too.
+8. pipeline - the port's auto_reproduce CLI, all three stages at reduced
+            depth (DSN nb 2, crop 128; SRN nf 64 nb 2, batch 6 + 6, HR 128, a
+            few iterations): every stage's output tree, finite losses, the
+            stage wall-clock lines, the RDB kernel's launches and shapes (it
+            needs phases 2 and 4, which it then runs too).
 
+Every port CLI runs as a user runs it: before each call the TF32 flags are
+set on, and the call must turn them off (core/device.py:f32_numerics).
 The line before the last is the kernel report as JSON, and the last line
 is {"ok": true, "device": {...}}.
 """
@@ -81,13 +104,31 @@ TRAIN_SHAPES = ((12, 32, 32), (1, 64, 64))
 # the train step's crops
 TIMED_SHAPES = ((8, 128, 128), (1, 256, 256), (12, 32, 32))
 TRAIN_STEPS = 30
-TRAIN_CONFIG = os.path.join("dasr_tpu", "configs", "train_DASR_auto_reproduce.json")
+DSN_STEPS = 30  # 48 source images, batch 8: 6 steps an epoch, 5 epochs
+# phase dataset: (h, w) of the targets, DIV2K-sized (tiled), half (whole), ragged
+DATASET_SIZES = ((1356, 2040), (678, 1020), (383, 511))
+PIPELINE_ITERS = 4
+TRAIN_CONFIG = os.path.join("dasr_tpu_torch", "configs", "train_DASR_auto_reproduce.json")
 SEED = 0
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def run_cli(main, argv):
+    """A port CLI's ``main(argv)`` as a user runs it: the TF32 flags are on
+    before the call (torch's cuDNN default, and cuBLAS's opt-in) and the CLI
+    must turn them off; fails if it did not."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = main(argv)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail(f"{main.__module__} left TF32 on: f32 must mean f32 on the card")
+    return out
 
 
 def gpu_line() -> str:
@@ -448,7 +489,7 @@ def phase_serve(gpu, checked):
         try:
             for cfg in cfgs:
                 t0 = time.perf_counter()
-                avgs.append(srn_test.main(["-opt", cfg, "--device", "cuda"]))
+                avgs.append(run_cli(srn_test.main, ["-opt", cfg, "--device", "cuda"]))
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
         finally:
@@ -717,6 +758,44 @@ def train_config(root, dirs, name, niter, nb=NB, bf16=True):
     return path
 
 
+def compare_three_steps(what, run, ref, loss_tol, update_tol, moment_tol):
+    """Two runs of three f32 train steps from the same params, each (the
+    metric dicts of the steps, {network: its params before}, {network: (its
+    params after, Adam's first moments)}), against ``ref``. Fails where a
+    loss differs past atol + rtol |loss| or the runs start apart. Returns the
+    worst loss error as a share of its limit, one line per network, the
+    networks whose update or first moments differ past ``update_tol`` /
+    ``moment_tol`` of their norm, and the largest parameter difference."""
+    import torch
+
+    (traj, init, nets), (traj_r, init_r, nets_r) = run, ref
+    atol, rtol = loss_tol
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(traj, traj_r)):
+        for k in b:
+            if k.startswith("loss/"):
+                err = abs(a[k] - b[k])
+                worst = max(worst, err / (atol + rtol * abs(b[k])))
+                if err > atol + rtol * abs(b[k]):
+                    fail(f"{what} step {i} {k}: {a[k]:.6e} vs {b[k]:.6e}")
+    parts, bad, perr = [], [], 0.0
+    for name in nets_r:
+        if not torch.equal(init[name], init_r[name]):
+            fail(f"{what}: the two runs start from different {name} params")
+        (p, m), (pr, mr) = nets[name], nets_r[name]
+        # p - pr is the difference of the two three-step updates
+        upd = ((p - pr).norm() / (pr - init_r[name]).norm()).item()
+        mom = ((m - mr).norm() / mr.norm()).item()
+        err = (p - pr).abs()
+        perr = max(perr, err.max().item())
+        parts.append(f"{name} update {upd:.3e}, first moment {mom:.3e}, params max|err| "
+                     f"{err.max().item():.3e} ({int((err > 2e-5).sum())} of {err.numel()} past "
+                     f"2e-5)")
+        if not (upd <= update_tol and mom <= moment_tol):
+            bad.append(name)
+    return worst, parts, bad, perr
+
+
 def phase_train(gpu, checked, checked_grad):
     import torch
     from torch.nn.modules.module import register_module_forward_pre_hook
@@ -750,7 +829,7 @@ def phase_train(gpu, checked, checked_grad):
         handle = register_module_forward_pre_hook(record)
         try:
             t0 = time.perf_counter()
-            steps, _ = srn_train.main(["-opt", cfg, "--device", "cuda"])
+            steps, _ = run_cli(srn_train.main, ["-opt", cfg, "--device", "cuda"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         finally:
@@ -910,33 +989,12 @@ def phase_train(gpu, checked, checked_grad):
                 fail(f"train f32 ({'plain' if plain else 'kernel'}): {launched} kernel launches")
             runs.append((traj, init, {name: (flat(ns), flat(ns, True))
                                       for name, ns in nets.items()}))
-        (traj_k, init_k, nets_k), (traj_p, init_p, nets_p) = runs
+        (traj_k, _, _), _ = runs
         atol, rtol = TOLERANCES["train_loss_f32"]
-        worst_loss = 0.0
-        for i, (a, b) in enumerate(zip(traj_k, traj_p)):
-            for k in b:
-                if k.startswith("loss/"):
-                    err = abs(a[k] - b[k])
-                    worst_loss = max(worst_loss, err / (atol + rtol * abs(b[k])))
-                    if err > atol + rtol * abs(b[k]):
-                        fail(f"train f32 step {i} {k}: kernel {a[k]:.6e} vs plain {b[k]:.6e}")
         _, utol = TOLERANCES["train_update_f32"]
         _, mtol = TOLERANCES["train_moment_f32"]
-        parts, bad, perr = [], [], 0.0
-        for name in nets_p:
-            if not torch.equal(init_k[name], init_p[name]):
-                fail(f"train f32: the two runs start from different {name} params")
-            (pk, mk), (pp, mp) = nets_k[name], nets_p[name]
-            # pk - pp is the difference of the two three-step updates
-            upd = ((pk - pp).norm() / (pp - init_p[name]).norm()).item()
-            mom = ((mk - mp).norm() / mp.norm()).item()
-            err = (pk - pp).abs()
-            perr = max(perr, err.max().item())
-            parts.append(f"{name} update {upd:.3e}, first moment {mom:.3e}, params max|err| "
-                         f"{err.max().item():.3e} ({int((err > 2e-5).sum())} of {err.numel()} "
-                         f"past 2e-5)")
-            if not (upd <= utol and mom <= mtol):
-                bad.append(name)
+        worst_loss, parts, bad, perr = compare_three_steps("train f32", *runs, (atol, rtol),
+                                                           utol, mtol)
         print(f"train f32 nb 2 (nf {NC}, gc {GC}), 3 steps, kernel vs plain version on the card, "
               f"cuDNN off in both: losses within {worst_loss:.3f} of their limit (atol {atol}, "
               f"rtol {rtol}); |dtheta_kernel - dtheta_plain| / |dtheta_plain| and the same of "
@@ -948,10 +1006,369 @@ def phase_train(gpu, checked, checked_grad):
     return report
 
 
+def write_images(d, rng, n, hw, prefix):
+    """``n`` seeded RGB PNGs of (h, w) = ``hw`` into ``d``."""
+    from dasr_tpu_torch.data.io import save_img
+
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        save_img(rng.random((*hw, 3), dtype=np.float32), os.path.join(d, f"{prefix}{i:03d}.png"))
+    return d
+
+
+def dsn_argv(root, dirs, *extra):
+    """dsn_train's argv at the aim2019 launcher set (auto_reproduce.py's
+    LAUNCHER_ARGS) on the synthetic corpus, with the launcher's fast path."""
+    from dasr_tpu_torch.cli.auto_reproduce import LAUNCHER_ARGS
+
+    return LAUNCHER_ARGS["aim2019"] + [
+        "--device", "cuda", "--transfer_uint8", "--device_bicubic", "--seed", str(SEED),
+        "--source_dir", dirs["source"], "--target_dir", dirs["target"],
+        "--valid_hr_dir", dirs["valid_hr"], "--valid_lr_dir", dirs["valid_lr"],
+        "--experiments_root", root, *extra]
+
+
+# three f32 DSN steps on the card vs on the CPU: losses within atol + rtol
+# |loss|; updates and Adam's first moments within these shares of their
+# norms. The SRN step's limits (TOLERANCES["train_*"]), kept: on the H100 the losses came
+# within 0.08 of theirs, the moments 3.7e-4 (G) and 2.2e-3 (D), the updates
+# 1.0e-2 and 7.4e-3. Adam steps an element whose gradient is rounding noise
+# by up to lr either way (17 of G's 225096 params, 264 of D's 1029505 past
+# 2e-5), which the update's norm holds and an element-wise limit would not;
+# D's moments carry the InstanceNorm backward's f32 cancellation.
+DSN_F32_LIMITS = {"loss": (2e-5, 2e-3), "update": 5e-2, "moment": 1e-2}
+
+
+def phase_dsn(gpu, root):
+    """Stage 1 through the port's dsn_train CLI, then its device step alone."""
+    import torch
+
+    from dasr_tpu_torch.cli import dsn_train
+
+    rng = np.random.default_rng(SEED)
+    corpus = os.path.join(root, "dsn_corpus")
+    dirs = {"source": write_images(os.path.join(corpus, "source"), rng, 48, (80, 80), "s"),
+            "target": write_images(os.path.join(corpus, "target"), rng, 8, (320, 320), "t"),
+            "valid_hr": write_images(os.path.join(corpus, "valid_hr"), rng, 4, (256, 256), "v"),
+            "valid_lr": write_images(os.path.join(corpus, "valid_lr"), rng, 4, (64, 64), "v")}
+    argv = dsn_argv(root, dirs, "--save_path", "dsn", "--num_epochs", "5",
+                    "--num_decay_epochs", "2", "--val_interval", "5", "--val_img_interval", "5",
+                    "--save_model_interval", "5")
+    report = {}
+    # the CLI reads the metrics at every LOG_EVERY-th step, one step late, and
+    # checks them finite there: three reads in 30 steps
+    log_every, dsn_train.LOG_EVERY = dsn_train.LOG_EVERY, 10
+    try:
+        t0 = time.perf_counter()
+        steps = run_cli(dsn_train.main, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dsn_train.LOG_EVERY = log_every
+    run = os.path.join(root, "dsn")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r for r in recs if "loss/d_tex_loss" in r]
+    val = [r for r in recs if "val/psnr_vs_bicubic" in r]
+    if steps != DSN_STEPS or [r["step"] for r in losses] != [10, 20, 30] or not all(
+            np.isfinite(v) for r in losses for k, v in r.items() if "/" in k):
+        fail(f"dsn: {steps} steps; losses missing or not finite: {losses}")
+    if len(val) != 1 or not np.isfinite(val[0]["val/psnr_vs_bicubic"]):
+        fail(f"dsn: validation missing or not finite: {val}")
+    for f in (f"{DSN_STEPS}.pt", "last_iteration.tar"):
+        if not os.path.exists(os.path.join(run, "checkpoints", f)):
+            fail(f"dsn: checkpoints/{f} was not saved")
+    print(f"dsn: {steps} steps in {secs:.2f} s through the CLI (host loader, uint8 crops, "
+          f"bicubic in the step, one validation, one save); read and finite at steps 10, 20 "
+          f"and 30, g_overall_loss " + " -> ".join(f"{r['loss/g_overall_loss']:.4e}" for r in losses)
+          + ", d_tex_loss " + " -> ".join(f"{r['loss/d_tex_loss']:.4e}" for r in losses)
+          + "; at step 30: " + ", ".join(f"{k.split('/')[-1]} {losses[-1][k]:.4e}"
+                                         for k in sorted(losses[-1]) if "/" in k
+                                         and not k.startswith("perf/"))
+          + f"; val PSNR vs bicubic {val[0]['val/psnr_vs_bicubic']:.3f} dB; TF32 off after "
+          f"the CLI", flush=True)
+
+    # the device step alone, at the launcher set, on one host batch
+    dev = torch.device("cuda")
+    opt = dsn_train.build_argparser().parse_args(argv)
+    loader = dsn_train.make_loader(opt, dirs["source"], dirs["target"], dev)
+    trainer = dsn_train.make_trainer(opt, dev, len(loader))
+    trainer.init_state()
+    batch = dsn_train.to_device(next(iter(loader)), dev)
+
+    def step():
+        return trainer.train_step(batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        step()
+    times = []
+    for _ in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        step()
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        times.append((start.elapsed_time(end), host))
+    ms, host_ms = (float(v) for v in np.median(times, axis=0))
+    peak = torch.cuda.max_memory_allocated()
+    imgs = opt.batch_size / (ms / 1e3)
+    print(f"dsn step, DeResnet nf 64 nb {opt.num_res_blocks} x4 + FSD + LPIPS alex, batch "
+          f"{opt.batch_size}, crop {opt.crop_size}, bf16, uint8 batch, bicubic in the step: "
+          f"{ms:.3f} ms/step (median of 12, CUDA events), host {host_ms:.3f} ms to issue a "
+          f"step, {imgs:.2f} HR crops/s, peak device memory {peak / 2**30:.3f} GiB [{gpu}]",
+          flush=True)
+    report.update(dsn_ms_per_step=ms, dsn_host_ms_per_step=host_ms, dsn_images_per_s=imgs,
+                  dsn_peak_mem_bytes=peak)
+    prof = device_profile(step)
+    if prof is None:
+        print("dsn step: torch.profiler recorded no device events; idle share not measured",
+              flush=True)
+    else:
+        idle = max(0.0, 1 - prof["busy"] / ms)
+        print(f"dsn step (torch.profiler): device busy {prof['busy']:.3f} ms per step, idle "
+              f"share {100 * idle:.2f}% of the untraced {ms:.3f} ms step, "
+              f"{100 * prof['idle']:.2f}% of the traced span of {prof['span']:.3f} ms; "
+              f"{prof['events']:.0f} device events per step; most device time: "
+              + ", ".join(f"{name[:60]} {t:.3f} ms" for name, t in prof["top"]) + f" [{gpu}]",
+              flush=True)
+        report.update(dsn_idle_share=idle, dsn_device_busy_ms=prof["busy"])
+    del trainer, batch
+    dsn_f32_check(root, dirs)
+    return report, os.path.join(run, "checkpoints")
+
+
+def dsn_f32_check(root, dirs):
+    """Three f32 steps at nb 2 (batch 4, crop 128) on the card against the
+    same steps of the port on the CPU, from the same init and batches."""
+    import torch
+
+    from dasr_tpu_torch.cli import dsn_train
+
+    opt = dsn_train.build_argparser().parse_args(dsn_argv(
+        root, dirs, "--no_bf16", "--num_res_blocks", "2", "--batch_size", "4",
+        "--crop_size", "128"))
+    loader = dsn_train.make_loader(opt, dirs["source"], dirs["target"], torch.device("cpu"))
+    batches = list(loader)[:3]
+    runs = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        tr = dsn_train.make_trainer(opt, dev, len(loader))
+        st = tr.init_state()
+        nets = {"G": st.g, "D": st.d_target}
+        init = {k: torch.cat([p.detach().flatten().cpu() for p in ns.params()])
+                for k, ns in nets.items()}
+        traj = [{k: float(v) for k, v in tr.train_step(dsn_train.to_device(b, dev)).items()}
+                for b in batches]
+        after = {k: (torch.cat([p.detach().flatten().cpu() for p in ns.params()]),
+                     torch.cat([ns.opt.state[p]["exp_avg"].flatten().cpu() for p in ns.params()]))
+                 for k, ns in nets.items()}
+        runs[name] = (traj, init, after)
+    lim = DSN_F32_LIMITS
+    worst, parts, bad, _ = compare_three_steps("dsn f32", runs["cuda"], runs["cpu"], lim["loss"],
+                                               lim["update"], lim["moment"])
+    print(f"dsn f32 nb 2 (batch 4, crop 128), 3 steps, the card vs the CPU: losses within "
+          f"{worst:.3f} of their limit (atol {lim['loss'][0]}, rtol {lim['loss'][1]}); "
+          f"|dtheta_card - dtheta_cpu| / |dtheta_cpu| and the same of Adam's first moments "
+          f"(limits {lim['update']}, {lim['moment']}): {'; '.join(parts)}", flush=True)
+    if bad:
+        fail(f"dsn f32: the card's updates or moments of {bad} are off the CPU's")
+
+
+def phase_dataset(gpu, root, ckpt_dir):
+    """Stage 2 through the port's dsn_create_dataset CLI from phase dsn's
+    checkpoint, then the tiled generator forward against the whole one."""
+    import math
+
+    import torch
+
+    from dasr_tpu_torch.cli import dsn_create_dataset
+    from dasr_tpu_torch.data.io import read_img
+    from dasr_tpu_torch.nn.generators import DeResnet
+
+    rng = np.random.default_rng(SEED + 2)
+    target = os.path.join(root, "dataset_corpus", "target")
+    for i, hw in enumerate(DATASET_SIZES):
+        write_images(target, rng, 1, hw, f"t{i}_")
+    source = write_images(os.path.join(root, "dataset_corpus", "source"), rng, 2, (96, 128), "s")
+    out = os.path.join(root, "dataset_out")
+    t0 = time.perf_counter()
+    run_cli(dsn_create_dataset.main, [
+        "--device", "cuda", "--checkpoint", ckpt_dir, "--filter", "avg_pool",
+        "--source_dir", source, "--target_dir", target, "--name", "lrs",
+        "--results_root", out, "--including_source_ddm"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lrs = os.path.join(out, "lrs")
+    for i, (h, w) in enumerate(DATASET_SIZES):
+        lr_hw = (math.ceil(h / 4), math.ceil(w / 4))
+        img = read_img(os.path.join(lrs, "imgs_from_target", f"t{i}_000.png"))
+        ddm = np.load(os.path.join(lrs, "ddm_target", f"t{i}_000.npy"))
+        if img.shape != (*lr_hw, 3) or ddm.shape != (1, 1, *lr_hw):
+            fail(f"dataset: {(h, w)} gave an LR of {img.shape} and a DDM of {ddm.shape}, "
+                 f"expected {lr_hw}")
+        if not (np.isfinite(ddm).all() and 0 <= ddm.min() and ddm.max() <= 1):
+            fail(f"dataset: the DDM of {(h, w)} leaves [0, 1]: [{ddm.min()}, {ddm.max()}]")
+        print(f"dataset {w}x{h} ({'tiled' if h * w > dsn_create_dataset.TILE_ABOVE else 'whole'}"
+              f"): LR {lr_hw[1]}x{lr_hw[0]}, DDM {ddm.shape} in [{ddm.min():.4f}, "
+              f"{ddm.max():.4f}]", flush=True)
+    for i in range(2):
+        ddm = np.load(os.path.join(lrs, "ddm_source", f"s{i:03d}.npy"))
+        if ddm.shape != (1, 1, 96, 128) or not (0 <= ddm.min() and ddm.max() <= 1):
+            fail(f"dataset: source DDM {i} has shape {ddm.shape}, range "
+                 f"[{ddm.min()}, {ddm.max()}]")
+    n = len(DATASET_SIZES) + 2
+    print(f"dataset: {len(DATASET_SIZES)} targets and 2 source DDMs in {secs:.2f} s through the "
+          f"CLI, {secs / len(DATASET_SIZES):.3f} s per target image (f32 nets, PNG and NPY "
+          f"writes included; {secs / n:.3f} s per image of either kind); TF32 off after the "
+          f"CLI [{gpu}]", flush=True)
+
+    # the tiled G forward vs the whole-image one on the 1020x678 image, away
+    # from the border (reflect padding at the tile grid's edge, zero padding
+    # in the whole forward)
+    saved = torch.load(os.path.join(ckpt_dir, f"{DSN_STEPS}.pt"), map_location="cpu",
+                       weights_only=True)
+    g = DeResnet(8, 4)
+    g.load_state_dict(saved["G"]["net"])
+    g.to("cuda", memory_format=torch.channels_last).eval()
+    x = torch.from_numpy(read_img(os.path.join(target, "t1_000.png"))).cuda().permute(2, 0, 1)[None]
+    ms = {}
+    with torch.no_grad():
+        whole = dsn_create_dataset.generate_lr(g, x, 4)
+        tiled = dsn_create_dataset.generate_lr(g, x, 4, above=0)
+        for name, above in (("whole", dsn_create_dataset.TILE_ABOVE), ("tiled", 0)):
+            ms[name] = cuda_ms(lambda: dsn_create_dataset.generate_lr(g, x, 4, above=above),
+                               warmup=1, iters=3)
+    band = 8  # LR pixels: G's receptive field reaches 24 HR pixels (6 LR) at nb 8
+    err = (tiled - whole)[..., band:-band, band:-band].abs().max().item()
+    print(f"dataset: the tiled G forward (tile {dsn_create_dataset.TILE}, halo 64) vs the whole "
+          f"one on 1020x678, f32, {band} LR px from the border: max|err| {err:.3e} (limit "
+          f"{DATASET_TILE_ATOL}); G forward {ms['whole']:.2f} ms whole, {ms['tiled']:.2f} ms "
+          f"tiled [{gpu}]", flush=True)
+    if not err <= DATASET_TILE_ATOL:
+        fail(f"dataset: the tiled G forward is {err:.3e} off the whole one")
+    return {"dataset_s_per_image": secs / len(DATASET_SIZES), "dataset_tile_max_abs_err": err}
+
+
+# the tiled forward vs the whole one: the same f32 convs over other batch
+# shapes, sigmoid outputs in [0, 1]
+DATASET_TILE_ATOL = 1e-5
+
+
+class Tee:
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.parts, self.out = [], sys.stdout
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_pipeline(gpu, root, checked, checked_grad):
+    """All three stages through the port's auto_reproduce CLI at reduced
+    depth, with the RDB kernel's launches and shapes of stage 3."""
+    import contextlib
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from dasr_tpu_torch.cli import auto_reproduce
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, fused_rdb
+
+    rng = np.random.default_rng(SEED + 3)
+    corpus = os.path.join(root, "pipeline_corpus")
+    dirs = {"source": write_images(os.path.join(corpus, "source"), rng, 16, (36, 36), "s"),
+            "target": write_images(os.path.join(corpus, "target"), rng, 8, (144, 144), "t"),
+            "valid_hr": write_images(os.path.join(corpus, "valid_hr"), rng, 2, (256, 256), "v"),
+            "valid_lr": write_images(os.path.join(corpus, "valid_lr"), rng, 2, (64, 64), "v")}
+    paths_yml = os.path.join(root, "pipeline_paths.yml")
+    with open(paths_yml, "w") as f:
+        f.write("aim2019:\n  tdsr:\n" + "".join(f"    {k}: '{v}'\n" for k, v in dirs.items()))
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg["network_G"]["nb"] = 2  # depth cut; the widths and batch are the shipped ones
+    cfg["max_val_images"] = 2
+    cfg["logger"]["print_freq"] = 1  # every step's losses read and logged
+    template = os.path.join(root, "pipeline_template.json")
+    with open(template, "w") as f:
+        json.dump(cfg, f)
+    work = os.path.join(root, "pipeline_work")
+    argv = ["--dataset", "aim2019", "--artifact", "tdsr", "--device", "cuda",
+            "--paths_yml", paths_yml, "--work_root", work, "--num_epochs", "1",
+            "--niter", str(PIPELINE_ITERS), "--srn_template", template,
+            "--dsn_extra", "--num_res_blocks 2 --crop_size 128",
+            "--dsn_create_extra", "--num_res_blocks 2"]
+    seen = set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+    tee = Tee()
+    fused_rdb.launches = 0
+    handle = register_module_forward_pre_hook(record)
+    try:
+        with contextlib.redirect_stdout(tee):
+            times = run_cli(auto_reproduce.main, argv)
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    launches = fused_rdb.launches
+    printed = "".join(tee.parts)
+    if list(times) != ["dsn_train", "dsn_create_dataset", "srn_train"] or not all(
+            f"stage '{s}' wall-clock" in printed for s in times):
+        fail(f"pipeline: stage wall-clock lines missing: {times}")
+    dsn = os.path.join(work, "DSN_experiments", "0603_DSN_aim2019")
+    lrs = os.path.join(work, "DSN_results", "0603_DSN_LRs_aim2019")
+    srn = os.path.join(work, "SRN_experiments", "0603_DASR_SRN_auto_reproduce_aim2019")
+    want = {os.path.join(dsn, "checkpoints", "last_iteration.tar"),
+            os.path.join(srn, "training_state", f"{PIPELINE_ITERS}.pt")}
+    want |= {os.path.join(lrs, "imgs_from_target", f"t{i:03d}.png") for i in range(8)}
+    want |= {os.path.join(lrs, "ddm_target", f"t{i:03d}.npy") for i in range(8)}
+    missing = sorted(p for p in want if not os.path.exists(p))
+    if missing:
+        fail(f"pipeline: missing outputs {missing}")
+    losses = {}
+    for stage, run in (("dsn_train", dsn), ("srn_train", srn)):
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            losses[stage] = [v for r in map(json.loads, f) for k, v in r.items()
+                             if k.startswith("loss/")]
+        if not losses[stage] or not all(np.isfinite(losses[stage])):
+            fail(f"pipeline: {stage}'s losses missing or not finite")
+    # stage 3's G forwards: one a step, one per validation image at every
+    # validation (val_freq = niter // 4)
+    forwards = PIPELINE_ITERS + 2 * (PIPELINE_ITERS // max(1, PIPELINE_ITERS // 4))
+    expected = 3 * 2 * LAUNCHES_PER_RDB * forwards
+    missing = {k[:4] for k in seen} - checked
+    missing |= {k[:4] for k in seen if k[4]} - checked_grad
+    print(f"pipeline: {', '.join(f'{k} {v:.1f} s' for k, v in times.items())}; "
+          f"logged losses finite ({', '.join(f'{k} {len(v)}' for k, v in losses.items())}); "
+          f"fused_rdb launches {launches}, expected "
+          f"3 x 2 x {LAUNCHES_PER_RDB} x {forwards} = {expected}; kernel input shapes "
+          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}; TF32 off after the CLI [{gpu}]",
+          flush=True)
+    if launches != expected:
+        fail(f"pipeline: fused_rdb launched {launches} times, expected {expected}")
+    if missing:
+        fail(f"pipeline: stage 3 gave the kernel shapes phases 2 and 4 did not check: {missing}")
+    return {"launches_pipeline": launches,
+            "pipeline_stage_s": {k: round(v, 3) for k, v in times.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernel,serve,grad,train",
-                    help="comma-separated subset of build,kernel,serve,grad,train")
+    ap.add_argument("--phases", default="build,kernel,serve,grad,train,dsn,dataset,pipeline",
+                    help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
+                         "pipeline")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -966,8 +1383,9 @@ def main(argv=None):
         import dasr_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the dasr_tpu_torch package is not next to this script ({e})")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from dasr_tpu_torch.core.device import resolve_device
+
+    resolve_device("cuda")  # the port's rule for the phases that call no CLI: TF32 off
 
     gpu = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -979,8 +1397,10 @@ def main(argv=None):
     }
     if "serve" in phases:
         phases.add("kernel")  # serve checks its shapes against phase 2's
-    if "train" in phases:
-        phases |= {"kernel", "grad"}  # and train against phases 2 and 4
+    if "train" in phases or "pipeline" in phases:
+        phases |= {"kernel", "grad"}  # and train and pipeline against phases 2 and 4
+    if "dataset" in phases:
+        phases.add("dsn")  # stage 2 reads stage 1's checkpoint
     if "build" in phases or "kernel" in phases or "grad" in phases:
         phase_build()
     if "kernel" in phases:
@@ -993,10 +1413,24 @@ def main(argv=None):
         entry.update(report)
     if "train" in phases:
         entry.update(phase_train(gpu, checked, checked_grad))
+    stages = {}
+    with tempfile.TemporaryDirectory() as root:
+        if "dsn" in phases:
+            report, ckpt_dir = phase_dsn(gpu, root)
+            stages.update(report)
+        if "dataset" in phases:
+            stages.update(phase_dataset(gpu, root, ckpt_dir))
+        if "pipeline" in phases:
+            report = phase_pipeline(gpu, root, checked, checked_grad)
+            entry["launches_pipeline"] = report.pop("launches_pipeline")
+            stages.update(report)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
-    entry["launches"] = entry.get("launches_serve", 0) + entry.get("launches_train", 0)
+    entry["launches"] = sum(entry.get(f"launches_{p}", 0) for p in ("serve", "train", "pipeline"))
 
+    if stages:
+        print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",
+              flush=True)
     print(gpu, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,7 @@ def main(argv=None):
     from dasr_tpu_torch.data.datasets import create_dataset
     from dasr_tpu_torch.data.pipeline import Loader
     from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.utils.guards import check_finite
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
     opt = parse_srn_options(args.opt, is_train=True)
@@ -134,7 +135,7 @@ def main(argv=None):
                 metrics = model.train_step(batch)
                 current_step += 1
                 if current_step % print_freq == 0:
-                    _check_finite(metrics, current_step)
+                    check_finite(metrics, current_step)
                     logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}> " + ", ".join(
                         f"{k.split('/')[-1]}: {v:.4e}" for k, v in metrics.items()))
                     # imgs: effective images per step (fake + real halves)
@@ -154,12 +155,6 @@ def main(argv=None):
     finally:
         writer.close()
     return current_step, last
-
-
-def _check_finite(metrics, step):
-    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
-    if bad:
-        raise FloatingPointError(f"non-finite training metrics at step {step}: {', '.join(bad)}")
 
 
 def _save(model, opt, logger_opt, step, logger):

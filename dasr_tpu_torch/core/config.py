@@ -1,9 +1,11 @@
-"""SRN commented-JSON options (reference: codes/SRN/options/options.py:8-104).
+"""SRN commented-JSON options (reference: codes/SRN/options/options.py:8-104)
+and the ``paths.yml`` dataset registry.
 
 Framework-free host code, copied from ``dasr_tpu.core.config`` so that the
 port never imports the JAX package: comment stripping, phase/scale
 injection, experiment-dir derivation, missing keys read as ``None``
-(``NoneDict``), and the legacy model-name normalisation.
+(``NoneDict``), the legacy model-name normalisation, and the registry's
+``[dataset][artifact][source|target|valid_hr|valid_lr]`` lookup.
 """
 
 from __future__ import annotations
@@ -112,6 +114,20 @@ def parse_srn_options(json_path: str, is_train: bool = True) -> NoneDict:
         path["log"] = results_root
 
     return dict_to_nonedict(opt)
+
+
+def load_paths_yml(path: str) -> NoneDict:
+    import yaml
+
+    with open(path) as f:
+        return dict_to_nonedict(yaml.safe_load(f))
+
+
+def dataset_paths(paths_yml: str, dataset: str, artifact: str) -> NoneDict:
+    reg = load_paths_yml(paths_yml)
+    if dataset not in reg or artifact not in reg[dataset]:
+        raise KeyError(f"paths.yml has no entry [{dataset}][{artifact}]")
+    return reg[dataset][artifact]
 
 
 def dict2str(opt: dict, indent_l: int = 1) -> str:

@@ -11,6 +11,9 @@ dicts of RGB float32 HWC numpy arrays in [0, 1]:
     (codes/SRN/data/LRHR_wavelet_unpairEq_fake_w_dataset.py)
   * ``DASRUnpairedEqDataset`` — 'LRHR_wavelet_unpair_fake_real_w_EQ': also
     the per-real-LR DDMs (LRHR_wavelet_unpairEq_dataset.py)
+  * ``DSNTrainDataset`` — the DSN feed: a clean HR crop, its MATLAB-bicubic
+    LR, and a crop of a noisy LR image (codes/DSN/data_loader.py:12-59)
+  * ``DSNValDataset``   — the DSN validation feed (data_loader.py:157-190)
 
 Copied from ``dasr_tpu.data.datasets``: the same draws from the same
 per-item ``np.random.Generator``, so the port's batches are the JAX
@@ -23,7 +26,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from dasr_tpu_torch.data.io import list_images, load_ddm, read_img, resize_linear
+from dasr_tpu_torch.data.io import list_images, load_ddm, read_img, read_img_u8, resize_linear
 from dasr_tpu_torch.ops.metrics import modcrop
 from dasr_tpu_torch.ops.resize import imresize_np
 
@@ -211,6 +214,77 @@ class DASRUnpairedEqDataset(DASRUnpairedDataset):
             real_w = resize_linear(real_w, lr.shape[1], lr.shape[0])
             item["real_w"] = real_w[: lr.shape[0], : lr.shape[1], :]
         return item
+
+
+class DSNTrainDataset:
+    """DSN unpaired trainer feed (codes/DSN/data_loader.py:12-59).
+
+    Returns (clean HR crop, MATLAB-bicubic LR of that crop, random noisy LR
+    crop); each noisy image is paired with a random clean image.
+    ``transfer_uint8`` keeps the crops uint8 (cast on the device);
+    ``device_bicubic`` leaves out the bicubic, which the step computes."""
+
+    def __init__(self, source_dir: str, target_dir: str, crop_size: int = 256,
+                 upscale_factor: int = 4, flips: bool = False, rotations: bool = False,
+                 transfer_uint8: bool = False, device_bicubic: bool = False):
+        self.noisy = list_images(source_dir)
+        self.clean = list_images(target_dir)
+        self.crop = crop_size - crop_size % upscale_factor
+        self.scale = upscale_factor
+        self.flips = flips
+        self.rotations = rotations
+        self.device_bicubic = device_bicubic
+        self._read = read_img_u8 if transfer_uint8 else read_img
+
+    def __len__(self):
+        return len(self.noisy)
+
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng(index)
+        clean = self._read(self.clean[int(rng.integers(len(self.clean)))])
+        noisy = self._read(self.noisy[index])
+        clean, _ = _rand_crop(clean, self.crop, rng)
+        noisy, _ = _rand_crop(noisy, self.crop // self.scale, rng)
+        if self.flips or self.rotations:
+            clean = _augment([clean], rng, self.flips, self.rotations)[0]
+            noisy = _augment([noisy], rng, self.flips, self.rotations)[0]
+        item = {"input": clean, "disc": noisy}
+        if not self.device_bicubic:
+            clean_f = clean.astype(np.float32) / 255.0 if clean.dtype == np.uint8 else clean
+            item["bicubic"] = imresize_np(clean_f, 1.0 / self.scale)
+        return item
+
+
+class DSNValDataset:
+    """DSN validation feed (codes/DSN/data_loader.py:157-190): a deterministic
+    center crop by default, so val PSNR is comparable across epochs;
+    ``random_crop`` re-crops at random as the reference does."""
+
+    def __init__(self, hr_dir: str, lr_dir: Optional[str] = None, crop_size: int = 256,
+                 upscale_factor: int = 4, random_crop: bool = False):
+        self.hr = list_images(hr_dir)
+        self.lr = list_images(lr_dir) if lr_dir else None
+        self.crop = crop_size - crop_size % upscale_factor
+        self.scale = upscale_factor
+        self.random_crop = random_crop
+
+    def __len__(self):
+        return len(self.hr)
+
+    def __getitem__(self, index: int, rng=None):
+        hr = read_img(self.hr[index])
+        h, w = hr.shape[:2]
+        if self.random_crop:
+            rng = rng or np.random.default_rng(index)
+            hr, _ = _rand_crop(hr, self.crop, rng)
+        else:
+            t = max(0, (h - self.crop) // 2)
+            l = max(0, (w - self.crop) // 2)
+            hr = hr[t : t + self.crop, l : l + self.crop, :]
+        out = {"input": hr, "bicubic": imresize_np(hr, 1.0 / self.scale)}
+        if self.lr:
+            out["lr"] = read_img(self.lr[index % len(self.lr)])
+        return out
 
 
 _REGISTRY = {

@@ -51,7 +51,7 @@ def define_G(opt: Dict) -> RRDBNet:
         )
     if which in _GENERATORS:
         raise NotImplementedError(
-            f"Generator model [{which}] is not ported yet (ROADMAP A.7 / A.9)"
+            f"Generator model [{which}] is not ported yet (ROADMAP A.9)"
         )
     raise NotImplementedError(f"Generator model [{which}] not recognized")
 

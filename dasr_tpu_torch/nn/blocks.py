@@ -7,6 +7,8 @@ Counterpart of ``dasr_tpu.nn.blocks``:
   * ``pixelshuffle_block`` — conv + depth-to-space + act (block.py:838-851)
   * ``ShortcutBlock`` / ``sequential`` — the reference's containers, so a
     module tree carries the reference's parameter names.
+  * ``ResidualBlock``      — the DSN generators' conv-PReLU-conv + skip
+                             (codes/DSN/model.py:213-224)
 
 ``RDB5C`` runs ``ops.rdb.fused_rdb`` (the hand-written kernel on the card,
 its plain version on the CPU; under grad mode through its autograd
@@ -24,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from dasr_tpu_torch.nn.layers import act_fn, conv_block
+from dasr_tpu_torch.nn.layers import Conv2d, PReLU, act_fn, conv_block
 from dasr_tpu_torch.ops.rdb import fused_rdb, prepare_weights
 
 
@@ -110,6 +112,20 @@ class RDB5C(nn.Module):
         ks, bs = self.kernel_weights(x.dtype)
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         return fused_rdb(nhwc, ks, bs).permute(0, 3, 1, 2)
+
+
+class ResidualBlock(nn.Module):
+    """x + conv2(prelu(conv1(x))), 3x3 convs with zero padding 1 and one
+    PReLU slope; named ``conv1``/``prelu``/``conv2`` as the reference."""
+
+    def __init__(self, channels: int = 64):
+        super().__init__()
+        self.conv1 = Conv2d(channels, channels, 3, padding=1)
+        self.prelu = PReLU()
+        self.conv2 = Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return x + self.conv2(self.prelu(self.conv1(x)))
 
 
 class RRDB(nn.Module):

@@ -1,5 +1,6 @@
 """Generators. Counterpart of ``dasr_tpu.nn.generators``; so far the x4
-ESRGAN generator ``RRDBNet`` that DASR serves and trains."""
+ESRGAN generator ``RRDBNet`` that DASR serves and trains, and the DSN
+stage's degradation generators ``DeResnet`` and ``DSGANGenerator``."""
 
 from __future__ import annotations
 
@@ -13,12 +14,20 @@ import torch.nn as nn
 from dasr_tpu_torch.nn.blocks import (
     RDB5C,
     RRDB,
+    ResidualBlock,
     ShortcutBlock,
     pixelshuffle_block,
     sequential,
     upconv,
 )
-from dasr_tpu_torch.nn.layers import Conv2d, conv_block, kaiming_normal_, lecun_normal_
+from dasr_tpu_torch.nn.layers import (
+    Conv2d,
+    PReLU,
+    conv_block,
+    init_lecun_,
+    kaiming_normal_,
+    lecun_normal_,
+)
 
 logger = logging.getLogger("base")
 
@@ -80,3 +89,50 @@ class RRDBNet(nn.Module):
     def forward(self, x):
         """x (B, in_nc, H, W) -> (B, out_nc, upscale*H, upscale*W) in ``dtype``."""
         return self.model(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
+
+
+class DeResnet(nn.Module):
+    """DSN degradation generator, HR -> LR / ``scale`` (reference:
+    codes/DSN/model.py:25-55): ``block_input`` (3x3 conv, PReLU),
+    ``res_blocks``, ``down_sample`` (log2(scale) stride-2 3x3 convs with
+    padding 1, each with a PReLU), ``block_output`` (3x3 conv to RGB), then
+    a sigmoid. The names are the reference's, so a DSN checkpoint's
+    ``model_g_state_dict`` loads with plain ``load_state_dict``.
+
+    Activations run in ``dtype``; parameters stay f32. ``packed_trunk`` is
+    the JAX package's TPU rewrite of the same function (a 2x2
+    space-to-depth trunk); it is accepted and ignored."""
+
+    def __init__(self, n_res_blocks: int = 8, scale: int = 4, features: int = 64,
+                 packed_trunk: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if packed_trunk:
+            logger.info("DeResnet: packed_trunk ignored: a TPU rewrite of the same math, "
+                        "not ported")
+        n_down = {1: 0, 2: 1, 4: 2}[scale]
+        self.block_input = nn.Sequential(Conv2d(3, features, 3, padding=1), PReLU())
+        self.res_blocks = nn.Sequential(*(ResidualBlock(features) for _ in range(n_res_blocks)))
+        self.down_sample = nn.Sequential(*(
+            m for _ in range(n_down)
+            for m in (Conv2d(features, features, 3, stride=2, padding=1), PReLU())))
+        self.block_output = Conv2d(features, 3, 3, padding=1)
+        self.dtype = dtype
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """The JAX init's law: lecun-normal convs, zero biases, slopes 0.25."""
+        return init_lecun_(self, generator)
+
+    def forward(self, x):
+        """x (B, 3, H, W) -> (B, 3, ceil(H / scale), ceil(W / scale)) in ``dtype``."""
+        h = self.block_input(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
+        h = self.down_sample(self.res_blocks(h))
+        return torch.sigmoid(self.block_output(h))
+
+
+class DSGANGenerator(DeResnet):
+    """DSGAN's 1:1 corruption generator (reference: codes/DSN/model.py:7-22):
+    the DeResnet layout without down-sampling."""
+
+    def __init__(self, n_res_blocks: int = 8, features: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(n_res_blocks, scale=1, features=features, dtype=dtype)

@@ -96,6 +96,17 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
         return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+def init_lecun_(net: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """flax's default conv init over ``net``: lecun-normal kernels, zero
+    biases (PReLU slopes keep their 0.25, flax's init too)."""
+    for m in net.modules():
+        if isinstance(m, Conv2d):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return net
+
+
 def kaiming_normal_(weight: torch.Tensor, scale: float = 1.0,
                     generator: Optional[torch.Generator] = None):
     """torch kaiming_normal_(fan_in, a=0) x scale — the ESRGAN G init

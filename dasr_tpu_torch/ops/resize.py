@@ -1,11 +1,12 @@
 """Resizing as dense per-axis resampling matrices.
 
-* MATLAB bicubic on the host (numpy), copied from ``dasr_tpu.ops.resize``
-  (reference: codes/DSN/utils.py:37-166, codes/SRN/data/util.py:298-434):
-  one matrix per axis with the symmetric boundary folded in, applied as two
-  einsums. ``PairedDataset`` uses it for on-the-fly LR images when
-  ``dataroot_LR`` is null. The device version (``imresize``) waits for the
-  DSN slice.
+* MATLAB bicubic, copied from ``dasr_tpu.ops.resize`` (reference:
+  codes/DSN/utils.py:37-166, codes/SRN/data/util.py:298-434): one matrix
+  per axis with the symmetric boundary folded in, applied as two products.
+  ``imresize_np`` runs on the host (``PairedDataset``'s on-the-fly LR
+  images, the DSN datasets' bicubic targets); ``imresize`` runs the same
+  matrices on NCHW tensors in f32 (the DSN step's ``--device_bicubic``
+  target).
 * ``bilinear_resize``: torch ``F.interpolate(mode='bilinear',
   align_corners=False)`` weights as two matrix products on NCHW tensors, as
   the JAX package computes it. The DASR step upsamples the DDM to HR size
@@ -89,6 +90,22 @@ def imresize_np(img: np.ndarray, scale: float, antialiasing: bool = True,
     out = np.einsum("oh,...hwc->...owc", mh, img, optimize=True)
     out = np.einsum("pw,...hwc->...hpc", mw, out, optimize=True)
     return np.clip(out, 0.0, 1.0) if clip else out
+
+
+def imresize(img: torch.Tensor, scale: float, antialiasing: bool = True,
+             clip: bool = True) -> torch.Tensor:
+    """MATLAB-parity bicubic resize of ...HW tensors (NCHW) in [0, 1], as two
+    f32 matrix products whatever the input's dtype and outside autocast
+    (JAX computes them at ``Precision.HIGHEST``; the port's CLIs turn TF32
+    off). With ``clip`` the result is clamped to [0, 1] as the reference's
+    ``imresize`` does (DSN/utils.py:101-166)."""
+    h, w = img.shape[-2], img.shape[-1]
+    out_h, out_w = math.ceil(h * scale), math.ceil(w * scale)
+    mh = torch.from_numpy(_resize_matrix(h, out_h, scale, antialiasing)).to(img.device)
+    mw = torch.from_numpy(_resize_matrix(w, out_w, scale, antialiasing)).to(img.device)
+    with torch.autocast(img.device.type, enabled=False):
+        out = mh @ img.float() @ mw.T
+    return out.clamp(0.0, 1.0) if clip else out
 
 
 @functools.lru_cache(maxsize=256)

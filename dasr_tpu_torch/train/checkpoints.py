@@ -11,13 +11,18 @@ the JAX package).
 The port saves a train state as one torch file (``save_train_state``) and,
 on request, in the reference's layout (``save_reference_formats``:
 ``{iter}_G.pth``, ``{iter}_D_target.pth``, ``{iter}.state`` with the Adam
-state dicts). Resuming from either waits for ROADMAP A.5.
+state dicts). ``load_train_state`` resumes the DSN stage from the port's
+own saves; resuming the SRN stage waits for ROADMAP A.5. The DSN stage's
+reference checkpoint is one ``.tar`` (``save_dsn_tar`` / ``load_dsn_tar``,
+the key schema of codes/DSN/train.py:361-373), which the JAX package writes
+too.
 """
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -118,6 +123,68 @@ def nlayer_d_state_dict_from_jax(params_np: Dict[str, Any], n_layers: int) -> Di
     return sd
 
 
+def _conv_t(kernel) -> torch.Tensor:
+    """A flax HWIO kernel as a writable f32 OIHW tensor."""
+    return torch.from_numpy(np.array(_j2t_conv(np.asarray(kernel, np.float32))))
+
+
+def deresnet_state_dict_from_jax(params_np: Dict[str, Any], n_res_blocks: int,
+                                 scale: int = 4) -> Dict[str, torch.Tensor]:
+    """JAX ``DeResnet`` (or ``DSGANGenerator``, ``scale=1``) parameters ->
+    the reference-named state dict (``block_input.{0,1}``,
+    ``res_blocks.{i}.conv1/prelu/conv2``, ``down_sample.{0..3}``,
+    ``block_output``; the port's side of ``export_deresnet_state_dict``)."""
+    p = params_np.get("params", params_np)
+
+    def t(v, shape=None):
+        a = np.array(v, dtype=np.float32)
+        return torch.from_numpy(a.reshape(shape) if shape else a)
+
+    def conv(prefix, node):
+        return {prefix + ".weight": _conv_t(node["kernel"]), prefix + ".bias": t(node["bias"])}
+
+    sd = {**conv("block_input.0", p["Conv_0"]),
+          "block_input.1.weight": t(p["PReLU_0"]["slope"], (1,))}
+    for i in range(n_res_blocks):
+        b = p[f"ResidualBlock_{i}"]
+        sd.update(conv(f"res_blocks.{i}.conv1", b["Conv_0"]))
+        sd[f"res_blocks.{i}.prelu.weight"] = t(b["PReLU_0"]["slope"], (1,))
+        sd.update(conv(f"res_blocks.{i}.conv2", b["Conv_1"]))
+    n_down = {1: 0, 2: 1, 4: 2}[scale]
+    for d in range(n_down):
+        sd.update(conv(f"down_sample.{2 * d}", p[f"Conv_{d + 1}"]))
+        sd[f"down_sample.{2 * d + 1}.weight"] = t(p[f"PReLU_{d + 1}"]["slope"], (1,))
+    sd.update(conv("block_output", p[f"Conv_{n_down + 1}"]))
+    return sd
+
+
+def fsd_state_dict_from_jax(variables_np: Dict[str, Any], d_arch: str = "FSD",
+                            norm_layer: str = "Instance") -> Dict[str, torch.Tensor]:
+    """JAX ``FSDiscriminator`` variables -> the port's state dict: the FSD
+    body's convs at ``net.net.{0,2,5,8}`` (BatchNorm at 3 and 6, with its
+    running statistics), or an NLayer body at ``net.model.*`` (the port's
+    side of ``export_fsd_state_dict``)."""
+    params = variables_np["params"]
+    if d_arch.lower() != "fsd":
+        sd = nlayer_d_state_dict_from_jax(params["NLayerDiscriminator_0"], n_layers=2)
+        return {f"net.{k}": v for k, v in sd.items()}
+    body = params["DiscriminatorBasic_0"]
+    sd: Dict[str, torch.Tensor] = {}
+    for j, i in enumerate((0, 2, 5, 8)):
+        node = body[f"Conv_{j}"]
+        sd[f"net.net.{i}.weight"] = _conv_t(node["kernel"])
+        sd[f"net.net.{i}.bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
+    if norm_layer.lower() == "batch":
+        stats = variables_np["batch_stats"]["DiscriminatorBasic_0"]
+        for j, i in enumerate((3, 6)):
+            bn, st = body[f"BatchNorm_{j}"], stats[f"BatchNorm_{j}"]
+            for name, v in (("weight", bn["scale"]), ("bias", bn["bias"]),
+                            ("running_mean", st["mean"]), ("running_var", st["var"])):
+                sd[f"net.net.{i}.{name}"] = torch.from_numpy(np.array(v, np.float32))
+            sd[f"net.net.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
 def lpips_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``LPIPS(net='alex')`` variables -> the port's ``LPIPS`` state
     dict: the backbone convs and the five heads."""
@@ -149,6 +216,58 @@ def save_train_state(ckpt_dir: str, state, iter_step: int) -> str:
                    "sched": ns.sched.state_dict()} for label, ns in _nets(state)},
     }, path)
     return path
+
+
+def latest_train_state(ckpt_dir: str) -> Optional[str]:
+    """The ``{iter}.pt`` with the largest ``iter`` in ``ckpt_dir``, if any."""
+    found = [(int(os.path.basename(p)[:-3]), p)
+             for p in glob.glob(os.path.join(ckpt_dir, "*.pt"))
+             if os.path.basename(p)[:-3].isdigit()]
+    return max(found)[1] if found else None
+
+
+def load_train_state(path: str, state) -> int:
+    """Load a ``save_train_state`` file into ``state`` in place (each
+    network's weights, Adam and scheduler state, the step); returns the
+    step. A directory means its latest ``{iter}.pt``."""
+    if os.path.isdir(path):
+        found = latest_train_state(path)
+        if found is None:
+            raise FileNotFoundError(f"{path} holds no train state ({{iter}}.pt)")
+        path = found
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    for label, ns in _nets(state):
+        ns.net.load_state_dict(saved[label]["net"])
+        ns.opt.load_state_dict(saved[label]["opt"])
+        ns.sched.load_state_dict(saved[label]["sched"])
+        # the saved LR is the old run's schedule at this count; this run's
+        # schedule (a LambdaLR of the count, as optax's) sets the next one
+        for group, base, factor in zip(ns.opt.param_groups, ns.sched.base_lrs,
+                                       ns.sched.lr_lambdas):
+            group["lr"] = base * factor(ns.sched.last_epoch)
+    state.step = int(saved["step"])
+    return state.step
+
+
+def save_dsn_tar(path: str, g: torch.nn.Module, d: torch.nn.Module, epoch: int = 0,
+                 iteration: int = 0, fs_type: str = "avg_pool", fs_kernel_size: int = 5,
+                 d_type: str = "FSD") -> str:
+    """A DSN-format ``.tar`` (codes/DSN/train.py:361-373 key schema,
+    including the ``models_d_state_dict`` [sic] key), which the reference's
+    create_dataset_modified.py and both packages' dsn_create_dataset read."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({
+        "epoch": epoch, "iteration": iteration, "fs_type": fs_type,
+        "fs_kernel_size": fs_kernel_size, "D_type": d_type,
+        "model_g_state_dict": {k: v.detach().cpu() for k, v in g.state_dict().items()},
+        "models_d_state_dict": {k: v.detach().cpu() for k, v in d.state_dict().items()},
+    }, path)
+    return path
+
+
+def load_dsn_tar(path: str) -> Dict[str, Any]:
+    """A DSN ``.tar`` checkpoint's dict, tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def save_reference_formats(out_dir: str, state, iter_step: int) -> str:

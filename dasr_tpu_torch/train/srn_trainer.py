@@ -33,13 +33,12 @@ import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn as nn
 
 from dasr_tpu_torch.losses.gan import gan_loss, ragan_pair_loss
 from dasr_tpu_torch.losses.lpips import LPIPS, default_lpips
 from dasr_tpu_torch.nn.discriminators import NLayerDiscriminator
 from dasr_tpu_torch.nn.generators import RRDBNet
-from dasr_tpu_torch.nn.layers import Conv2d, lecun_normal_
+from dasr_tpu_torch.nn.layers import init_lecun_
 from dasr_tpu_torch.nn.vgg import VGG19Feature54
 from dasr_tpu_torch.ops.dwt import haar_bands
 from dasr_tpu_torch.ops.filters import filter_high, filter_low
@@ -85,16 +84,6 @@ class SRNConfig:
     d_update_inter: int = 1
     seed: int = 0
     dtype: torch.dtype = torch.float32
-
-
-def init_lecun_(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax's default conv init: lecun-normal kernels, zero biases."""
-    for m in net.modules():
-        if isinstance(m, Conv2d):
-            lecun_normal_(m.weight, generator)
-            if m.bias is not None:
-                nn.init.zeros_(m.bias)
-    return net
 
 
 class SRNTrainer:

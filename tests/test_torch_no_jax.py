@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of dasr_tpu_torch, serving a
-tiny corpus through its srn_test CLI and training two steps through its
-srn_train CLI load neither jax nor dasr_tpu.
+tiny corpus through its srn_test CLI, training two steps through its
+srn_train CLI and running the three stages through its auto_reproduce CLI
+(dsn_train, dsn_create_dataset, srn_train) load neither jax nor dasr_tpu.
 chip_smoke.py refuses to run without a card and outside the repository.
 
 Subprocesses, because this test process already imported JAX (conftest)."""
@@ -46,6 +47,10 @@ troot = os.path.join(root, "train")
 steps, last = srn_train.main(["-opt", train_config(troot, write_corpus(troot, n=2), niter=2),
                               "--device", "cpu"])
 assert steps == 2 and np.isfinite(last["loss/l_g_total"])
+from torch_dsn_corpus import auto_reproduce_args
+from dasr_tpu_torch.cli import auto_reproduce
+times = auto_reproduce.main(auto_reproduce_args(os.path.join(root, "ar"))[0])
+assert list(times) == ["dsn_train", "dsn_create_dataset", "srn_train"]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """
@@ -53,6 +58,9 @@ print("LEAKED", bad)
 
 def _run(args, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # many small ops: one intra-op thread is faster on a host the other
+    # test workers already load
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=300)
 

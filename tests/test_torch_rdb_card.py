@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from dasr_tpu_torch.core.device import resolve_device
 from dasr_tpu_torch.ops.rdb import (
     TILES,
     TOLERANCES,
@@ -47,7 +48,7 @@ def test_kernel_matches_plain_on_card(rng, shape, tile):
     x = torch.from_numpy(rng.random(shape + (64,), dtype=np.float32)).cuda()
     ks = [torch.from_numpy(k).cuda() for k in kernels]
     bs = [torch.from_numpy(b).cuda() for b in biases]
-    torch.backends.cudnn.allow_tf32 = False
+    resolve_device("cuda")  # the port's f32 rule: TF32 off
     for dt, tol in ((torch.float32, "kernel_f32"), (torch.bfloat16, "kernel_bf16")):
         kd, bd = prepare_weights(ks, bs, dt)
         with torch.no_grad():
