@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --phases build,kernel,grad,train   # the training slice
     python3 chip_smoke.py --phases dsn,dataset,pipeline      # stages 1 and 2, and all three
+    python3 chip_smoke.py --phases bank                      # the banked fast path
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -20,7 +21,9 @@ CPU or to a plain version):
             bf16 dense chain.
 3. serve  - the port's srn_test CLI on a synthetic LRHR set with a
             full-width x4 RRDB_net (nf 64, nb 23, gc 32, seeded weights
-            written to a reference-named .pth), plain and chopped; the
+            written to a reference-named .pth), plain, chopped, and plain
+            with --device_metrics (against the host report: 1e-3 dB, 1e-4
+            SSIM); the
             kernel's launch count over those runs, and a check that every
             shape they gave it was checked in phase 2; the full network with
             the kernel vs the plain version at f32; ms/image, output Mpix/s,
@@ -66,9 +69,25 @@ CPU or to a plain version):
             phase 6, which it then runs too.
 8. pipeline - the port's auto_reproduce CLI, all three stages at reduced
             depth (DSN nb 2, crop 128; SRN nf 64 nb 2, batch 6 + 6, HR 128, a
-            few iterations): every stage's output tree, finite losses, the
-            stage wall-clock lines, the RDB kernel's launches and shapes (it
-            needs phases 2 and 4, which it then runs too).
+            few iterations) on the JAX package's fast path (device banks,
+            K-step windows, uint8 batches, device val metrics): every stage's
+            output tree, finite losses, the stage wall-clock lines, both
+            training stages on the bank, the RDB kernel's launches and
+            shapes (it needs phases 2 and 4, which it then runs too).
+9. bank   - the fast path of stages 1 and 3 on the device banks: the fast
+            gathers against their plain per-item versions on card draws
+            (exact); srn_train --device_bank --steps_per_call 8
+            --transfer_uint8 with val_device_metrics and
+            val_metrics_pad_bucket 128 at the train phase's full width,
+            BANK_STEPS steps, one validation and one save: the kernel's
+            launches and shapes, finite losses, the device val metrics
+            against the host f64 protocol on the saved PNGs (1e-3 dB, 1e-4
+            SSIM); three f32 banked steps at nb 2 against train_step on the
+            plain gather's batches of the same draws; dsn_train
+            --device_bank --steps_per_call 4 at the dsn phase's launcher
+            set; both steps banked and host-loader in turns (ms/step, host
+            ms/step, idle share, peak memory), the bank's decode and upload
+            time, and the upload rate at 1 GiB. It needs phases 2 and 4.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -470,10 +489,13 @@ def phase_serve(gpu, checked):
         pth = os.path.join(root, "rrdb_x4_G.pth")
         net = RRDBNet(nf=NC, nb=NB, gc=GC).init_weights(torch.Generator().manual_seed(SEED))
         torch.save(net.state_dict(), pth)
-        cfgs = [serve_config(root, "smoke_plain", False, pth),
-                serve_config(root, "smoke_chop", True, pth)]
+        # (name, its config, extra flags, how its metrics are computed)
+        runs = [("smoke_plain", serve_config(root, "smoke_plain", False, pth), [], "host"),
+                ("smoke_chop", serve_config(root, "smoke_chop", True, pth), [], "host"),
+                ("smoke_devmetrics", serve_config(root, "smoke_devmetrics", False, pth),
+                 ["--device_metrics"], "device")]
 
-        # the main path: two srn_test runs through the port's CLI, counted,
+        # the main path: three srn_test runs through the port's CLI, counted,
         # with the (B, H, W, dtype) of every RDB5C input recorded
         seen = set()
 
@@ -487,9 +509,9 @@ def phase_serve(gpu, checked):
         secs, avgs = [], []
         handle = register_module_forward_pre_hook(record)
         try:
-            for cfg in cfgs:
+            for _, cfg, flags, _ in runs:
                 t0 = time.perf_counter()
-                avgs.append(run_cli(srn_test.main, ["-opt", cfg, "--device", "cuda"]))
+                avgs.append(run_cli(srn_test.main, ["-opt", cfg, "--device", "cuda", *flags]))
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
         finally:
@@ -497,7 +519,7 @@ def phase_serve(gpu, checked):
         launches = fused_rdb.launches
         peak = torch.cuda.max_memory_allocated()
 
-        forwards = 2 * len(LR_SIZES)  # one forward per image and run (chop batches its tiles)
+        forwards = len(runs) * len(LR_SIZES)  # one per image and run (chop batches its tiles)
         expected = 3 * NB * LAUNCHES_PER_RDB * forwards
         print(f"serve: fused_rdb launches {launches}, expected {3 * NB} x {LAUNCHES_PER_RDB} x "
               f"{forwards} = {expected}", flush=True)
@@ -507,7 +529,7 @@ def phase_serve(gpu, checked):
               flush=True)
         if seen - checked:
             fail(f"the serve runs gave the kernel shapes phase 2 did not check: {seen - checked}")
-        for name, avg, sec in zip(("smoke_plain", "smoke_chop"), avgs, secs):
+        for (name, _, _, how), avg, sec in zip(runs, avgs, secs):
             pngs = sorted(os.listdir(os.path.join(root, "results", name, "synth")))
             if len(pngs) != len(LR_SIZES):
                 fail(f"{name}: {len(pngs)} PNGs, expected {len(LR_SIZES)}")
@@ -516,7 +538,18 @@ def phase_serve(gpu, checked):
                     np.isfinite(v) for v in vals.values()):
                 fail(f"{name}: metrics not finite or missing: {vals}")
             print(f"serve {name}: {len(pngs)} PNGs, {vals}, {sec:.2f} s "
-                  f"({sec / len(LR_SIZES):.3f} s/image with host metrics and PNG IO)", flush=True)
+                  f"({sec / len(LR_SIZES):.3f} s/image with {how} metrics and PNG IO) [{gpu}]",
+                  flush=True)
+            report[f"serve_cli_s_per_image_{how}" + ("_chop" if "chop" in name else "")] = (
+                sec / len(LR_SIZES))
+        # --device_metrics against the host f64 report of the same forward
+        host, dev = avgs[0]["synth"], avgs[2]["synth"]
+        errs = {k: abs(dev[k] - host[k]) for k in host}
+        print("serve --device_metrics vs the host report: " + ", ".join(
+            f"{k} |err| {v:.2e}" for k, v in errs.items()) + " (limits 1e-3 dB, 1e-4 SSIM)",
+            flush=True)
+        if any(not v <= (1e-3 if k.startswith("psnr") else 1e-4) for k, v in errs.items()):
+            fail(f"serve: --device_metrics is off the host report: {errs}")
         print(f"serve: peak device memory {peak / 2**30:.3f} GiB [{gpu}]", flush=True)
     report["launches_serve"] = launches
 
@@ -739,11 +772,12 @@ def write_train_corpus(root, rng):
     return dirs
 
 
-def train_config(root, dirs, name, niter, nb=NB, bf16=True):
-    """The shipped auto-reproduce configuration with the synthetic corpus."""
+def train_config(root, dirs, name, niter, nb=NB, bf16=True, print_freq=1, **extra):
+    """The shipped auto-reproduce configuration with the synthetic corpus
+    (``extra``: more top-level options)."""
     with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
         cfg = json.load(f)
-    cfg.update(name=name, bf16=bf16)
+    cfg.update(name=name, bf16=bf16, **extra)
     cfg["path"] = {"root": root}
     cfg["datasets"]["train"].update(dataroot_HR=dirs["hr"], dataroot_fake_LR=dirs["fake"],
                                     dataroot_real_LR=dirs["real"],
@@ -751,11 +785,19 @@ def train_config(root, dirs, name, niter, nb=NB, bf16=True):
     cfg["datasets"]["val"].update(dataroot_HR=dirs["val_hr"], dataroot_LR=dirs["val_lr"])
     cfg["network_G"]["nb"] = nb
     cfg["train"].update(niter=niter, val_freq=niter)
-    cfg["logger"] = {"print_freq": 1, "save_checkpoint_freq": niter}
+    cfg["logger"] = {"print_freq": print_freq, "save_checkpoint_freq": niter}
     path = os.path.join(root, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
+
+
+def flat(ns, moment=False):
+    """One network's trainable params, or Adam's first moments of them."""
+    import torch
+
+    return torch.cat([(ns.opt.state[p]["exp_avg"] if moment else p.detach()).flatten()
+                      for p in ns.params()])
 
 
 def compare_three_steps(what, run, ref, loss_tol, update_tol, moment_tol):
@@ -959,12 +1001,6 @@ def phase_train(gpu, checked, checked_grad):
         cfg32 = train_config(root, dirs, "smoke_f32", 3, nb=2, bf16=False)
         batches = None
         runs = []
-
-        def flat(ns, moment=False):
-            # one network's trainable params, or Adam's first moments of them
-            ps = ns.params()
-            return torch.cat([(ns.opt.state[p]["exp_avg"] if moment else p.detach()).flatten()
-                              for p in ps])
 
         for plain in (False, True):
             # cuDNN off in both runs (see phase_grad): they differ only in the
@@ -1344,9 +1380,12 @@ def phase_pipeline(gpu, root, checked, checked_grad):
                              if k.startswith("loss/")]
         if not losses[stage] or not all(np.isfinite(losses[stage])):
             fail(f"pipeline: {stage}'s losses missing or not finite")
-    # stage 3's G forwards: one a step, one per validation image at every
-    # validation (val_freq = niter // 4)
-    forwards = PIPELINE_ITERS + 2 * (PIPELINE_ITERS // max(1, PIPELINE_ITERS // 4))
+    # the fast path: both training stages on the device bank
+    if printed.count("device bank: ") != 2 or "using the host loader" in printed:
+        fail("pipeline: stages 1 and 3 did not both train on the device bank")
+    # stage 3's G forwards: one a step, and one per validation image at the
+    # end of its one window of PIPELINE_ITERS steps (--steps_per_call 8)
+    forwards = PIPELINE_ITERS + 2
     expected = 3 * 2 * LAUNCHES_PER_RDB * forwards
     missing = {k[:4] for k in seen} - checked
     missing |= {k[:4] for k in seen if k[4]} - checked_grad
@@ -1364,11 +1403,356 @@ def phase_pipeline(gpu, root, checked, checked_grad):
             "pipeline_stage_s": {k: round(v, 3) for k, v in times.items()}}
 
 
+BANK_STEPS, BANK_K = 32, 8  # the banked SRN run: four windows of 8 steps
+DSN_BANK_K = 4
+
+
+def window_times(fns, steps, rounds=2):
+    """{name: (CUDA-event ms per step, host ms per step to issue it)} of
+    each window function in ``fns`` (``steps`` steps a call), medians over
+    ``rounds`` turns of (a, b, b, a)."""
+    import torch
+
+    times = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fns[name]()
+            host = (time.perf_counter() - t0) * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append((start.elapsed_time(end) / steps, host / steps))
+    return {name: tuple(float(v) for v in np.median(t, axis=0)) for name, t in times.items()}
+
+
+def time_arms(what, fns, steps, gpu):
+    """The in-turns times, idle share (torch.profiler over one call) and peak
+    memory of each arm, printed; returns them by arm."""
+    import torch
+
+    peaks = {}
+    for name, fn in fns.items():  # the first call of each arm: its peak memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    out = {}
+    for name, (ms, host_ms) in window_times(fns, steps).items():
+        peak = peaks[name]
+        prof = device_profile(fns[name], iters=1)
+        busy = prof["busy"] / steps if prof else float("nan")
+        idle = max(0.0, 1 - busy / ms) if prof else float("nan")
+        out[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms, "busy_ms_per_step": busy,
+                     "idle_share": idle, "peak_mem_bytes": peak}
+        print(f"{what} {name}: {ms:.3f} ms/step (CUDA events, median of 4 windows of {steps} "
+              f"steps in turns), host {host_ms:.3f} ms/step to issue, device busy "
+              f"{busy:.3f} ms/step (torch.profiler), idle share {100 * idle:.2f}%, peak "
+              f"device memory {peak / 2**30:.3f} GiB [{gpu}]", flush=True)
+    return out
+
+
+def bank_gather_check(gpu):
+    """The fast gathers against their plain versions on the same card draws,
+    exact, at the main path's shapes: SRN batch 6, HR 128, over banks of
+    ragged true sizes; DSN batch 8, crop 256."""
+    import torch
+
+    from dasr_tpu_torch.data import device_bank as bank
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+
+    def mk(n, hmax, wmax, lo, c=3, f32=False, sizes=None):
+        data = (rng.random((n, hmax, wmax, c), dtype=np.float32) if f32
+                else rng.integers(0, 256, (n, hmax, wmax, c), dtype=np.uint8))
+        if sizes is None:
+            sizes = np.stack([rng.integers(lo, hmax + 1, n), rng.integers(lo, wmax + 1, n)], 1)
+        return bank.ImageBank(torch.from_numpy(data).to(dev),
+                              torch.from_numpy(sizes.astype(np.int32)).to(dev)), sizes
+
+    fake, fsz = mk(12, 48, 48, 32)
+    hr, _ = mk(12, 192, 192, 0, sizes=fsz * 4)
+    real, _ = mk(12, 64, 64, 32)
+    ddm, _ = mk(12, 48, 48, 0, c=1, f32=True, sizes=fsz)
+    srn = bank.SrnBanks(fake, hr, real, ddm)
+    clean, _ = mk(8, 320, 320, 256)
+    noisy, _ = mk(48, 80, 80, 64)
+    checked = 0
+    for s in range(4):
+        gen = bank.window_generator(SEED, s, dev)
+        idx = torch.randint(0, 12, (6,), generator=gen, device=dev)
+        d = bank.draw_dasr(gen, 6, 12, 12)
+        got, want = (f(srn, idx, d, 128, 4) for f in (bank.gather_dasr, bank.gather_dasr_plain))
+        nidx = torch.randint(0, 48, (8,), generator=gen, device=dev)
+        dn = bank.draw_dsn(gen, 8, 8)
+        got_n, want_n = (f(clean, noisy, nidx, dn, 256, 4, True, True)
+                         for f in (bank.gather_dsn, bank.gather_dsn_plain))
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                fail(f"bank: the DASR gather's {k} differs from the plain version (draw {s})")
+        for k in want_n:
+            if not torch.equal(got_n[k], want_n[k]):
+                fail(f"bank: the DSN gather's {k} differs from the plain version (draw {s})")
+        checked += 1
+    ms = {name: cuda_ms(fn) for name, fn in (
+        ("dasr", lambda: bank.gather_dasr(srn, idx, d, 128, 4)),
+        ("dasr_plain", lambda: bank.gather_dasr_plain(srn, idx, d, 128, 4)),
+        ("dsn", lambda: bank.gather_dsn(clean, noisy, nidx, dn, 256, 4, True, True)),
+        ("dsn_plain", lambda: bank.gather_dsn_plain(clean, noisy, nidx, dn, 256, 4, True,
+                                                    True)))}
+    print(f"bank gather on the card: the DASR batch (6 + 6, HR 128, five tensors, ragged "
+          f"banks) and the DSN batch (8, crop 256, flips and rotations) equal their plain "
+          f"per-item versions exactly on {checked} card draws each; one batch: DASR "
+          f"{ms['dasr']:.3f} ms (plain {ms['dasr_plain']:.3f}), DSN {ms['dsn']:.3f} ms (plain "
+          f"{ms['dsn_plain']:.3f}) [{gpu}]", flush=True)
+    return {"gather_ms_dasr": ms["dasr"], "gather_ms_dsn": ms["dsn"]}
+
+
+def phase_bank(gpu, root, checked, checked_grad):
+    """The fast path of stages 1 and 3 on the device banks: gathers on the
+    card, the banked full-width srn_train CLI, banked against host-loader
+    steps at f32, the banked dsn_train CLI, and both steps' times banked and
+    host-loader in turns."""
+    import contextlib
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from dasr_tpu_torch.cli import dsn_train, srn_train
+    from dasr_tpu_torch.cli.srn_test import make_lpips
+    from dasr_tpu_torch.core.config import parse_srn_options
+    from dasr_tpu_torch.data import device_bank as bank
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.io import list_images, read_img
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.eval.evaluate import average, sr_metrics, to_uint8
+    from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, TOLERANCES, fused_rdb
+
+    dev = torch.device("cuda")
+    report = bank_gather_check(gpu)
+    rng = np.random.default_rng(SEED)
+    base = os.path.join(root, "bank")
+    dirs = write_train_corpus(base, rng)
+
+    # the main path: srn_train's fast path through the CLI, counted, with the
+    # (B, H, W, dtype, grad mode) of every RDB5C input recorded
+    cfg = train_config(base, dirs, "smoke_bank", BANK_STEPS, print_freq=BANK_K,
+                       val_device_metrics=True, val_metrics_pad_bucket=128)
+    seen = set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+    tee = Tee()
+    fused_rdb.launches = 0
+    handle = register_module_forward_pre_hook(record)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            steps, _ = run_cli(srn_train.main, ["-opt", cfg, "--device", "cuda", "--device_bank",
+                                                "--steps_per_call", str(BANK_K),
+                                                "--transfer_uint8"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        handle.remove()
+    launches = fused_rdb.launches
+    printed = "".join(tee.parts)
+    forwards = BANK_STEPS + 2  # one G forward per step, one per validation image
+    expected = 3 * NB * LAUNCHES_PER_RDB * forwards
+    print(f"bank: srn_train --device_bank --steps_per_call {BANK_K} --transfer_uint8, "
+          f"val_device_metrics, val_metrics_pad_bucket 128: {steps} steps in {secs:.2f} s "
+          f"(one validation, one save); fused_rdb launches {launches}, expected {3 * NB} x "
+          f"{LAUNCHES_PER_RDB} x {forwards} = {expected}; TF32 off after the CLI", flush=True)
+    if "device bank: " not in printed or "using the host loader" in printed:
+        fail("bank: srn_train did not train on the device bank")
+    if steps != BANK_STEPS or launches != expected:
+        fail(f"bank: {steps} steps and {launches} launches, expected {BANK_STEPS} and {expected}")
+    missing = {k[:4] for k in seen} - checked
+    missing |= {k[:4] for k in seen if k[4]} - checked_grad
+    if missing:
+        fail(f"bank: the banked run gave the kernel shapes phases 2 and 4 did not check: "
+             f"{missing}")
+    run_dir = os.path.join(base, "smoke_bank")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r for r in recs if "loss/l_g_total" in r]
+    val = [r for r in recs if "val/psnr" in r]
+    if [r["step"] for r in losses] != list(range(BANK_K, BANK_STEPS + 1, BANK_K)) or not all(
+            np.isfinite(v) for r in losses for k, v in r.items() if k.startswith("loss/")):
+        fail(f"bank: losses missing or not finite: {losses}")
+    if not os.path.exists(os.path.join(run_dir, "training_state", f"{BANK_STEPS}.pt")):
+        fail("bank: the train state was not saved")
+    # the device validation metrics against the host f64 protocol on the PNGs
+    lpips = make_lpips(dev)
+    host = average([sr_metrics(
+        to_uint8(read_img(os.path.join(run_dir, "val_images", str(BANK_STEPS),
+                                       f"v{i}_{BANK_STEPS}.png"))),
+        to_uint8(read_img(os.path.join(dirs["val_hr"], f"v{i}.png"))), 4, lpips)
+        for i in range(2)])
+    if len(val) != 1:
+        fail(f"bank: {len(val)} validations, expected 1")
+    errs = {k: abs(val[0][f"val/{k}"] - v) for k, v in host.items()}
+    limits = {k: 1e-3 if k.startswith("psnr") else 1e-4 for k in host}
+    print(f"bank validation on the device (bucket 128) vs the host f64 protocol on its PNGs: "
+          + ", ".join(f"{k} {val[0][f'val/{k}']:.6f} vs {host[k]:.6f} (|err| {errs[k]:.2e}, "
+                      f"limit {limits[k]})" for k in host)
+          + "; losses at " + ", ".join(f"{r['step']}: l_g_total {r['loss/l_g_total']:.4e}"
+                                       for r in losses), flush=True)
+    if any(not errs[k] <= limits[k] for k in host):
+        fail(f"bank: the device validation metrics are off the host protocol: {errs}")
+    report["launches_bank"] = launches
+    report["bank_val_max_err"] = {k: errs[k] for k in host}
+
+    # three f32 steps at nb 2: banked (K = 1 windows) vs train_step on the
+    # plain gather's batches of the same draws
+    cfg32 = train_config(base, dirs, "bank_f32", 3, nb=2, bf16=False)
+    opt32 = parse_srn_options(cfg32, is_train=True)
+    def host_banks():
+        fake = bank.build_bank(dirs["fake"])
+        return bank.SrnBanks(fake, bank.build_bank(dirs["hr"]), bank.build_bank(dirs["real"]),
+                             bank.build_ddm_bank(list_images(dirs["ddm"]), fake.sizes))
+
+    idx = np.stack(bank.epoch_rows(SEED, 0, 12, 6) * 2)[:3]
+    runs = []
+    for banked in (True, False):
+        model = create_model(opt32, dev)
+        model.init()
+        model.setup_device_bank(*host_banks(), 128)
+        tr = model.trainer
+        nets = {"G": tr.state.g, "D_target": tr.state.d_target}
+        init = {name: flat(ns).clone() for name, ns in nets.items()}
+        traj = []
+        for s in range(3):
+            if banked:
+                m = model.train_banked_window_async(idx[s:s + 1], s)
+            else:
+                gen = bank.window_generator(tr.cfg.seed, s, dev)
+                d = bank.draw_dasr(gen, 6, 12, 12)
+                b = bank.gather_dasr_plain(model._banks, torch.from_numpy(idx[s]).to(dev), d,
+                                           128, 4)
+                m = tr.train_step({k: v.permute(0, 3, 1, 2) for k, v in b.items()})
+            traj.append(model.metrics_to_host(m))
+        runs.append((traj, init, {name: (flat(ns), flat(ns, True)) for name, ns in nets.items()}))
+    atol, rtol = TOLERANCES["train_loss_f32"]
+    _, utol = TOLERANCES["train_update_f32"]
+    _, mtol = TOLERANCES["train_moment_f32"]
+    worst, parts, bad, _ = compare_three_steps("bank f32", *runs, (atol, rtol), utol, mtol)
+    print(f"bank f32 nb 2, 3 steps, banked vs train_step on the plain gather's batches of the "
+          f"same draws, on the card: losses within {worst:.3f} of their limit; {'; '.join(parts)}",
+          flush=True)
+    if bad:
+        fail(f"bank f32: the banked run's updates or moments of {bad} are off")
+    del model, tr
+
+    # stage 1's fast path: dsn_train on the device bank through the CLI
+    dsn_dirs = {
+        "source": write_images(os.path.join(base, "dsn", "source"), rng, 48, (80, 80), "s"),
+        "target": write_images(os.path.join(base, "dsn", "target"), rng, 8, (320, 320), "t"),
+        "valid_hr": write_images(os.path.join(base, "dsn", "valid_hr"), rng, 4, (256, 256), "v"),
+        "valid_lr": write_images(os.path.join(base, "dsn", "valid_lr"), rng, 4, (64, 64), "v")}
+    argv = dsn_argv(base, dsn_dirs, "--save_path", "dsn_bank", "--num_epochs", "5",
+                    "--num_decay_epochs", "2", "--val_interval", "5", "--val_img_interval", "5",
+                    "--save_model_interval", "5", "--device_bank", "--steps_per_call",
+                    str(DSN_BANK_K))
+    tee = Tee()
+    log_every, dsn_train.LOG_EVERY = dsn_train.LOG_EVERY, 10
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            steps = run_cli(dsn_train.main, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dsn_train.LOG_EVERY = log_every
+    printed = "".join(tee.parts)
+    run = os.path.join(base, "dsn_bank")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        dsn_losses = [r for r in map(json.loads, f) if "loss/d_tex_loss" in r]
+    if "device bank: " not in printed or "using the host loader" in printed:
+        fail("bank: dsn_train did not train on the device bank")
+    # windows end at 4, 8, ..., 28 and the last partial one at 30: those that
+    # cross a 10-step boundary are read, and the last
+    if steps != DSN_STEPS or [r["step"] for r in dsn_losses] != [12, 20, 30] or not all(
+            np.isfinite(v) for r in dsn_losses for k, v in r.items() if "/" in k):
+        fail(f"bank: dsn_train {steps} steps; losses missing or not finite: {dsn_losses}")
+    for f in (f"{DSN_STEPS}.pt", "last_iteration.tar"):
+        if not os.path.exists(os.path.join(run, "checkpoints", f)):
+            fail(f"bank: dsn_train's checkpoints/{f} was not saved")
+    print(f"bank: dsn_train --device_bank --steps_per_call {DSN_BANK_K} at the aim2019 launcher "
+          f"set: {steps} steps in {secs:.2f} s through the CLI; read and finite at steps 12, 20, "
+          f"30, d_tex_loss " + " -> ".join(f"{r['loss/d_tex_loss']:.4e}" for r in dsn_losses)
+          + "; " + [ln for ln in printed.splitlines() if ln.startswith("device bank: ")][0]
+          + f" [{gpu}]", flush=True)
+
+    # times, banked and host-loader in turns: the DASR step at full width
+    opt = parse_srn_options(cfg, is_train=True)
+    model = create_model(opt, dev)
+    model.init()
+    t0 = time.perf_counter()
+    banks = host_banks()
+    t1 = time.perf_counter()
+    model.setup_device_bank(*banks, 128)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt["datasets"]["train"]["transfer_uint8"] = True
+    loader = Loader(create_dataset(opt["datasets"]["train"]), batch_size=6, num_workers=6,
+                    seed=0, pin_memory=True)
+    batches = []
+    while len(batches) < BANK_K:
+        loader.set_epoch(len(batches))
+        batches += list(loader)[:BANK_K - len(batches)]
+    tr = model.trainer
+    window = np.stack(bank.epoch_rows(SEED, 0, 12, 6) * 4)[:BANK_K]
+    srn = time_arms("dasr step", {
+        "host loader": lambda: [tr.train_step(model._to_device(b)) for b in batches],
+        "device bank": lambda: model.train_banked_window_async(window, 0)}, BANK_K, gpu)
+    print(f"dasr bank: {bank.nbytes(model._banks) / 2**30:.6f} GiB resident for the 12-image "
+          f"synthetic corpus, decoded in {t1 - t0:.3f} s, uploaded in {t2 - t1:.3f} s [{gpu}]",
+          flush=True)
+    del model, tr, batches
+
+    # the DSN step at the aim2019 launcher set
+    opt = dsn_train.build_argparser().parse_args(argv)
+    loader = dsn_train.make_loader(opt, dsn_dirs["source"], dsn_dirs["target"], dev)
+    trainer = dsn_train.make_trainer(opt, dev, len(loader))
+    trainer.init_state()
+    batches = list(loader)[:DSN_BANK_K]
+    clean, noisy = (bank.upload(bank.build_bank(dsn_dirs[k]), dev) for k in ("target", "source"))
+    nwin = torch.from_numpy(np.stack(bank.epoch_rows(SEED, 1, 48, 8)[:DSN_BANK_K])).to(dev)
+    dsn = time_arms("dsn step", {
+        "host loader": lambda: [trainer.train_step(dsn_train.to_device(b, dev)) for b in batches],
+        "device bank": lambda: trainer.train_banked_step(clean, noisy, nwin, 0, 256)},
+        DSN_BANK_K, gpu)
+    del trainer, batches, clean, noisy
+
+    # the upload rate at corpus scale: 1 GiB of uint8 images of DIV2K's size
+    big = np.random.default_rng(SEED).integers(0, 256, (128, 1356, 2040, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    up = bank.upload(bank.ImageBank(big, np.full((128, 2), (1356, 2040), np.int32)), dev)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    gib = big.nbytes / 2**30
+    del up, big
+    print(f"bank upload: {gib:.3f} GiB of 2040x1356 uint8 images in {up_s:.3f} s "
+          f"({gib / up_s:.2f} GiB/s, pageable host memory, 256 MiB slabs) [{gpu}]", flush=True)
+    report.update(dasr=srn, dsn=dsn, upload_gib_per_s=gib / up_s)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernel,serve,grad,train,dsn,dataset,pipeline",
+    ap.add_argument("--phases", default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline")
+                         "pipeline,bank")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1397,8 +1781,8 @@ def main(argv=None):
     }
     if "serve" in phases:
         phases.add("kernel")  # serve checks its shapes against phase 2's
-    if "train" in phases or "pipeline" in phases:
-        phases |= {"kernel", "grad"}  # and train and pipeline against phases 2 and 4
+    if phases & {"train", "pipeline", "bank"}:
+        phases |= {"kernel", "grad"}  # and train, pipeline and bank against phases 2 and 4
     if "dataset" in phases:
         phases.add("dsn")  # stage 2 reads stage 1's checkpoint
     if "build" in phases or "kernel" in phases or "grad" in phases:
@@ -1424,9 +1808,14 @@ def main(argv=None):
             report = phase_pipeline(gpu, root, checked, checked_grad)
             entry["launches_pipeline"] = report.pop("launches_pipeline")
             stages.update(report)
+        if "bank" in phases:
+            report = phase_bank(gpu, root, checked, checked_grad)
+            entry["launches_bank"] = report.pop("launches_bank")
+            print(f"bank (the fast path of stages 1 and 3): {json.dumps(report)}", flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
-    entry["launches"] = sum(entry.get(f"launches_{p}", 0) for p in ("serve", "train", "pipeline"))
+    entry["launches"] = sum(entry.get(f"launches_{p}", 0)
+                            for p in ("serve", "train", "pipeline", "bank"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

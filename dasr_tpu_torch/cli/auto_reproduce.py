@@ -14,9 +14,11 @@ launcher argument sets, derived stage-3 JSON and smoke knobs of
      / weights paths rewired from paths.yml and the stage-2 outputs.
 
 The stages hand over through files (PNG, NPY, checkpoints), as the
-reference's do. The fast path passes only flags the port has: DSN
-``--transfer_uint8 --device_bicubic --decode_cache_gb 24``, SRN
-``--decode_cache_gb 24``; it prints what it leaves out.
+reference's do. The fast path is the JAX package's: DSN ``--transfer_uint8
+--device_bicubic --device_bank --decode_cache_gb 24``; SRN
+``--steps_per_call 8 --transfer_uint8 --device_bank --decode_cache_gb 24``
+with ``val_device_metrics`` and ``val_metrics_pad_bucket: 128`` in the
+derived config unless the template sets them.
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ LAUNCHER_ARGS = {
 
 _CREATE_DATASET_NAME = {"aim2019": "aim2019", "realsr": "realsr_tdrealsr"}
 
-LEFT_OUT = ("--device_bank (ROADMAP A.6), --steps_per_call (B.1), SRN --transfer_uint8 (A.5), "
-            "val_device_metrics (A.3)")
-
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Auto Reproduce Script")
@@ -63,8 +62,9 @@ def main(argv=None):
     p.add_argument("--skip_dsn", action="store_true")
     p.add_argument("--skip_dataset", action="store_true")
     p.add_argument("--no_fast_path", action="store_true",
-                   help="leave out the exact perf flags (uint8 transfer, in-step bicubic, "
-                        "decode cache) and the DSN stage's bf16: run fully plain f32")
+                   help="leave out the fast path (uint8 transfer, in-step bicubic, device "
+                        "banks, K-step windows, device val metrics, decode cache) and the "
+                        "DSN stage's bf16: run fully plain f32")
     p.add_argument("--srn_template", default=None,
                    help="the stage-3 config template JSON (default: "
                         "dasr_tpu_torch/configs/train_DASR_auto_reproduce.json)")
@@ -91,8 +91,6 @@ def main(argv=None):
     save_name = f"0603_DSN_{args.dataset}"
     lrs_name = f"0603_DSN_LRs_{args.dataset}"
     device = ["--device", args.device]
-    if not args.no_fast_path:
-        print(f"[auto_reproduce] fast path without, not yet ported: {LEFT_OUT}", flush=True)
 
     # --- stage 1: DSN training ---
     if not args.skip_dsn:
@@ -106,7 +104,8 @@ def main(argv=None):
         if args.no_fast_path:
             dsn_args += ["--no_bf16"]
         else:
-            dsn_args += ["--transfer_uint8", "--device_bicubic", "--decode_cache_gb", "24"]
+            dsn_args += ["--transfer_uint8", "--device_bicubic", "--device_bank",
+                         "--decode_cache_gb", "24"]
         dsn_train.main(dsn_args + args.dsn_extra.split())
         tick("dsn_train", t0)
 
@@ -140,6 +139,9 @@ def main(argv=None):
         config["train"]["niter"] = args.niter
         config["train"]["val_freq"] = max(1, args.niter // 4)
         config["logger"]["save_checkpoint_freq"] = max(1, args.niter // 2)
+    if not args.no_fast_path:
+        config.setdefault("val_device_metrics", True)
+        config.setdefault("val_metrics_pad_bucket", 128)
     derived = os.path.join(args.work_root, f"train_DASR_auto_reproduce_{args.dataset}.json")
     os.makedirs(os.path.dirname(os.path.abspath(derived)), exist_ok=True)
     with open(derived, "w") as f:
@@ -147,7 +149,8 @@ def main(argv=None):
     t0 = time.time()
     srn_args = ["-opt", derived] + device
     if not args.no_fast_path:
-        srn_args += ["--decode_cache_gb", "24"]
+        srn_args += ["--steps_per_call", "8", "--transfer_uint8", "--device_bank",
+                     "--decode_cache_gb", "24"]
     srn_train.main(srn_args)
     tick("srn_train", t0)
     total = sum(stage_times.values())

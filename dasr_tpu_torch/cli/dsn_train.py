@@ -3,13 +3,21 @@ dasr_tpu_torch.cli.dsn_train --dataset aim2019 --artifacts tdsr ...
 [--device cuda]``, with the flags of ``dasr_tpu.cli.dsn_train`` (mirroring
 codes/DSN/train.py:24-73).
 
-Epoch loop on the host loader (threads, pinned memory), one train step per
-call: crops as uint8 with ``--transfer_uint8`` (cast on the device), the
-bicubic target in the step with ``--device_bicubic``, the decoded-image
-cache with ``--decode_cache_gb``. Metrics are read from the card only at
-50-iteration boundaries, one step late so the queue stays full, checked
-finite there and written to ``metrics.jsonl`` and TensorBoard; the last
-step's are written at the end. Every ``val_interval`` epochs the PSNR of
+Epoch loop on the host loader (threads, pinned memory): crops as uint8
+with ``--transfer_uint8`` (cast on the device), the bicubic target in the
+step with ``--device_bicubic``, the decoded-image cache with
+``--decode_cache_gb``. ``--device_bank`` keeps both corpora on the card
+and samples every batch there (uint8 crops, the bicubic in the step),
+unless they exceed ``--device_bank_gb``, hold an image smaller than its
+crop or fewer noisy images than one batch; each epoch's order is
+``np.random.default_rng((seed, epoch)).permutation(n)`` with
+``drop_last``. ``--steps_per_call K`` trains windows of K steps (k = 1
+windows when ``disc_freq`` or ``gen_freq`` is not 1); windows run across
+epoch ends, and a last partial one runs after the last epoch. Metrics are
+read from the card only for a window that crosses a 50-iteration
+boundary, one window late so the queue stays full, checked finite there
+and written to ``metrics.jsonl`` and TensorBoard; the last window's are
+written at the end. Every ``val_interval`` epochs the PSNR of
 the generator's output against the bicubic over at most 16 validation
 images; every ``val_img_interval`` epochs image dumps under
 ``val_images/``; every ``save_model_interval`` epochs and at the end the
@@ -17,9 +25,8 @@ whole train state as ``checkpoints/{iter}.pt``, and at the end the
 reference-format ``checkpoints/last_iteration.tar``. ``--checkpoint``
 resumes from the port's own saves (a ``{iter}.pt`` or its directory).
 
-Refused, naming the ROADMAP item: ``--device_bank`` (A.6) and
-``--steps_per_call > 1`` (B.1, a CUDA graph of the step). ``--packed_trunk``
-is a TPU rewrite of the same function, accepted and ignored.
+``--packed_trunk`` is a TPU rewrite of the same function, accepted and
+ignored.
 ``--lpips_rot_flip`` is parsed and never read, as in the JAX package.
 """
 
@@ -80,7 +87,7 @@ def build_argparser():
     p.add_argument("--cat_or_sum", default="cat", type=str)
     p.add_argument("--norm_layer", default="Instance", type=str)
     p.add_argument("--steps_per_call", default=1, type=int,
-                   help="only 1: K steps per call is not ported (ROADMAP B.1)")
+                   help="train windows of K steps (disc_freq and gen_freq 1)")
     p.add_argument("--transfer_uint8", action="store_true",
                    help="ship crops to the device as uint8, cast to f32/255 there (exact)")
     p.add_argument("--decode_cache_gb", type=float, default=None,
@@ -88,9 +95,11 @@ def build_argparser():
     p.add_argument("--device_bicubic", action="store_true",
                    help="compute the MATLAB-bicubic LR target in the step, not in the "
                         "loader's workers (the same resampling matrices)")
-    p.add_argument("--device_bank", action="store_true", help="not yet ported (ROADMAP A.6)")
+    p.add_argument("--device_bank", action="store_true",
+                   help="keep the decoded corpora on the device and sample each batch there "
+                        "(the host loader serves over budget or with small images)")
     p.add_argument("--device_bank_gb", type=float, default=12.0,
-                   help="budget of --device_bank, not yet ported (ROADMAP A.6)")
+                   help="device memory budget of --device_bank (padded bytes)")
     p.add_argument("--packed_trunk", action="store_true",
                    help="a TPU rewrite of DeResnet's trunk: accepted and ignored")
     p.add_argument("--seed", default=0, type=int,
@@ -156,13 +165,32 @@ def make_trainer(opt, device, steps_per_epoch: int):
                       decay=(opt.num_epochs, opt.num_decay_epochs, steps_per_epoch))
 
 
+def bank_gate(opt, source_dir, target_dir):
+    """Whether ``--device_bank`` can serve this run (the JAX CLI's budget and
+    crop checks, and, repaired, at least one batch of noisy images); prints
+    why the host loader serves where it cannot."""
+    from dasr_tpu_torch.data.device_bank import bank_min_hw, bank_nbytes
+    from dasr_tpu_torch.data.io import list_images
+
+    crop = opt.crop_size - opt.crop_size % opt.upscale_factor
+    need = bank_nbytes(source_dir) + bank_nbytes(target_dir)
+    if need > opt.device_bank_gb * 2**30:
+        reason = f"padded corpus needs {need / 2**30:.1f} GiB > budget {opt.device_bank_gb} GiB"
+    elif (min(bank_min_hw(source_dir)) < crop // opt.upscale_factor
+          or min(bank_min_hw(target_dir)) < crop):
+        reason = f"corpus has images smaller than the {crop}px crop"
+    elif len(list_images(source_dir)) < opt.batch_size:
+        reason = f"fewer source images than one batch of {opt.batch_size}"
+    else:
+        return True
+    print(f"--device_bank: {reason}; using the host loader", flush=True)
+    return False
+
+
 def main(argv=None):
     opt = build_argparser().parse_args(argv)
-    for flag, on, item in (("--device_bank", opt.device_bank, "A.6"),
-                           ("--steps_per_call > 1", opt.steps_per_call != 1, "B.1")):
-        if on:
-            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP {item})")
 
+    import numpy as np
     import torch
 
     from dasr_tpu_torch.core.config import dataset_paths
@@ -187,8 +215,30 @@ def main(argv=None):
 
         enable_decode_cache(opt.decode_cache_gb)
 
-    loader = make_loader(opt, source_dir, target_dir, device)
-    trainer = make_trainer(opt, device, steps_per_epoch=max(1, len(loader)))
+    loader = banks = None
+    crop = opt.crop_size - opt.crop_size % opt.upscale_factor
+    if opt.device_bank and bank_gate(opt, source_dir, target_dir):
+        import time
+
+        from dasr_tpu_torch.data.device_bank import build_bank, epoch_rows, nbytes, upload
+
+        t0 = time.perf_counter()
+        hosts = (build_bank(target_dir, min_size=crop),
+                 build_bank(source_dir, min_size=crop // opt.upscale_factor))
+        t1 = time.perf_counter()
+        banks = tuple(upload(b, device) for b in hosts)  # (clean, noisy)
+        n_noisy = hosts[1].data.shape[0]
+        steps_per_epoch = n_noisy // opt.batch_size
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"device bank: {nbytes(banks) / 2**30:.3f} GiB resident ({hosts[0].data.shape[0]} "
+              f"clean / {n_noisy} noisy images; decode {t1 - t0:.2f} s, upload "
+              f"{time.perf_counter() - t1:.2f} s)", flush=True)
+        del hosts
+    else:
+        loader = make_loader(opt, source_dir, target_dir, device)
+        steps_per_epoch = max(1, len(loader))
+    trainer = make_trainer(opt, device, steps_per_epoch=steps_per_epoch)
     state = trainer.init_state()
 
     save_path = os.path.join(opt.experiments_root, opt.save_path or "dsn_run")
@@ -196,7 +246,7 @@ def main(argv=None):
     start_epoch = 1
     if opt.checkpoint:
         step = load_train_state(opt.checkpoint, state)
-        start_epoch = step // max(1, len(loader)) + 1
+        start_epoch = step // steps_per_epoch + 1
         print(f"Continuing training at epoch {start_epoch}")
 
     writer = None
@@ -214,27 +264,56 @@ def main(argv=None):
                                 upscale_factor=opt.upscale_factor,
                                 random_crop=opt.val_random_crop)
 
-    def write(it, metrics):
+    k_steps = max(1, opt.steps_per_call)
+    if k_steps > 1 and (opt.disc_freq != 1 or opt.gen_freq != 1 or opt.debug):
+        print("steps_per_call > 1 needs disc_freq == gen_freq == 1 (and no --debug); "
+              "one step a window")
+        k_steps = 1
+
+    def boundary(it, k):
+        return it // LOG_EVERY > (it - k) // LOG_EVERY
+
+    def write(it, k, metrics):
         host = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))  # one sync
-        if it % LOG_EVERY == 0:
+        if boundary(it, k):
             check_finite(host, it)
         if writer:
             writer.write(it, host, imgs=opt.batch_size)
 
     iteration = state.step
-    lagged = last = None  # a boundary's device metrics, read after the next step is issued
+    lagged = last = None  # a boundary window's device metrics, read after the next is issued
+
+    def run_window(window):
+        """Issue one window (host batches or index rows) of len(window) steps."""
+        nonlocal iteration, lagged, last
+        k, start = len(window), iteration
+        iteration += k
+        do_g, do_d = iteration % opt.gen_freq == 0, iteration % opt.disc_freq == 0
+        if banks is not None:
+            idx = torch.from_numpy(np.stack(window).astype(np.int64)).to(device)
+            metrics = trainer.train_banked_step(*banks, idx, start, crop, opt.flips,
+                                                opt.rotations, do_g=do_g, do_d=do_d)
+        else:
+            metrics = trainer.train_multi_step([to_device(b, device) for b in window],
+                                               do_g=do_g, do_d=do_d)
+        if lagged is not None:
+            write(*lagged)
+        lagged = (iteration, k, metrics) if boundary(iteration, k) else None
+        last = (iteration, k, metrics)
+
+    pending = []
     try:
         for epoch in range(start_epoch, opt.num_epochs + 1):
-            loader.set_epoch(epoch)
-            for batch in loader:
-                iteration += 1
-                metrics = trainer.train_step(
-                    to_device(batch, device), do_g=iteration % opt.gen_freq == 0,
-                    do_d=iteration % opt.disc_freq == 0)
-                if lagged is not None:
-                    write(*lagged)
-                lagged = (iteration, metrics) if iteration % LOG_EVERY == 0 else None
-                last = (iteration, metrics)
+            if banks is not None:
+                source = epoch_rows(opt.seed, epoch, n_noisy, opt.batch_size)
+            else:
+                loader.set_epoch(epoch)
+                source = loader
+            for batch in source:
+                pending.append(batch)
+                if len(pending) == k_steps:
+                    run_window(pending)
+                    pending = []
                 if opt.debug:
                     break
             if opt.debug:
@@ -253,8 +332,10 @@ def main(argv=None):
                 print(f"[epoch {epoch}] checkpoint @ iter {iteration}")
             if opt.debug and epoch >= start_epoch + 1:
                 break
-        # the last step's metrics always end the log (the reference's
-        # end-of-run line), checked where they fall on a boundary
+        if pending:
+            run_window(pending)
+        # the last window's metrics always end the log (the reference's
+        # end-of-run line), checked where they cross a boundary
         if last is not None:
             write(*last)
         if opt.saving:

@@ -5,12 +5,17 @@ Mirrors codes/SRN/test.py and ``dasr_tpu.cli.srn_test``: loads the
 commented-JSON options, builds the model, runs every test dataset, saves SR
 PNGs under results/<name>/<set>/, and reports per-image and average
 PSNR/SSIM (+Y) with a scale-px border crop. Returns the per-set averages.
+Image i is read back, measured and written while image i + 1 runs.
 
 With ``val_lpips: true`` it also reports LPIPS (alex) on the uint8 images,
-on the device (``make_lpips``).
+on the device (``make_lpips``). ``--device_metrics`` computes PSNR/SSIM
+(+Y) and LPIPS on the device as well (within 1e-3 dB and 1e-4 SSIM of the
+host f64 protocol); the chop and ``pad_bucket`` forwards keep the host
+metrics unless ``--metrics_pad_bucket N`` pads each pair to a multiple of
+N for the masked metrics (exact; LPIPS per shape).
 
-Not ported yet, and refused rather than skipped: ``--mesh``,
-``--spatial_shard``, ``--device_metrics`` and ``--metrics_pad_bucket``.
+Not ported yet, and refused rather than skipped: ``--mesh`` and
+``--spatial_shard`` (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -33,24 +38,21 @@ def main(argv=None):
     parser.add_argument("--spatial_shard", action="store_true",
                         help="not yet ported (ROADMAP A.11)")
     parser.add_argument("--device_metrics", action="store_true",
-                        help="not yet ported (ROADMAP A.3)")
+                        help="PSNR/SSIM (+Y) and LPIPS on the device instead of the host "
+                             "f64 path (within 1e-3 dB / 1e-4 SSIM)")
     parser.add_argument("--metrics_pad_bucket", type=int, default=0,
-                        help="not yet ported (ROADMAP A.3)")
+                        help="with --device_metrics: zero-pad each SR/HR pair to a multiple "
+                             "of N and mask (exact); works with any forward")
     args = parser.parse_args(argv)
-    for flag, on, item in (
-        ("--mesh", args.mesh, "A.11"),
-        ("--spatial_shard", args.spatial_shard, "A.11"),
-        ("--device_metrics", args.device_metrics, "A.3"),
-        ("--metrics_pad_bucket", args.metrics_pad_bucket, "A.3"),
-    ):
+    for flag, on in (("--mesh", args.mesh), ("--spatial_shard", args.spatial_shard)):
         if on:
-            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP {item})")
+            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP A.11)")
 
     from dasr_tpu_torch.core.config import dict2str, parse_srn_options
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.datasets import create_dataset
     from dasr_tpu_torch.data.io import save_img
-    from dasr_tpu_torch.eval.evaluate import average, sr_metrics, to_uint8
+    from dasr_tpu_torch.eval.evaluate import average, sr_metrics_on
     from dasr_tpu_torch.models.registry import create_model
 
     opt = parse_srn_options(args.opt, is_train=False)
@@ -63,6 +65,7 @@ def main(argv=None):
     model.init()
     model.load()
     lpips_fn = make_lpips(device) if opt.get("val_lpips") else None
+    measure = sr_metrics_on(opt, lpips_fn, args.device_metrics, args.metrics_pad_bucket)
 
     averages = {}
     for _, dataset_opt in sorted((opt.get("datasets") or {}).items()):
@@ -73,15 +76,15 @@ def main(argv=None):
         os.makedirs(dataset_dir, exist_ok=True)
 
         per_image = []
-        for i in range(len(test_set)):
-            data = test_set[i]
-            sr = model.test(data["LR"])
+
+        def finish(i, data, sr_dev, done):
+            sr = sr_dev.cpu().numpy()
             base = os.path.splitext(os.path.basename(data["LR_path"]))[0]
             save_img(sr, os.path.join(dataset_dir, base + ".png"))
-            if "HR" not in data:
+            if done is None:
                 logger.info(f"{i + 1:3d} - {base}")
-                continue
-            m = sr_metrics(to_uint8(sr), to_uint8(data["HR"]), opt.get("scale", 4), lpips_fn)
+                return
+            m = done(sr)
             per_image.append(m)
             logger.info(
                 f"{i + 1:3d} - {base:25s} PSNR: {m['psnr']:.6f} dB; "
@@ -90,6 +93,17 @@ def main(argv=None):
                    if "psnr_y" in m else "")
                 + (f"; LPIPS: {m['lpips']:.6f}" if "lpips" in m else "")
             )
+
+        inflight = None
+        for i in range(len(test_set)):
+            data = test_set[i]
+            sr_dev = model.test_async(data["LR"])
+            done = measure(sr_dev, data["HR"]) if "HR" in data else None
+            prev, inflight = inflight, (i, data, sr_dev, done)
+            if prev is not None:
+                finish(*prev)
+        if inflight is not None:
+            finish(*inflight)
 
         if per_image:
             avg = average(per_image)
@@ -107,7 +121,9 @@ def main(argv=None):
 
 def make_lpips(device):
     """``fn(a, b)`` -> LPIPS (alex, f32) of two (1, H, W, 3) numpy images in
-    [-1, 1], computed on ``device`` (``default_lpips``'s weights)."""
+    [-1, 1], computed on ``device`` (``default_lpips``'s weights);
+    ``fn.raw(a, b)`` takes NCHW tensors on ``device`` and returns the
+    LPIPS tensor without waiting for it."""
     import torch
 
     from dasr_tpu_torch.losses.lpips import default_lpips
@@ -115,12 +131,16 @@ def make_lpips(device):
     lpips = default_lpips("alex").to(device)
 
     @torch.no_grad()
+    def raw(a, b):
+        return lpips(a, b).reshape(())
+
     def compute(a, b):
         def t(v):
             return torch.from_numpy(np.ascontiguousarray(v)).permute(0, 3, 1, 2).to(device)
 
-        return float(lpips(t(a), t(b)).reshape(()))
+        return float(raw(t(a), t(b)))
 
+    compute.raw = raw
     return compute
 
 

@@ -2,18 +2,31 @@
 -opt options/train/train_DASR.json [--device cuda]`` (mirroring
 codes/SRN/train.py:20-249 and ``dasr_tpu.cli.srn_train``).
 
-Iteration-based loop on the host loader, one train step per call: data
-loaders, ``create_model``, ``train_step`` (the LR schedules step with the
-optimizers), log lines and ``metrics.jsonl`` every ``print_freq`` steps,
-validation every ``val_freq`` (PSNR/SSIM on the host f64 path, with LPIPS
-when ``val_lpips``), sample dumps every ``save_tsamples``, and the whole
-train state saved every ``save_checkpoint_freq`` steps and at the end.
-Returns ``(steps run, last logged metrics)``.
+Iteration-based loop: data loaders, ``create_model``, train steps (the LR
+schedules step with the optimizers), log lines and ``metrics.jsonl`` every
+``print_freq`` steps, validation every ``val_freq``, sample dumps every
+``save_tsamples``, and the whole train state saved every
+``save_checkpoint_freq`` steps and at the end. Returns ``(steps run, last
+logged metrics)``.
 
-Not ported yet, and refused rather than skipped: ``--device_bank``
-(ROADMAP A.6), ``--steps_per_call > 1`` (a TPU dispatch amortisation;
-ROADMAP A.5), ``--transfer_uint8`` and ``--profile`` (ROADMAP A.5),
-``resume_state`` and ``val_device_metrics`` (ROADMAP A.5 / A.3).
+The JAX package's fast path, with its semantics:
+
+* ``--steps_per_call K``: windows of K steps, metrics averaged over the
+  window (host loader) or the window's last step (device bank), read only
+  for a window that crosses a print boundary and one window late, so the
+  host never waits for the card between windows;
+* ``--transfer_uint8``: host batches as uint8, cast on the card (exact);
+* ``--device_bank``: the four stage-3 corpora resident on the card, each
+  window sampled there from a (K, B) index window (``_bank_gate`` says when
+  the host loader serves instead); epochs draw their order by
+  ``np.random.default_rng((manual_seed, epoch)).permutation(n)`` with
+  ``drop_last``;
+* ``val_device_metrics`` (and ``val_metrics_pad_bucket``): the validation
+  PSNR/SSIM (+Y, LPIPS) on the card, one image behind the forward;
+* ``--profile DIR``: a ``torch.profiler`` trace of steps 10-20;
+* ``resume_state``: the port's own ``{iter}.pt``; the run continues inside
+  the epoch where the save left it (the JAX CLI restarts the epoch order).
+  A reference ``{iter}.state`` is refused (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -34,36 +47,41 @@ def main(argv=None):
     parser.add_argument("--decode_cache_gb", type=float, default=None,
                         help="in-RAM decoded-image cache budget (GiB); also via "
                              "DASR_DECODE_CACHE_GB")
-    parser.add_argument("--profile", type=str, default=None, help="not yet ported (ROADMAP A.5)")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="directory for a torch.profiler trace of steps 10-20")
     parser.add_argument("--steps_per_call", type=int, default=1,
-                        help="only 1: scanning K steps per dispatch is not yet ported "
-                             "(ROADMAP A.5)")
+                        help="train K steps a window; metrics are read once a window, "
+                             "one window late")
     parser.add_argument("--transfer_uint8", action="store_true",
-                        help="not yet ported (ROADMAP A.5)")
-    parser.add_argument("--device_bank", action="store_true", help="not yet ported (ROADMAP A.6)")
+                        help="ship image tensors to the device as uint8 and cast to "
+                             "f32/255 there (exact for 8-bit sources); same as "
+                             "datasets.train.transfer_uint8")
+    parser.add_argument("--device_bank", action="store_true",
+                        help="keep the decoded train corpus (HR, fake LR, real LR, DDMs) "
+                             "on the device and sample each batch there; DASR model and "
+                             "LRHR_wavelet_unpair_fake_weights_EQ mode only, else, or "
+                             "over --device_bank_gb, or with images smaller than the crop, "
+                             "the host loader serves")
+    parser.add_argument("--device_bank_gb", type=float, default=12.0,
+                        help="device memory budget for --device_bank (padded bytes, all "
+                             "four banks)")
     args = parser.parse_args(argv)
-    for flag, on, item in (
-        ("--profile", args.profile, "A.5"),
-        ("--steps_per_call > 1", args.steps_per_call != 1, "A.5"),
-        ("--transfer_uint8", args.transfer_uint8, "A.5"),
-        ("--device_bank", args.device_bank, "A.6"),
-    ):
-        if on:
-            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP {item})")
+
+    import numpy as np
 
     from dasr_tpu_torch.core.config import dict2str, parse_srn_options
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.datasets import create_dataset
     from dasr_tpu_torch.data.pipeline import Loader
     from dasr_tpu_torch.models.registry import create_model
-    from dasr_tpu_torch.utils.guards import check_finite
+    from dasr_tpu_torch.utils import guards
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
     opt = parse_srn_options(args.opt, is_train=True)
-    if opt["path"].get("resume_state"):
-        raise NotImplementedError("resume_state is not yet ported (ROADMAP A.5)")
-    if opt.get("val_device_metrics"):
-        raise NotImplementedError("val_device_metrics is not yet ported (ROADMAP A.3)")
+    rstate = opt["path"].get("resume_state")
+    if rstate and rstate.endswith(".state"):
+        raise NotImplementedError("resume_state from a reference .state is not yet ported "
+                                  "(ROADMAP A.5): resume from the port's {iter}.pt")
     device = resolve_device(args.device)
     if args.decode_cache_gb is not None:
         from dasr_tpu_torch.data.io import enable_decode_cache
@@ -84,77 +102,242 @@ def main(argv=None):
     print_freq = int(logger_opt.get("print_freq", 200) or 200)
     save_freq = int(logger_opt.get("save_checkpoint_freq", 2500) or 2500)
     tsample_freq = int(opt.get("save_tsamples") or 0)
+    seed = int(train_opt.get("manual_seed", 0) or 0)
 
-    train_loader = val_set = None
+    train_loader = val_set = train_ds_opt = bank_dirs = None
     for phase, dataset_opt in (opt.get("datasets") or {}).items():
         if phase == "train":
-            train_set = create_dataset(dataset_opt)
-            train_loader = Loader(
-                train_set,
-                batch_size=int(dataset_opt.get("batch_size", 6) or 6),
-                shuffle=bool(dataset_opt.get("use_shuffle", True)),
-                num_workers=int(dataset_opt.get("n_workers", 6) or 6),
-                drop_last=True,
-                seed=int(train_opt.get("manual_seed", 0) or 0),
-                pin_memory=device.type == "cuda",
-            )
-            logger.info(f"Number of train images: {len(train_set)}, iters per epoch: "
-                        f"{len(train_loader)}")
+            if args.transfer_uint8:
+                dataset_opt["transfer_uint8"] = True
+            train_ds_opt = dataset_opt
+            bs = int(dataset_opt.get("batch_size", 6) or 6)
+            if args.device_bank:
+                bank_dirs = _bank_gate(opt, dataset_opt, args.device_bank_gb)
+            if bank_dirs:
+                from dasr_tpu_torch.data.io import list_images
+
+                n_train_imgs = len(list_images(bank_dirs[0]))
+                steps_per_epoch = n_train_imgs // bs
+                logger.info(f"Number of train images: {n_train_imgs}, iters per epoch: "
+                            f"{steps_per_epoch} (device bank)")
+            else:
+                train_set = create_dataset(dataset_opt)
+                train_loader = Loader(
+                    train_set, batch_size=bs,
+                    shuffle=bool(dataset_opt.get("use_shuffle", True)),
+                    num_workers=int(dataset_opt.get("n_workers", 6) or 6),
+                    drop_last=True, seed=seed, pin_memory=device.type == "cuda",
+                    # two windows of batches in flight: a window never waits on decode
+                    prefetch=max(4, 2 * max(1, args.steps_per_call)),
+                )
+                steps_per_epoch = len(train_loader)
+                logger.info(f"Number of train images: {len(train_set)}, iters per epoch: "
+                            f"{steps_per_epoch}")
         elif phase == "val":
             val_set = create_dataset(dataset_opt)
             logger.info(f"Number of val images: {len(val_set)}")
-    if train_loader is None:
+    if train_ds_opt is None:
         raise ValueError("Train dataset is required.")
-    if len(train_loader) == 0:
+    if steps_per_epoch == 0:
         raise ValueError("the train set holds fewer images than one batch (drop_last)")
 
     model = create_model(opt, device)
     model.init()
     model.load()
+    start_iter = 0
+    if rstate:
+        start_iter = model.resume(rstate)
+        logger.info(f"Resuming training from iteration: {start_iter}.")
+
+    if bank_dirs:
+        import time
+
+        from dasr_tpu_torch.data.device_bank import build_bank, build_ddm_bank, epoch_rows, nbytes
+        from dasr_tpu_torch.data.io import list_images
+
+        fake_dir, hr_dir, real_dir, ddm_dir = bank_dirs
+        hr_size = int(train_ds_opt.get("HR_size", 128) or 128)
+        lr_size = hr_size // int(opt.get("scale", 4))
+        t0 = time.perf_counter()
+        fake_h = build_bank(fake_dir, min_size=lr_size)
+        banks = (fake_h, build_bank(hr_dir, min_size=hr_size),
+                 build_bank(real_dir, min_size=lr_size),
+                 build_ddm_bank(list_images(ddm_dir), fake_h.sizes))
+        t1 = time.perf_counter()
+        model.setup_device_bank(*banks, hr_size,
+                                use_flip=bool(train_ds_opt.get("use_flip", True)),
+                                use_rot=bool(train_ds_opt.get("use_rot", True)))
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+        del banks, fake_h
+        print(f"device bank: {nbytes(model._banks) / 2**30:.3f} GiB resident (decode "
+              f"{t1 - t0:.2f} s, upload {time.perf_counter() - t1:.2f} s)", flush=True)
 
     tb_dir = None
     if opt.get("use_tb_logger") and "debug" not in (opt.get("name") or ""):
         tb_dir = os.path.join(opt["path"]["experiments_root"], "tb_logger")
     writer = MetricsWriter(os.path.join(opt["path"]["log"], "metrics.jsonl"), tb_dir=tb_dir)
-    total_epochs = int(math.ceil(niter / len(train_loader)))
+    total_epochs = int(math.ceil(niter / steps_per_epoch))
     logger.info(f"Total epochs needed: {total_epochs} for iters {niter}")
     lpips_fn = None
     if opt.get("val_lpips"):
         from dasr_tpu_torch.cli.srn_test import make_lpips
 
         lpips_fn = make_lpips(device)
-    bs = train_loader.bs
 
-    current_step, last = 0, {}
+    k_steps = max(1, args.steps_per_call)
+    if k_steps > 1 and not model.supports_multi_step:
+        logger.info("steps_per_call > 1 needs G_update_inter == D_update_inter == 1; "
+                    "one step a window")
+        k_steps = 1
+    windowed = k_steps > 1 or bool(bank_dirs)
+
+    def crossed(step, k, freq):
+        return step // freq > (step - k) // freq
+
+    last = {}
+
+    def report(step, k, epoch, host):
+        nonlocal last
+        if crossed(step, k, print_freq):
+            guards.check_finite(host, step)
+            logger.info(f"<epoch:{epoch:3d}, iter:{step:8,d}> " + ", ".join(
+                f"{name.split('/')[-1]}: {v:.4e}" for name, v in host.items()))
+            # imgs: effective images per step (fake + real halves)
+            writer.write(step, host, imgs=bs * 2)
+            last = host
+
+    # a window's device metrics are read after the next window is issued, and
+    # only for a window that crossed a print boundary; every 32 unread
+    # windows one read bounds how far the host runs ahead of the card
+    lagged = None  # (step, k, epoch, device metrics)
+    runahead = 0
+    profiler = None
+    current_step = start_iter
+    start_epoch, skip = divmod(start_iter, steps_per_epoch)
+    pending = []
     try:
-        for epoch in range(total_epochs):
-            train_loader.set_epoch(epoch)
-            for batch in train_loader:
+        for epoch in range(start_epoch, total_epochs):
+            first = skip if epoch == start_epoch else 0
+            if bank_dirs:
+                source = epoch_rows(seed, epoch, n_train_imgs, bs,
+                                    bool(train_ds_opt.get("use_shuffle", True)))[first:]
+            else:
+                train_loader.set_epoch(epoch, skip=first)
+                source = train_loader
+            for batch in source:
                 if current_step >= niter:
                     break
-                metrics = model.train_step(batch)
-                current_step += 1
-                if current_step % print_freq == 0:
-                    check_finite(metrics, current_step)
-                    logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}> " + ", ".join(
-                        f"{k.split('/')[-1]}: {v:.4e}" for k, v in metrics.items()))
-                    # imgs: effective images per step (fake + real halves)
-                    writer.write(current_step, metrics, imgs=bs * 2)
-                    last = metrics
-                if val_set is not None and current_step % val_freq == 0:
+                if windowed:
+                    pending.append(batch)
+                    if len(pending) < k_steps and current_step + len(pending) < niter:
+                        continue
+                if args.profile and profiler is None and (
+                        current_step < start_iter + 10 <= current_step + max(1, len(pending))):
+                    profiler = guards.profile(args.profile)
+                    profiler.__enter__()
+                if bank_dirs:
+                    k, metrics = len(pending), None
+                    dev_metrics = model.train_banked_window_async(np.stack(pending), current_step)
+                elif windowed:
+                    k, metrics = len(pending), None
+                    dev_metrics = model.train_multi_step_async(pending)
+                else:
+                    k, metrics = 1, model.train_step(batch)
+                pending = []
+                current_step += k
+                if profiler and current_step - k < start_iter + 20 <= current_step:
+                    profiler.__exit__(None, None, None)
+                    profiler = False
+                    logger.info(f"wrote the profiler trace to {args.profile}")
+
+                if metrics is not None:
+                    report(current_step, k, epoch, metrics)
+                else:
+                    prev, lagged = lagged, (current_step, k, epoch, dev_metrics)
+                    if prev is not None:
+                        if crossed(prev[0], prev[1], print_freq):
+                            report(*prev[:3], model.metrics_to_host(prev[3]))
+                            runahead = 0
+                        else:
+                            runahead += 1
+                            if runahead >= 32:
+                                model.metrics_to_host(prev[3])
+                                runahead = 0
+
+                if val_set is not None and crossed(current_step, k, val_freq):
                     _validate(model, val_set, opt, current_step, logger, writer, lpips_fn)
-                if val_set is not None and tsample_freq and current_step % tsample_freq == 0:
+                if val_set is not None and tsample_freq and crossed(current_step, k,
+                                                                    tsample_freq):
                     _save_tsamples(model, val_set, opt, current_step, writer)
-                if current_step % save_freq == 0:
+                if crossed(current_step, k, save_freq):
                     _save(model, opt, logger_opt, current_step, logger)
             if current_step >= niter:
                 break
+        if lagged is not None:
+            report(*lagged[:3], model.metrics_to_host(lagged[3]))
+        if profiler:
+            profiler.__exit__(None, None, None)
+            logger.info(f"wrote the profiler trace to {args.profile}")
         logger.info("Saving the final model.")
         _save(model, opt, logger_opt, current_step, logger)
         logger.info("End of training.")
     finally:
         writer.close()
     return current_step, last
+
+
+def _bank_gate(opt, dataset_opt, budget_gb):
+    """The four dataroots (fake LR, HR, real LR, DDM) when ``--device_bank``
+    can serve this run, else None, printing why the host loader serves
+    (counterpart of the JAX CLI's ``_bank_gate``). Besides the JAX gate's
+    reasons (the model or mode, G/D_update_inter != 1, a missing dataroot,
+    an image smaller than its crop, the budget), two repairs: the fake-LR,
+    HR and DDM counts must be equal (the device gather would read an index
+    that is not there, where the host loader fails), and the corpus must
+    hold one batch (the host loader's ``drop_last`` yields none)."""
+    from dasr_tpu_torch.data.device_bank import bank_min_hw, bank_nbytes
+    from dasr_tpu_torch.data.io import list_images
+
+    def fall(reason):
+        print(f"--device_bank: {reason}; using the host loader", flush=True)
+        return None
+
+    model = opt.get("model")
+    if model == "DASR_Adaptive_Model":
+        return fall("the DASR_Adaptive_Model trainer is not yet ported (ROADMAP A.9)")
+    if model != "DASR":
+        return fall(f"model [{model}] has no banked path")
+    train = opt.get("train") or {}
+    if (train.get("G_update_inter", 1) or 1) != 1 or (train.get("D_update_inter", 1) or 1) != 1:
+        return fall("G/D_update_inter != 1")
+    mode = dataset_opt.get("mode")
+    if mode != "LRHR_wavelet_unpair_fake_weights_EQ":
+        return fall(f"dataset mode [{mode}] unsupported for model [{model}]")
+    dirs = tuple(dataset_opt.get(k) for k in ("dataroot_fake_LR", "dataroot_HR",
+                                              "dataroot_real_LR", "dataroot_fake_weights"))
+    if not all(dirs):
+        return fall("missing a dataroot (fake_LR/HR/real_LR/fake_weights)")
+    fake_dir, hr_dir, real_dir, ddm_dir = dirs
+    counts = [len(list_images(d)) for d in (fake_dir, hr_dir, ddm_dir)]
+    if len(set(counts)) != 1:
+        return fall(f"{counts[0]} fake LRs, {counts[1]} HRs and {counts[2]} DDMs are not "
+                    f"paired one to one")
+    bs = int(dataset_opt.get("batch_size", 6) or 6)
+    if counts[0] < bs:
+        return fall(f"{counts[0]} train images hold no batch of {bs}")
+    hr_size = int(dataset_opt.get("HR_size", 128) or 128)
+    lr_size = hr_size // int(opt.get("scale", 4))
+    if (min(bank_min_hw(fake_dir)) < lr_size or min(bank_min_hw(real_dir)) < lr_size
+            or min(bank_min_hw(hr_dir)) < hr_size):
+        return fall("corpus has images smaller than the crop")
+    # the uint8 banks and the f32 1-channel DDM bank at the fake LRs' sizes
+    need = (bank_nbytes(fake_dir) * 7 // 3 + bank_nbytes(hr_dir) + bank_nbytes(real_dir))
+    if need > budget_gb * 2**30:
+        return fall(f"padded corpus needs {need / 2**30:.1f} GiB > budget {budget_gb} GiB")
+    return dirs
 
 
 def _save(model, opt, logger_opt, step, logger):
@@ -192,25 +375,40 @@ def _save_tsamples(model, val_set, opt, step, writer=None):
 
 
 def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
-    """The reference's validation (codes/SRN/train.py:174-235) on the host
-    f64 metric path: every val image (or ``max_val_images``), SR PNGs under
-    val_images/<step>/, averages logged and written."""
+    """The reference's validation (codes/SRN/train.py:174-235): every val
+    image (or ``max_val_images``), SR PNGs under val_images/<step>/,
+    averages logged and written. Metrics on the host f64 path, or with
+    ``val_device_metrics`` on the card (``val_metrics_pad_bucket``: padded
+    to shared bucket shapes, LPIPS per shape); as in the JAX CLI, the chop
+    and ``pad_bucket`` forwards keep the host metrics unless a bucket is
+    given. Image i's metrics are read after image i + 1 is issued."""
     from dasr_tpu_torch.data.io import save_img
-    from dasr_tpu_torch.eval.evaluate import average, sr_metrics, to_uint8
+    from dasr_tpu_torch.eval.evaluate import average, sr_metrics_on
 
     cap = opt.get("max_val_images")
     n = min(len(val_set), int(cap)) if cap else len(val_set)
     if n < len(val_set):
         logger.info(f"Validating {n}/{len(val_set)} images (max_val_images={cap})")
     img_dir = os.path.join(opt["path"]["val_images"], str(step))
+    measure = sr_metrics_on(opt, lpips_fn, bool(opt.get("val_device_metrics")),
+                         int(opt.get("val_metrics_pad_bucket") or 0))
     results = []
-    for i in range(n):
-        data = val_set[i]
-        sr = model.test(data["LR"])
-        results.append(sr_metrics(to_uint8(sr), to_uint8(data["HR"]), opt.get("scale", 4),
-                                  lpips_fn))
+
+    def drain(data, sr_dev, finish):
+        sr = sr_dev.cpu().numpy()
+        results.append(finish(sr))
         base = os.path.splitext(os.path.basename(data["HR_path"]))[0]
         save_img(sr, os.path.join(img_dir, f"{base}_{step}.png"))
+
+    inflight = None
+    for i in range(n):
+        data = val_set[i]
+        sr_dev = model.test_async(data["LR"])
+        prev, inflight = inflight, (data, sr_dev, measure(sr_dev, data["HR"]))
+        if prev is not None:
+            drain(*prev)
+    if inflight is not None:
+        drain(*inflight)
     avg = average(results)
     msg = f"# Validation # PSNR: {avg['psnr']:.4e}"
     if "lpips" in avg:

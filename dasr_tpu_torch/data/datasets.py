@@ -131,9 +131,10 @@ class DASRUnpairedDataset:
         self.phase = opt.get("phase", "train")
         self.scale = opt.get("scale", 4)
         self.hr_size = opt.get("HR_size", 128)
-        if opt.get("transfer_uint8"):
-            raise NotImplementedError("transfer_uint8 is not yet ported (ROADMAP A.5)")
-        self._read = read_img
+        # transfer_uint8: the four image tensors as uint8, cast to f32 / 255
+        # on the device by the facade; exact for 8-bit sources (crops and
+        # flips only move pixels), 16-bit ones are quantised to 8 bits
+        self._read = read_img_u8 if opt.get("transfer_uint8") else read_img
         self.paths_hr = list_images(opt["dataroot_HR"])
         self.paths_fake_lr = list_images(opt["dataroot_fake_LR"])
         self.paths_real_lr = list_images(opt["dataroot_real_LR"])

@@ -54,13 +54,17 @@ class Loader:
         self.prefetch = prefetch
         self.pin_memory = pin_memory
         self.epoch = 0
+        self.skip = 0
 
     def __len__(self):
         n = len(self.ds)
         return n // self.bs if self.drop_last else (n + self.bs - 1) // self.bs
 
-    def set_epoch(self, epoch: int):
+    def set_epoch(self, epoch: int, skip: int = 0):
+        """Select the epoch's order; ``skip`` leaves out its first batches
+        without loading them (a run resumed inside an epoch)."""
         self.epoch = epoch
+        self.skip = skip
 
     def _indices(self):
         n = len(self.ds)
@@ -80,7 +84,7 @@ class Loader:
 
     def __iter__(self) -> Iterator[Dict]:
         idx = self._indices()
-        batches = [idx[i : i + self.bs] for i in range(0, len(idx), self.bs)]
+        batches = [idx[i : i + self.bs] for i in range(0, len(idx), self.bs)][self.skip:]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

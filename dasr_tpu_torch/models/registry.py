@@ -4,8 +4,11 @@ Counterpart of ``dasr_tpu.models.registry``: ``create_model(opt)`` keyed
 like the reference (codes/SRN/models/__init__.py:5-26) and ``define_G``
 (codes/SRN/models/networks.py:83-147). Ported so far: inference of 'sr'
 (``SRModel``) and 'DASR' (``DASRModel``) with ``RRDB_net``, and the DASR
-trainer (``DASRModel`` with ``is_train``); any other model or trainer
-raises ``NotImplementedError`` naming its ROADMAP queue item.
+trainer (``DASRModel`` with ``is_train``): host batches one step or a
+window at a time, uint8 batches cast on the device, and windows sampled
+from device-resident banks (``setup_device_bank``,
+``train_banked_window_async``). Any other model or trainer raises
+``NotImplementedError`` naming its ROADMAP queue item.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from dasr_tpu_torch.data import device_bank
 from dasr_tpu_torch.losses.lpips import default_lpips
 from dasr_tpu_torch.nn.generators import RRDBNet
 from dasr_tpu_torch.ops.tiled import forward_chop, pad_reflect, tiled_apply
@@ -94,9 +98,14 @@ class _InferenceModel:
     def _apply_g(self, x):
         return self.g(x)
 
-    @torch.no_grad()
     def test(self, lr_img: np.ndarray) -> np.ndarray:
         """One LR image (HWC, float [0, 1] or uint8) -> SR image (HWC float32)."""
+        return self.test_async(lr_img).cpu().numpy()
+
+    @torch.no_grad()
+    def test_async(self, lr_img: np.ndarray) -> torch.Tensor:
+        """``test``'s SR image as an f32 HWC tensor on the device, without
+        waiting for it (the CLIs read it back one image later)."""
         h0, w0 = lr_img.shape[0], lr_img.shape[1]
         x = torch.from_numpy(np.ascontiguousarray(lr_img))[None].permute(0, 3, 1, 2)
         x = x.to(self.device)
@@ -116,7 +125,7 @@ class _InferenceModel:
         else:
             out = self._apply_g(x)
         out = out[0, :, : scale * h0, : scale * w0]
-        return out.permute(1, 2, 0).float().cpu().numpy()
+        return out.permute(1, 2, 0).float()
 
     def train_step(self, batch):
         raise NotImplementedError(self._train_todo)
@@ -192,10 +201,10 @@ class DASRModel(_InferenceModel):
 
     def load(self):
         paths = self.opt.get("path") or {}
-        if paths.get("resume_state"):
+        if (paths.get("resume_state") or "").endswith(".state"):
             raise NotImplementedError(
-                "resume_state is not yet ported (ROADMAP A.5): the port saves its train "
-                "state but does not resume from it or from a reference .state"
+                "resume_state from a reference .state is not yet ported (ROADMAP A.5): the "
+                "port resumes from its own {iter}.pt train states"
             )
         if self.trainer is None:
             for key in ("pretrain_model_D_target", "pretrain_model_D_source"):
@@ -215,24 +224,78 @@ class DASRModel(_InferenceModel):
             raise RuntimeError("train_step needs a DASR model created with is_train and init()")
         return self.trainer
 
+    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A host batch (NHWC arrays or tensors, as the Loader gives them) as
+        NCHW device tensors; uint8 images (``transfer_uint8``) are cast to
+        f32 / 255 on the device."""
+        dev = {}
+        for k in ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w"):
+            v = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
+            if v.dtype == torch.uint8 and k != "fake_w":
+                v = v.float() / 255.0
+            elif v.dtype != torch.float32:
+                raise ValueError(f"train_step: {k} must be float32 in [0, 1] or uint8 images, "
+                                 f"got {v.dtype}")
+            dev[k] = v.permute(0, 3, 1, 2)
+        return dev
+
     def train_step(self, batch: Dict) -> Dict[str, float]:
-        """One step on a host batch (NHWC numpy arrays or tensors, as the
-        Loader gives them), with the reference's G/D update cadence
+        """One step on a host batch, with the reference's G/D update cadence
         (DASR_model.py; ``G_update_inter``/``D_update_inter``). Returns the
         metrics as floats."""
         tr = self._trainer()
         c = tr.cfg
-        dev = {}
-        for k in ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w"):
-            v = torch.as_tensor(batch[k])
-            if v.dtype != torch.float32:
-                raise ValueError(f"train_step: {k} must be float32 in [0, 1], got {v.dtype}")
-            dev[k] = v.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
         step = tr.state.step
-        metrics = tr.train_step(dev, do_g=step % c.g_update_inter == 0,
+        metrics = tr.train_step(self._to_device(batch), do_g=step % c.g_update_inter == 0,
                                 do_d=step % c.d_update_inter == 0)
-        values = torch.stack(list(metrics.values())).tolist()  # one device sync
+        return self.metrics_to_host(metrics)
+
+    @property
+    def supports_multi_step(self) -> bool:
+        """Windows of K steps need G and D to update every step (the DASR
+        default, ``G_update_inter`` = ``D_update_inter`` = 1)."""
+        c = self._trainer().cfg
+        return c.g_update_inter == 1 and c.d_update_inter == 1
+
+    def train_multi_step(self, batches) -> Dict[str, float]:
+        """K steps on a list of K host batches; the metrics' mean over K."""
+        return self.metrics_to_host(self.train_multi_step_async(batches))
+
+    def train_multi_step_async(self, batches) -> Dict[str, torch.Tensor]:
+        """K steps on K host batches; the (K,) device metrics, unsynchronised
+        (read them with ``metrics_to_host``)."""
+        tr = self._trainer()
+        steps = [tr.train_step(self._to_device(b)) for b in batches]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    @staticmethod
+    def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Device metrics (0-d, or (K,) of a window: their mean) as floats,
+        in one sync."""
+        values = torch.stack([v.float().mean() for v in metrics.values()]).tolist()
         return dict(zip(metrics, values))
+
+    def setup_device_bank(self, fake_h, hr_h, real_h, ddm_h, hr_size: int,
+                          use_flip: bool = True, use_rot: bool = True):
+        """Upload the stage-3 banks (``device_bank.ImageBank``s on the host;
+        ``ddm_h`` None where weights are computed online) once, for
+        ``train_banked_window_async``."""
+        if not self.supports_multi_step:
+            raise ValueError("--device_bank needs G_update_inter == D_update_inter == 1")
+        self._banks = device_bank.SrnBanks(*(device_bank.upload(b, self.device)
+                                             for b in (fake_h, hr_h, real_h, ddm_h)))
+        self._bank_args = (hr_size, use_flip, use_rot)
+        return self
+
+    def train_banked_window_async(self, fake_idx: np.ndarray, seed: int) -> Dict[str, torch.Tensor]:
+        """One (K, B) window of fake-LR indices on the device banks; ``seed``:
+        the window's first iteration (a resumed run replays the stream).
+        Returns the last step's device metrics, unsynchronised."""
+        idx = torch.from_numpy(np.ascontiguousarray(fake_idx, np.int64))
+        if self.device.type == "cuda":
+            idx = idx.pin_memory()
+        idx = idx.to(self.device, non_blocking=True)
+        return self._trainer().train_banked_step(self._banks, idx, seed, *self._bank_args)
 
     @property
     def step(self) -> int:
@@ -240,6 +303,11 @@ class DASRModel(_InferenceModel):
 
     def save(self, ckpt_dir: str, iter_step: int) -> str:
         return checkpoints.save_train_state(ckpt_dir, self._trainer().state, iter_step)
+
+    def resume(self, path: str) -> int:
+        """Load a ``save`` file (``{iter}.pt``, or the latest in a directory)
+        into the train state; returns its iteration."""
+        return checkpoints.load_train_state(path, self._trainer().state)
 
     def save_reference_formats(self, out_dir: str, iter_step: int) -> str:
         return checkpoints.save_reference_formats(out_dir, self._trainer().state, iter_step)

@@ -24,9 +24,12 @@ uint8 batches (``--transfer_uint8``) are cast to f32 / 255 on the device;
 without ``bicubic`` in the batch (``--device_bicubic``) the MATLAB bicubic
 target is computed in the step (``ops.resize.imresize``).
 
-Not ported: ``train_multi_step`` (a ``lax.scan`` of K steps for the TPU's
-dispatch; its H100 counterpart is a CUDA graph of the step, ROADMAP B.1)
-and ``train_banked_step`` (the device bank, ROADMAP A.6); both raise.
+``train_multi_step`` runs K steps on K device batches, and
+``train_banked_step`` K steps on batches drawn and gathered on the device
+from the clean and noisy banks (``data/device_bank.py``), uint8 crops cast
+and the bicubic computed in the step; both are Python loops of
+``train_step`` with no sync (the JAX package scans them; a CUDA graph of
+the window is ROADMAP B.1).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dasr_tpu_torch.data.device_bank import ImageBank, draw_dsn, gather_dsn, window_generator
 from dasr_tpu_torch.losses.gan import (
     dsn_discriminator_loss,
     dsn_generator_adv_loss,
@@ -221,13 +225,33 @@ class DSNTrainer:
         }
         return {k: v.detach().float() for k, v in metrics.items()}
 
-    def train_multi_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "train_multi_step is not ported: its H100 counterpart is a CUDA graph of the "
-            "step (ROADMAP B.1)")
+    def train_multi_step(self, batches, do_g: bool = True,
+                         do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """``train_step`` over a list of K device batches; the last step's
+        metrics, unsynchronised (the CLI runs it with ``disc_freq`` and
+        ``gen_freq`` 1)."""
+        metrics = {}
+        for batch in batches:
+            metrics = self.train_step(batch, do_g=do_g, do_d=do_d)
+        return metrics
 
-    def train_banked_step(self, *args, **kwargs):
-        raise NotImplementedError("train_banked_step is not yet ported (ROADMAP A.6)")
+    def train_banked_step(self, clean: ImageBank, noisy: ImageBank, noisy_idx: torch.Tensor,
+                          seed: int, crop: int, flips: bool = False, rotations: bool = False,
+                          do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """K steps over a (K, B) window of noisy-image indices on the banks'
+        device, each on a batch drawn and gathered there (``draw_dsn``,
+        ``gather_dsn``); ``seed``: the window's first iteration. The last
+        step's metrics, unsynchronised (counterpart of
+        ``DSNTrainer.train_banked_step``)."""
+        gen = window_generator(self.cfg.seed, seed, self.device)
+        metrics = {}
+        for row in noisy_idx:
+            draws = draw_dsn(gen, row.shape[0], clean.data.shape[0])
+            batch = gather_dsn(clean, noisy, row, draws, crop, self.cfg.upscale_factor, flips,
+                               rotations)
+            metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
+                                      do_g=do_g, do_d=do_d)
+        return metrics
 
     @torch.no_grad()
     def generate(self, x: torch.Tensor) -> torch.Tensor:

@@ -23,8 +23,12 @@ Reference quirks reproduced, as the JAX package does: ``l_pix_w`` is
 applied twice in the multiweights path (DASR_model.py:213-218); with RaGAN
 on, ``gan_H_target`` is applied twice on the G side (:240-247).
 
-Not ported: ``train_multi_step`` (a ``lax.scan`` for the TPU's remote
-dispatch) and ``train_banked_step`` (ROADMAP A.6).
+``train_banked_step`` runs a window of K steps on batches sampled on the
+device from the stage-3 banks (``data/device_bank.py``): a Python loop of
+``train_step``, no sync, the generator seeded from (``cfg.seed``, the
+window's first iteration), as the JAX package folds the window into its
+key. A window of host batches is the facade's loop of ``train_step``
+(``models/registry.py:DASRModel.train_multi_step``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from dasr_tpu_torch.data.device_bank import SrnBanks, draw_dasr, gather_dasr, window_generator
 from dasr_tpu_torch.losses.gan import gan_loss, ragan_pair_loss
 from dasr_tpu_torch.losses.lpips import LPIPS, default_lpips
 from dasr_tpu_torch.nn.discriminators import NLayerDiscriminator
@@ -264,6 +269,24 @@ class SRNTrainer:
         metrics["loss/l_g_total"] = total
         st.step += 1
         return {k: v.detach().float() for k, v in metrics.items()}
+
+    def train_banked_step(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
+                          hr_size: int, use_flip: bool = True, use_rot: bool = True,
+                          do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """K steps over a (K, B) window of fake-LR indices on the banks'
+        device, each on a batch drawn and gathered there (``draw_dasr``,
+        ``gather_dasr``); ``seed``: the window's first iteration. Returns
+        the last step's metrics as device tensors, unsynchronised
+        (counterpart of ``SRNTrainer.train_banked_step``)."""
+        gen = window_generator(self.cfg.seed, seed, self.device)
+        n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
+        metrics = {}
+        for row in fake_idx:
+            draws = draw_dasr(gen, row.shape[0], n_real, n_hr)
+            batch = gather_dasr(banks, row, draws, hr_size, self.cfg.scale, use_flip, use_rot)
+            metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
+                                      do_g=do_g, do_d=do_d)
+        return metrics
 
     # -- inference ----------------------------------------------------------------
 

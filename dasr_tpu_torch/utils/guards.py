@@ -1,14 +1,18 @@
-"""Numerical guard of the train CLIs, copied from ``dasr_tpu.utils.guards``.
+"""Guards of the train CLIs, after ``dasr_tpu.utils.guards``.
 
 The reference's only guard is ``assert not torch.isnan(g_loss)``
 (reference: codes/DSN/train.py:262). ``check_finite(metrics, step)`` is the
 host-side check over a metric dict that the CLIs run at log boundaries; it
 raises with the offending keys, so a diverging GAN fails loudly.
+``profile(trace_dir)`` is the ``torch.profiler`` counterpart of the JAX
+package's ``jax.profiler`` trace (``srn_train --profile``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from typing import Dict
 
 
@@ -20,3 +24,23 @@ def check_finite(metrics: Dict[str, float], step: int) -> None:
     bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
     if bad:
         raise NonFiniteError(f"non-finite training metrics at step {step}: {', '.join(bad)}")
+
+
+@contextlib.contextmanager
+def profile(trace_dir: str = None):
+    """A ``torch.profiler`` trace (host, and the card where there is one)
+    written to ``trace_dir/trace.json`` on exit; a no-op without a dir."""
+    if not trace_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with torch_profile(activities=acts) as prof:
+        yield prof
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -1,8 +1,11 @@
 """The port's DSN-stage CLIs on the CPU: dsn_create_dataset against the JAX
 package's on one ``.tar`` written by JAX's ``save_dsn_tar``; the tiled
 generator forward against JAX's ``tiled_apply`` and the whole-image forward;
-dsn_train resumed after one epoch against two epochs straight; the
-auto_reproduce orchestrator on a tiny corpus; and the refusals."""
+dsn_train resumed after one epoch against two epochs straight, on the host
+loader and on the device bank with 2-step windows; 2-step host windows
+against single steps; the bank gate's fallbacks (with the repair that a
+corpus must hold one batch); the auto_reproduce orchestrator on a tiny
+corpus with the JAX package's fast path; and the refusals."""
 
 import json
 import os
@@ -22,7 +25,6 @@ from dasr_tpu_torch.cli import auto_reproduce, dsn_create_dataset, dsn_train
 from dasr_tpu_torch.data.io import read_img_u8
 from dasr_tpu_torch.nn.generators import DeResnet
 from dasr_tpu_torch.train import checkpoints as ck
-from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
 from torch_dsn_corpus import auto_reproduce_args, write_dsn_corpus
 
 NB = 2
@@ -148,14 +150,56 @@ def test_dsn_train_resumed_equals_straight(tmp_path, one_thread):
     assert set(tar["models_d_state_dict"]) == set(a["D_target"]["net"])
 
 
+def test_dsn_windows_and_bank_resume(tmp_path, capsys, one_thread):
+    """2-step windows on the host loader train as single steps; on the bank,
+    one epoch and a resume end where two epochs straight end."""
+    dirs = write_dsn_corpus(str(tmp_path / "corpus"), n_target=2, target=(80, 72))
+    root = str(tmp_path / "exp")
+    k2 = ("--steps_per_call", "2")
+    bank = ("--device_bank",) + k2
+    assert dsn_train.main(_train_args(dirs, root, "single", 2)) == 4
+    assert dsn_train.main(_train_args(dirs, root, "windows", 2, *k2)) == 4
+    assert "device bank" not in capsys.readouterr().out
+    assert dsn_train.main(_train_args(dirs, root, "bank", 2, *bank)) == 4
+    assert "device bank: " in capsys.readouterr().out
+    assert dsn_train.main(_train_args(dirs, root, "resumed", 1, *bank)) == 2
+    ckpt = os.path.join(root, "resumed", "checkpoints")
+    assert dsn_train.main(_train_args(dirs, root, "resumed", 2, *bank, "--checkpoint", ckpt)) == 4
+
+    def final(name):
+        return torch.load(os.path.join(root, name, "checkpoints", "4.pt"), weights_only=True)
+
+    for a, b, atol in (("single", "windows", 1e-6), ("bank", "resumed", 0.0)):
+        sa, sb = final(a), final(b)
+        assert sa["step"] == sb["step"] == 4
+        for label in ("G", "D_target"):
+            for k, v in sa[label]["net"].items():
+                np.testing.assert_allclose(sb[label]["net"][k].numpy(), v.numpy(), atol=atol,
+                                           rtol=0, err_msg=f"{a}/{b} {label} {k}")
+    recs = [json.loads(line) for line in open(os.path.join(root, "bank", "metrics.jsonl"))]
+    losses = [r for r in recs if "loss/d_tex_loss" in r]
+    assert [r["step"] for r in losses] == [4]
+    assert all(np.isfinite(v) for r in losses for v in r.values())
+
+
+@pytest.mark.parametrize("case,reason", [
+    ("budget", "GiB > budget"), ("small", "smaller than the 192px crop"),
+    ("batch", "fewer source images than one batch of 8")])
+def test_dsn_bank_gate_falls_back_to_the_host_loader(tmp_path, capsys, case, reason):
+    dirs = write_dsn_corpus(str(tmp_path / "corpus"), n_val=0)
+    args = {"budget": ["--device_bank_gb", "1e-9"], "small": ["--crop_size", "192"],
+            "batch": ["--batch_size", "8"]}[case]
+    opt = dsn_train.build_argparser().parse_args(["--device_bank", "--crop_size", "64", *args])
+    assert not dsn_train.bank_gate(opt, dirs["source"], dirs["target"])
+    assert reason in capsys.readouterr().out
+    opt = dsn_train.build_argparser().parse_args(["--device_bank", "--crop_size", "64",
+                                                  "--batch_size", "2"])
+    assert dsn_train.bank_gate(opt, dirs["source"], dirs["target"])
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda: dsn_train.main(["--device_bank"]), "A.6"),
-    (lambda: dsn_train.main(["--steps_per_call", "2"]), "B.1"),
     (lambda: dsn_create_dataset.main(["--mesh", "2", "--checkpoint", "x"]), "A.11"),
-    (lambda: DSNTrainer(DSNConfig()).train_multi_step(), "B.1"),
-    (lambda: DSNTrainer(DSNConfig()).train_banked_step(), "A.6"),
-], ids=["dsn_train-device_bank", "dsn_train-steps_per_call", "dsn_create_dataset-mesh",
-        "train_multi_step", "train_banked_step"])
+], ids=["dsn_create_dataset-mesh"])
 def test_unported_options_are_refused(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()
@@ -175,7 +219,7 @@ def test_auto_reproduce_runs_the_three_stages(tmp_path, capsys, one_thread):
     times = auto_reproduce.main(argv)
     work = tmp_path / "work"
     out = capsys.readouterr().out
-    assert "--device_bank (ROADMAP A.6)" in out and "val_device_metrics (A.3)" in out
+    assert "not yet ported" not in out and out.count("device bank: ") == 2
     assert list(times) == ["dsn_train", "dsn_create_dataset", "srn_train"]
     assert all(f"stage '{s}' wall-clock" in out for s in times)
 
@@ -186,13 +230,15 @@ def test_auto_reproduce_runs_the_three_stages(tmp_path, capsys, one_thread):
     dsn_exp = work / "DSN_experiments" / "0603_DSN_aim2019"
     assert (dsn_exp / "checkpoints" / "last_iteration.tar").exists()
     args = json.load(open(dsn_exp / "commandline_args.txt"))
-    assert args["transfer_uint8"] and args["device_bicubic"] and args["device"] == "cpu"
+    assert args["transfer_uint8"] and args["device_bicubic"] and args["device_bank"]
+    assert args["device"] == "cpu"
     last = [json.loads(line) for line in open(dsn_exp / "metrics.jsonl")][-1]
     assert all(np.isfinite(v) for k, v in last.items() if k != "time")
     derived = json.load(open(work / "train_DASR_auto_reproduce_aim2019.json"))
     assert derived["datasets"]["train"]["dataroot_fake_LR"] == str(lrs / "imgs_from_target")
     assert derived["datasets"]["train"]["dataroot_HR"] == str(dirs["target"])
-    assert derived["train"]["niter"] == 2 and "val_device_metrics" not in derived
+    assert derived["train"]["niter"] == 2 and derived["val_device_metrics"] is True
+    assert derived["val_metrics_pad_bucket"] == 128
     srn_exp = work / "SRN_experiments" / "0603_DASR_SRN_auto_reproduce_aim2019"
     assert os.listdir(srn_exp / "training_state")
     loss_lines = [r for r in map(json.loads, open(srn_exp / "metrics.jsonl"))

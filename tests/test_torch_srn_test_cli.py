@@ -1,6 +1,9 @@
 """The port's srn_test CLI (CPU) reproduces dasr_tpu's srn_test on the same
 reference-named .pth and the same synthetic LRHR corpus, with and without
-chop; the flags that are not ported yet are refused."""
+chop; ``--device_metrics`` (with and without ``--metrics_pad_bucket``)
+agrees with the host report at 1e-3 dB and 1e-4 SSIM and falls back to the
+host metrics where the JAX CLI does; the flags that are not ported yet are
+refused."""
 
 import json
 import os
@@ -19,6 +22,16 @@ from dasr_tpu_torch.cli import srn_test
 from dasr_tpu_torch.ops.rdb import TOLERANCES
 
 NET = {"which_model_G": "RRDB_net", "nf": 16, "nb": 2, "gc": 8, "norm_type": None}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small ops: torch's intra-op threads only contend with the other
+    test workers for the cores (as in tests/test_torch_dsn_cli.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -74,8 +87,34 @@ def test_port_reproduces_jax_srn_test(corpus, chop, extra):
         "img_0.png", "img_1.png", "img_2.png"]
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--spatial_shard"], ["--device_metrics"],
-                                  ["--metrics_pad_bucket", "64"]])
+@pytest.mark.parametrize("chop,bucket,on_device", [
+    (False, 0, True), (False, 128, True), (True, 128, True), (True, 0, False)])
+def test_device_metrics_agree_with_the_host_report(corpus, monkeypatch, chop, bucket, on_device):
+    """LPIPS on, against the host run of the same config; the chop forward
+    without a bucket keeps the host metrics, as in the JAX CLI."""
+    from dasr_tpu_torch.eval import evaluate
+
+    def config(name):
+        path = _config(corpus, name, chop)
+        cfg = json.loads(open(path).read())
+        cfg["val_lpips"] = True
+        open(path, "w").write(json.dumps(cfg))
+        return path
+
+    tag = f"{int(chop)}_{bucket}"
+    want = srn_test.main(["-opt", config(f"host_{tag}"), "--device", "cpu"])["synth"]
+    calls = []
+    host = evaluate.sr_metrics
+    monkeypatch.setattr(evaluate, "sr_metrics", lambda *a: calls.append(1) or host(*a))
+    got = srn_test.main(["-opt", config(f"dev_{tag}"), "--device", "cpu", "--device_metrics",
+                         "--metrics_pad_bucket", str(bucket)])["synth"]
+    assert len(calls) == (0 if on_device else 3)
+    assert set(got) == set(want) == {"psnr", "ssim", "psnr_y", "ssim_y", "lpips"}
+    for k, v in want.items():
+        assert abs(got[k] - v) < (1e-3 if k.startswith("psnr") else 1e-4), (k, got[k], v)
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--spatial_shard"]])
 def test_unported_flags_are_refused(corpus, flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         srn_test.main(["-opt", _config(corpus, "refused", False), "--device", "cpu", *flag])
