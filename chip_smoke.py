@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,kernel,grad,train   # the training slice
     python3 chip_smoke.py --phases dsn,dataset,pipeline      # stages 1 and 2, and all three
     python3 chip_smoke.py --phases bank                      # the banked fast path
+    python3 chip_smoke.py --phases tools                     # resume, val_batch, the tool CLIs
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -88,6 +89,22 @@ CPU or to a plain version):
             set; both steps banked and host-loader in turns (ms/step, host
             ms/step, idle share, peak memory), the bank's decode and upload
             time, and the upload rate at 1 GiB. It needs phases 2 and 4.
+10. tools - the rest of the user surface: the reference .state resume at the
+            train phase's full width, f32 (two steps, save_reference_formats,
+            a fresh model of another seed through check_resume and load:
+            params and Adam moments equal, then one step of both on one
+            batch within the three-step limits), then srn_train from that
+            2.state through the CLI to step 4 at bf16 with a validation of
+            val_batch TOOLS_VAL; test_batch_async against test_async per
+            image (the serve limits); auto_test over the two {iter}_G.pth of
+            that run on the serve corpus; evaluate on the sweep's SR images
+            against their HR, host, --device_metrics and --pad_bucket 64
+            (device vs host 1e-3 dB, 1e-4 SSIM; bucketed vs not 1e-5);
+            dsn_test --save_realness from phase 6's checkpoint on phase 7's
+            whole-image targets (PNGs equal, DDMs within DATASET_TILE_ATOL);
+            add_corruptions in its three modes; the kernel's launches and
+            shapes over the phase, s/pair, s/image and the phase's wall
+            time. It needs phases 2, 4, 6 and 7.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -122,6 +139,10 @@ TRAIN_SHAPES = ((12, 32, 32), (1, 64, 64))
 # where the bf16 kernel is timed: the kernel-report shape, a serve image,
 # the train step's crops
 TIMED_SHAPES = ((8, 128, 128), (1, 256, 256), (12, 32, 32))
+# what the tools phase gives the kernel beyond those: srn_train's validation
+# with val_batch TOOLS_VAL over TOOLS_VAL same-shape 64x64 val images, one forward
+TOOLS_VAL = 4
+TOOLS_SHAPES = ((TOOLS_VAL, 64, 64),)
 TRAIN_STEPS = 30
 DSN_STEPS = 30  # 48 source images, batch 8: 6 steps an epoch, 5 epochs
 # phase dataset: (h, w) of the targets, DIV2K-sized (tiled), half (whole), ragged
@@ -245,7 +266,7 @@ def phase_kernel(gpu):
     report = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_abs_err_vs_f32": 0.0}
     checked = set()
     with torch.no_grad():
-        for b, h, w in KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES:
+        for b, h, w in KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES:
             x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
             x = torch.from_numpy(x_np).to(dev)
             ks = [torch.from_numpy(k).to(dev) for k in ks_np]
@@ -1748,11 +1769,289 @@ def phase_bank(gpu, root, checked, checked_grad):
     return report
 
 
+def phase_tools(gpu, root, checked, checked_grad, dsn_ckpt):
+    """The rest of the user surface: the reference .state resume (full width,
+    f32, model against model, then srn_train through the CLI), val_batch,
+    evaluate, dsn_test, auto_test and add_corruptions, with the RDB kernel's
+    launches and shapes over the phase."""
+    import shutil
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from dasr_tpu_torch.cli import (add_corruptions, auto_test, dsn_create_dataset, dsn_test,
+                                    evaluate, srn_train)
+    from dasr_tpu_torch.core.config import check_resume, parse_srn_options
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.io import read_img_u8, save_img
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.eval.evaluate import sr_metrics, to_uint8
+    from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, TOLERANCES, fused_rdb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    tools = os.path.join(root, "tools")
+    dirs = write_train_corpus(tools, rng)
+    for i in range(2, TOOLS_VAL):  # TOOLS_VAL same-shape val pairs in all
+        lr = rng.random((64, 64, 3), dtype=np.float32)
+        save_img(lr, os.path.join(dirs["val_lr"], f"v{i}.png"))
+        save_img(np.kron(lr, np.ones((4, 4, 1), np.float32)),
+                 os.path.join(dirs["val_hr"], f"v{i}.png"))
+    report = {}
+    seen = set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fused_rdb.launches = 0
+    handle = register_module_forward_pre_hook(record)
+    try:
+        # the reference .state resume at full width, f32: two steps, the
+        # reference formats, a fresh model (another seed) through check_resume
+        # and load, then one step of both on one batch
+        cfg32 = train_config(tools, dirs, "tools_resume", 3, bf16=False)
+        opt = parse_srn_options(cfg32, is_train=True)
+        ref = create_model(opt, dev)
+        ref.init()
+        loader = Loader(create_dataset(opt["datasets"]["train"]), batch_size=6, num_workers=6,
+                        seed=0)
+        batches = []
+        while len(batches) < 3:  # 2 batches an epoch
+            loader.set_epoch(len(batches) // len(loader))
+            batches += list(loader)[:3 - len(batches)]
+        for b in batches[:2]:
+            ref.train_step(b)
+        models = opt["path"]["models"]
+        ref.save_reference_formats(models, 2)
+        opt_r = parse_srn_options(cfg32, is_train=True)
+        opt_r["path"]["resume_state"] = os.path.join(models, "2.state")
+        resumed = create_model(check_resume(opt_r), dev)
+        resumed.init(seed=SEED + 1)
+        resumed.load()
+        nets = {m: {"G": m.trainer.state.g, "D_target": m.trainer.state.d_target}
+                for m in (ref, resumed)}
+        def adam_tensors(ns):
+            return [t for p in ns.params() for t in (
+                p.detach(), ns.opt.state[p]["exp_avg"], ns.opt.state[p]["exp_avg_sq"])]
+
+        for name, ns in nets[ref].items():
+            got = nets[resumed][name]
+            same = all(torch.equal(a, b) for a, b in zip(adam_tensors(ns), adam_tensors(got)))
+            counts = (got.sched.last_epoch, got.opt.param_groups[0]["lr"])
+            if not same or counts != (2, ns.opt.param_groups[0]["lr"]):
+                fail(f"tools: {name} after load differs from the saved model (params and "
+                     f"moments equal: {same}; count and lr {counts})")
+        if resumed.step != 2:
+            fail(f"tools: the resumed model is at step {resumed.step}, not 2")
+        init = {name: flat(ns).clone() for name, ns in nets[ref].items()}
+        runs, step_s = [], {}
+        for model, label in ((resumed, "resumed"), (ref, "straight")):
+            metrics, step_s[label] = timed(model.train_step, batches[2])
+            runs.append(([metrics], init, {name: (flat(ns), flat(ns, True))
+                                           for name, ns in nets[model].items()}))
+        _, utol = TOLERANCES["train_update_f32"]
+        _, mtol = TOLERANCES["train_moment_f32"]
+        worst, parts, bad, _ = compare_three_steps("tools resume", *runs,
+                                                   TOLERANCES["train_loss_f32"], utol, mtol)
+        print(f"tools resume: nf {NC} nb {NB} gc {GC}, batch 6 + 6, HR 128, f32: 2 steps, "
+              f"{os.path.join('models', '2.state')} and the .pth files, a fresh model (seed "
+              f"{SEED + 1}) through check_resume and load: params and both Adam moments equal, "
+              f"counts 2; step 3 from both on one batch: losses within {worst:.3f} of their "
+              f"limit; {'; '.join(parts)}; step 3 took {1e3 * step_s['resumed']:.3f} ms "
+              f"resumed, {1e3 * step_s['straight']:.3f} ms straight (host clock, synced) "
+              f"[{gpu}]", flush=True)
+        if bad:
+            fail(f"tools resume: the resumed run's updates or moments of {bad} are off")
+        report["tools_resume_step_ms"] = 1e3 * step_s["resumed"]
+        del ref, resumed, nets, runs, loader
+
+        # srn_train from the saved 2.state through the CLI to step 4, bf16,
+        # validating with val_batch TOOLS_VAL and saving the reference formats
+        cli_cfg = train_config(tools, dirs, "tools_cli", 4, val_batch=TOOLS_VAL)
+        with open(cli_cfg) as f:
+            cfg = json.load(f)
+        cli_models = os.path.join(tools, "tools_cli", "models")
+        shutil.copytree(models, cli_models)
+        cfg["path"]["resume_state"] = os.path.join(cli_models, "2.state")
+        cfg["logger"]["save_ref_formats"] = True
+        with open(cli_cfg, "w") as f:
+            json.dump(cfg, f)
+        (steps, _), secs = timed(run_cli, srn_train.main, ["-opt", cli_cfg, "--device", "cuda"])
+        with open(os.path.join(tools, "tools_cli", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r for r in recs if "loss/l_g_total" in r]
+        val = [r for r in recs if "val/psnr" in r]
+        if steps != 4 or [r["step"] for r in losses] != [3, 4] or not all(
+                np.isfinite(v) for r in losses for k, v in r.items() if k.startswith("loss/")):
+            fail(f"tools: srn_train from 2.state ran to {steps} with losses {losses}")
+        if len(val) != 1 or not all(np.isfinite(val[0][f"val/{k}"])
+                                    for k in ("psnr", "ssim", "lpips")):
+            fail(f"tools: the val_batch validation is missing or not finite: {val}")
+        if (TOOLS_VAL, 64, 64, torch.bfloat16, False) not in seen:
+            fail(f"tools: the validation did not batch its {TOOLS_VAL} images")
+        print(f"tools srn_train: resumed from 2.state (bf16) to step {steps} in {secs:.2f} s "
+              f"through the CLI, losses finite at steps 3 and 4, one validation with val_batch "
+              f"{TOOLS_VAL} ({TOOLS_VAL} images in one forward): "
+              f"{({k: v for k, v in val[0].items() if k.startswith('val/')})}; TF32 off after "
+              f"the CLI [{gpu}]", flush=True)
+
+        # val_batch: test_batch_async on TOOLS_VAL same-shape images against
+        # one test_async each, bf16, per-image PSNR / SSIM
+        test_cfg = os.path.join(tools, "tools_val.json")
+        with open(test_cfg, "w") as f:
+            json.dump({"name": "tools_val", "model": "DASR", "scale": 4,
+                       "network_G": cfg["network_G"],
+                       "path": {"root": tools,
+                                "pretrain_model_G": os.path.join(cli_models, "2_G.pth")}}, f)
+        model = create_model(parse_srn_options(test_cfg, is_train=False), dev).init().load()
+        vset = create_dataset({"name": "val", "mode": "LRHR", "phase": "val", "scale": 4,
+                               "data_type": "img", "dataroot_HR": dirs["val_hr"],
+                               "dataroot_LR": dirs["val_lr"]})
+        items = [vset[i] for i in range(TOOLS_VAL)]
+        batched = model.test_batch_async([d["LR"] for d in items]).cpu().numpy()
+        singles = [model.test_async(d["LR"]).cpu().numpy() for d in items]
+        errs = []
+        for d, a, b in zip(items, batched, singles):
+            ma, mb = (sr_metrics(to_uint8(v), to_uint8(d["HR"]), 4) for v in (a, b))
+            errs.append((abs(ma["psnr"] - mb["psnr"]), abs(ma["ssim"] - mb["ssim"]),
+                         float(np.abs(a - b).max())))
+        dpsnr, dssim, dsr = (max(e[i] for e in errs) for i in range(3))
+        print(f"tools val_batch: test_batch_async on {TOOLS_VAL} x 64x64 vs {TOOLS_VAL} "
+              f"test_async calls, bf16, nb {NB}: per-image PSNR |err| {dpsnr:.2e} dB, SSIM "
+              f"|err| {dssim:.2e} (limits {TOLERANCES['psnr_db'][0]}, {TOLERANCES['ssim'][0]}), "
+              f"SR max|err| {dsr:.3e}", flush=True)
+        if not (dpsnr <= TOLERANCES["psnr_db"][0] and dssim <= TOLERANCES["ssim"][0]):
+            fail("tools: the batched val forward's metrics are off the per-image ones")
+        del model
+
+        # auto_test: the two {iter}_G.pth of the CLI run (2 copied, 4 saved)
+        # over the serve corpus at full width, SR PNGs only
+        serve = os.path.join(tools, "serve")
+        write_corpus(serve, np.random.default_rng(SEED))
+        sweep_cfg = os.path.join(tools, "tools_sweep.json")
+        with open(sweep_cfg, "w") as f:
+            json.dump({"name": "tools_sweep", "model": "DASR", "scale": 4,
+                       "network_G": cfg["network_G"], "path": {"root": tools},
+                       "datasets": {"test_1": {"name": "synth", "mode": "LR",
+                                               "dataroot_LR": os.path.join(serve, "lr")}}}, f)
+        sweep, secs = timed(run_cli, auto_test.main, ["-opt", sweep_cfg, "--models_dir",
+                                                      cli_models, "--device", "cuda"])
+        outs = {it: os.path.join(tools, "results", f"tools_sweep_{it}", "synth")
+                for it in ("2", "4")}
+        if list(sweep) != ["2", "4"] or any(len(os.listdir(d)) != len(LR_SIZES)
+                                            for d in outs.values()):
+            fail(f"tools: auto_test swept {list(sweep)}, expected the SR images of 2 and 4")
+        print(f"tools auto_test: checkpoints {list(sweep)} over {len(LR_SIZES)} serve images "
+              f"in {secs:.2f} s ({secs / (2 * len(LR_SIZES)):.3f} s/image, PNG writes "
+              f"included) [{gpu}]", flush=True)
+        report["auto_test_s_per_image"] = secs / (2 * len(LR_SIZES))
+    finally:
+        handle.remove()
+    launches = fused_rdb.launches
+    # G forwards: 4 resume steps, 2 CLI steps and one batched validation, the
+    # val_batch comparison's 1 + TOOLS_VAL, the sweep's 2 x len(LR_SIZES)
+    forwards = 4 + 3 + 1 + TOOLS_VAL + 2 * len(LR_SIZES)
+    expected = 3 * NB * LAUNCHES_PER_RDB * forwards
+    missing = {k[:4] for k in seen} - checked
+    missing |= {k[:4] for k in seen if k[4]} - checked_grad
+    print(f"tools: fused_rdb launches {launches}, expected {3 * NB} x {LAUNCHES_PER_RDB} x "
+          f"{forwards} = {expected}; kernel input shapes "
+          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}", flush=True)
+    if launches != expected:
+        fail(f"tools: fused_rdb launched {launches} times, expected {expected}")
+    if missing:
+        fail(f"tools: kernel shapes phases 2 and 4 did not check: {missing}")
+    report["launches_tools"] = launches
+
+    # evaluate: the sweep's SR images of step 4 against their HR, three ways
+    hr_dir = os.path.join(serve, "hr")
+    evals = {}
+    for name, flags in (("host", []), ("device", ["--device_metrics"]),
+                        ("bucket", ["--device_metrics", "--pad_bucket", "64"])):
+        evals[name], secs = timed(run_cli, evaluate.main, [
+            "--dir_a", outs["4"], "--dir_b", hr_dir, "--device", "cuda", *flags])
+        report[f"evaluate_s_per_pair_{name}"] = secs / len(LR_SIZES)
+    dev_err = {k: abs(evals["device"][k] - v) for k, v in evals["host"].items()}
+    bucket_err = {k: abs(evals["bucket"][k] - v) for k, v in evals["device"].items()}
+    print(f"tools evaluate over {len(LR_SIZES)} pairs (HR of the LR sizes "
+          f"{sorted(set(LR_SIZES))} x 4): host "
+          f"{evals['host']}; device vs host |err| {dev_err} (limits 1e-3 dB, 1e-4 SSIM and "
+          f"LPIPS); bucket 64 vs device |err| {bucket_err} (limit 1e-5); s/pair host "
+          f"{report['evaluate_s_per_pair_host']:.3f}, device "
+          f"{report['evaluate_s_per_pair_device']:.3f}, bucket "
+          f"{report['evaluate_s_per_pair_bucket']:.3f} [{gpu}]", flush=True)
+    if any(not v <= (1e-3 if k.startswith("psnr") else 1e-4) for k, v in dev_err.items()):
+        fail(f"tools: evaluate --device_metrics is off the host path: {dev_err}")
+    if any(not v <= 1e-5 for v in bucket_err.values()):
+        fail(f"tools: evaluate --pad_bucket is off the unbucketed device path: {bucket_err}")
+
+    # dsn_test --save_realness from the dsn phase's checkpoint on the
+    # targets the dataset phase ran whole: its PNGs and DDMs
+    targets = os.path.join(root, "dataset_corpus", "target")
+    lrs = os.path.join(root, "dataset_out", "lrs")
+    small = [f"t{i}_000" for i, (h, w) in enumerate(DATASET_SIZES)
+             if h * w <= dsn_create_dataset.TILE_ABOVE]
+    src = os.path.join(tools, "dsn_test_in")
+    os.makedirs(src)
+    for name in small:
+        shutil.copy(os.path.join(targets, f"{name}.png"), src)
+    out = os.path.join(tools, "dsn_test_out")
+    _, secs = timed(run_cli, dsn_test.main, [
+        "--checkpoint", dsn_ckpt, "--input_dir", src, "--output_dir", out, "--filter",
+        "avg_pool", "--save_realness", "--device", "cuda"])
+    ddm_err = 0.0
+    for name in small:
+        if not np.array_equal(read_img_u8(os.path.join(out, f"{name}.png")),
+                              read_img_u8(os.path.join(lrs, "imgs_from_target", f"{name}.png"))):
+            fail(f"tools: dsn_test's {name}.png differs from dsn_create_dataset's")
+        got = np.load(os.path.join(out, f"{name}_ddm.npy"))
+        want = np.load(os.path.join(lrs, "ddm_target", f"{name}.npy"))
+        if got.shape != want.shape:
+            fail(f"tools: dsn_test's DDM of {name} has shape {got.shape}, not {want.shape}")
+        ddm_err = max(ddm_err, float(np.abs(got - want).max()))
+    print(f"tools dsn_test --save_realness: {small} from the dsn phase's checkpoint in "
+          f"{secs:.2f} s ({secs / len(small):.3f} s/image, f32 nets, PNG and NPY writes "
+          f"included); PNGs equal dsn_create_dataset's, DDMs within {ddm_err:.3e} (limit "
+          f"{DATASET_TILE_ATOL}) [{gpu}]", flush=True)
+    if not ddm_err <= DATASET_TILE_ATOL:
+        fail(f"tools: dsn_test's DDMs are {ddm_err:.3e} off dsn_create_dataset's")
+    report["dsn_test_s_per_image"] = secs / len(small)
+
+    # add_corruptions, all three modes, on the serve LR images
+    lr_dir = os.path.join(serve, "lr")
+    for mode in ("noise", "blur", "jpeg"):
+        out = os.path.join(tools, f"corrupt_{mode}")
+        add_corruptions.main(["--input_dir", lr_dir, "--output_dir", out, "--corruption", mode])
+        for name in sorted(os.listdir(lr_dir)):
+            a, b = (read_img_u8(os.path.join(d, name)) for d in (lr_dir, out))
+            if a.shape != b.shape or np.array_equal(a, b):
+                fail(f"tools: add_corruptions {mode} gave {name} of {b.shape} from {a.shape}, "
+                     f"or left it unchanged")
+    secs = time.perf_counter() - t_phase
+    print(f"tools: add_corruptions noise, blur and jpeg kept the sizes of "
+          f"{len(LR_SIZES)} images; the phase took {secs:.2f} s [{gpu}]", flush=True)
+    report["tools_s"] = secs
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank",
+    ap.add_argument("--phases",
+                    default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank")
+                         "pipeline,bank,tools")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1781,8 +2080,10 @@ def main(argv=None):
     }
     if "serve" in phases:
         phases.add("kernel")  # serve checks its shapes against phase 2's
-    if phases & {"train", "pipeline", "bank"}:
-        phases |= {"kernel", "grad"}  # and train, pipeline and bank against phases 2 and 4
+    if phases & {"train", "pipeline", "bank", "tools"}:
+        phases |= {"kernel", "grad"}  # and train, pipeline, bank, tools against phases 2 and 4
+    if "tools" in phases:
+        phases.add("dataset")  # dsn_test reads stage 1's checkpoint and stage 2's outputs
     if "dataset" in phases:
         phases.add("dsn")  # stage 2 reads stage 1's checkpoint
     if "build" in phases or "kernel" in phases or "grad" in phases:
@@ -1812,10 +2113,15 @@ def main(argv=None):
             report = phase_bank(gpu, root, checked, checked_grad)
             entry["launches_bank"] = report.pop("launches_bank")
             print(f"bank (the fast path of stages 1 and 3): {json.dumps(report)}", flush=True)
+        if "tools" in phases:
+            report = phase_tools(gpu, root, checked, checked_grad, ckpt_dir)
+            entry["launches_tools"] = report.pop("launches_tools")
+            print(f"tools (resume, val_batch, evaluate, dsn_test, auto_test, add_corruptions): "
+                  f"{json.dumps(report)}", flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
-                            for p in ("serve", "train", "pipeline", "bank"))
+                            for p in ("serve", "train", "pipeline", "bank", "tools"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

@@ -90,9 +90,9 @@ def generate_lr(g, x, scale: int, tile: int = TILE, above: int = TILE_ABOVE):
     return out[..., : math.ceil(h / scale), : math.ceil(w / scale)]
 
 
-def load_nets(checkpoint: str, g, d, out_dir: str, name: str) -> None:
-    """Load G and D from the port's checkpoint directory or a DSN ``.tar``
-    (copied into ``out_dir`` as ``{name}.tar``)."""
+def load_nets(checkpoint: str, g, d=None) -> bool:
+    """Load G (and D) from the port's checkpoint directory (its latest
+    ``{iter}.pt``) or a DSN ``.tar``; returns whether it was a ``.tar``."""
     import torch
 
     from dasr_tpu_torch.train.checkpoints import latest_train_state, load_dsn_tar
@@ -100,18 +100,35 @@ def load_nets(checkpoint: str, g, d, out_dir: str, name: str) -> None:
     if os.path.isdir(checkpoint):
         path = latest_train_state(checkpoint)
         if path is None:
-            raise SystemExit(f"{checkpoint} holds no train state ({{iter}}.pt)")
+            raise SystemExit(f"{checkpoint} holds no train state ({{iter}}.pt); orbax "
+                             f"checkpoint directories are JAX-only")
         saved = torch.load(path, map_location="cpu", weights_only=True)
         g.load_state_dict(saved["G"]["net"])
-        d.load_state_dict(saved["D_target"]["net"])
+        if d is not None:
+            d.load_state_dict(saved["D_target"]["net"])
         print(f"Using the train state at step {saved['step']} ({path})")
-        return
+        return False
     ckpt = load_dsn_tar(checkpoint)
-    g.load_state_dict(ckpt["model_g_state_dict"])
-    d.load_state_dict(ckpt["models_d_state_dict"])
+    g.load_state_dict(ckpt.get("model_g_state_dict", ckpt))
+    if d is not None:
+        d.load_state_dict(ckpt.get("models_d_state_dict", ckpt))
     if "epoch" in ckpt:
         print(f"Using model at epoch {ckpt['epoch']}")
-    shutil.copyfile(checkpoint, os.path.join(out_dir, name + ".tar"))
+    return True
+
+
+def copy_to_host(device, *tensors):
+    """Start copies of ``tensors`` (None passes through) to the host that do
+    not wait; returns them and an event that says when they are done (None
+    on the CPU)."""
+    import torch
+
+    out = [t.to("cpu", non_blocking=True) if t is not None else None for t in tensors]
+    event = None
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return out, event
 
 
 def main(argv=None):
@@ -163,7 +180,8 @@ def main(argv=None):
                         filter_type=opt.filter if opt.highpass else None,
                         kernel_size=opt.kernel_size, cs=opt.cat_or_sum,
                         norm_layer=opt.norm_layer, wgan=opt.wgan)
-    load_nets(opt.checkpoint, g, d, out_dir, opt.name)
+    if load_nets(opt.checkpoint, g, d):
+        shutil.copyfile(opt.checkpoint, os.path.join(out_dir, opt.name + ".tar"))
     g.to(device, memory_format=torch.channels_last).eval()
     d.to(device, memory_format=torch.channels_last).eval()
     convnet = CONVNETS[opt.discriminator]
@@ -187,15 +205,6 @@ def main(argv=None):
         h, w = ddm_shape_for(opt.filter if opt.highpass else "gau", lr.shape[-2], lr.shape[-1])
         return ddm_splat(scores, h, w, convnet)
 
-    def start_copy(*tensors):
-        """Copies to the host that do not wait; the event says when they are done."""
-        out = [t.to("cpu", non_blocking=True) if t is not None else None for t in tensors]
-        event = None
-        if device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return out, event
-
     def drain(entry):
         (fake, ddm_arr), event, base = entry
         if event is not None:
@@ -210,7 +219,7 @@ def main(argv=None):
     with torch.no_grad():
         for i, path in enumerate(target_files):
             fake = run_g(reader(path))
-            copies, event = start_copy(fake, None if opt.no_ddm else ddm(fake))
+            copies, event = copy_to_host(device, fake, None if opt.no_ddm else ddm(fake))
             prev, inflight = inflight, (copies, event, os.path.basename(path))
             if prev is not None:
                 drain(prev)
@@ -220,7 +229,7 @@ def main(argv=None):
             drain(inflight)
 
         for i, path in enumerate(source_files):
-            (ddm_arr,), event = start_copy(ddm(to_device(reader(path))))
+            (ddm_arr,), event = copy_to_host(device, ddm(to_device(reader(path))))
             if event is not None:
                 event.synchronize()
             np.save(os.path.join(ddm_s_dir, os.path.basename(path).split(".")[0]),

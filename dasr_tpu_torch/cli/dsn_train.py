@@ -280,6 +280,11 @@ def main(argv=None):
         if writer:
             writer.write(it, host, imgs=opt.batch_size)
 
+    # A resumed run continues from the saved step. This deviates from the JAX
+    # CLI on purpose (ROADMAP C.2): dasr_tpu/cli/dsn_train.py:407 sets
+    # iteration = 0 after a resume, so it saves under the wrong step, the next
+    # resume computes the wrong start epoch, and its banked windows reseed
+    # from 0 and replay the first run's stream.
     iteration = state.step
     lagged = last = None  # a boundary window's device metrics, read after the next is issued
 

@@ -24,9 +24,13 @@ The JAX package's fast path, with its semantics:
 * ``val_device_metrics`` (and ``val_metrics_pad_bucket``): the validation
   PSNR/SSIM (+Y, LPIPS) on the card, one image behind the forward;
 * ``--profile DIR``: a ``torch.profiler`` trace of steps 10-20;
-* ``resume_state``: the port's own ``{iter}.pt``; the run continues inside
-  the epoch where the save left it (the JAX CLI restarts the epoch order).
-  A reference ``{iter}.state`` is refused (ROADMAP A.5).
+* ``resume_state``: the port's own ``{iter}.pt``, or a reference
+  ``{iter}.state`` (``check_resume`` points the pretrain paths at its
+  ``{iter}_G.pth`` / ``_D_target.pth`` / ``_D_source.pth``; its Adam states
+  set each network's moments and update count); the run continues inside
+  the epoch where the save left it (the JAX CLI restarts the epoch order);
+* ``val_batch`` K > 1: consecutive same-shape val images share one forward,
+  as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ def main(argv=None):
 
     import numpy as np
 
-    from dasr_tpu_torch.core.config import dict2str, parse_srn_options
+    from dasr_tpu_torch.core.config import check_resume, dict2str, parse_srn_options
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.datasets import create_dataset
     from dasr_tpu_torch.data.pipeline import Loader
@@ -77,11 +81,8 @@ def main(argv=None):
     from dasr_tpu_torch.utils import guards
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
-    opt = parse_srn_options(args.opt, is_train=True)
+    opt = check_resume(parse_srn_options(args.opt, is_train=True))
     rstate = opt["path"].get("resume_state")
-    if rstate and rstate.endswith(".state"):
-        raise NotImplementedError("resume_state from a reference .state is not yet ported "
-                                  "(ROADMAP A.5): resume from the port's {iter}.pt")
     device = resolve_device(args.device)
     if args.decode_cache_gb is not None:
         from dasr_tpu_torch.data.io import enable_decode_cache
@@ -143,10 +144,10 @@ def main(argv=None):
 
     model = create_model(opt, device)
     model.init()
-    model.load()
+    model.load()  # a reference .state resumes here
     start_iter = 0
     if rstate:
-        start_iter = model.resume(rstate)
+        start_iter = model.step if rstate.endswith(".state") else model.resume(rstate)
         logger.info(f"Resuming training from iteration: {start_iter}.")
 
     if bank_dirs:
@@ -381,7 +382,14 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
     ``val_device_metrics`` on the card (``val_metrics_pad_bucket``: padded
     to shared bucket shapes, LPIPS per shape); as in the JAX CLI, the chop
     and ``pad_bucket`` forwards keep the host metrics unless a bucket is
-    given. Image i's metrics are read after image i + 1 is issued."""
+    given. Image i is read back after image i + 1 is issued.
+
+    ``val_batch`` K > 1 (without chop or ``pad_bucket``, the JAX CLI's
+    gate): runs of up to K consecutive same-shape images share one forward,
+    chunk i read back after chunk i + 1 is issued; metrics stay per image.
+    As in the JAX CLI it takes precedence over ``val_device_metrics``: the
+    metrics run on the host f64 path, or on the bucketed device path where
+    ``val_metrics_pad_bucket`` is set too."""
     from dasr_tpu_torch.data.io import save_img
     from dasr_tpu_torch.eval.evaluate import average, sr_metrics_on
 
@@ -390,23 +398,45 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
     if n < len(val_set):
         logger.info(f"Validating {n}/{len(val_set)} images (max_val_images={cap})")
     img_dir = os.path.join(opt["path"]["val_images"], str(step))
-    measure = sr_metrics_on(opt, lpips_fn, bool(opt.get("val_device_metrics")),
-                         int(opt.get("val_metrics_pad_bucket") or 0))
+    device_metrics = bool(opt.get("val_device_metrics"))
+    bucket = int(opt.get("val_metrics_pad_bucket") or 0)
+    vb = int(opt.get("val_batch") or 1)
+    batched = vb > 1 and not opt.get("chop") and not opt.get("pad_bucket")
+    per_chunk = vb if batched else 1
+    if batched:
+        if device_metrics:
+            logger.info("val_batch > 1 takes precedence over val_device_metrics: "
+                        "metrics run on the host f64 path for this validation")
+        device_metrics = device_metrics and bucket > 0
+    measure = sr_metrics_on(opt, lpips_fn, device_metrics, bucket)
     results = []
 
-    def drain(data, sr_dev, finish):
-        sr = sr_dev.cpu().numpy()
-        results.append(finish(sr))
-        base = os.path.splitext(os.path.basename(data["HR_path"]))[0]
-        save_img(sr, os.path.join(img_dir, f"{base}_{step}.png"))
-
-    inflight = None
-    for i in range(n):
-        data = val_set[i]
-        sr_dev = model.test_async(data["LR"])
-        prev, inflight = inflight, (data, sr_dev, measure(sr_dev, data["HR"]))
+    def issue(chunk):
+        nonlocal inflight
+        if batched:
+            sr_dev = model.test_batch_async([d["LR"] for d in chunk])
+        else:
+            sr_dev = model.test_async(chunk[0]["LR"])[None]
+        finishes = [measure(sr_dev[j], d["HR"]) for j, d in enumerate(chunk)]
+        prev, inflight = inflight, (chunk, sr_dev, finishes)
         if prev is not None:
             drain(*prev)
+
+    def drain(chunk, sr_dev, finishes):
+        for data, sr, finish in zip(chunk, sr_dev.cpu().numpy(), finishes):
+            results.append(finish(sr))
+            base = os.path.splitext(os.path.basename(data["HR_path"]))[0]
+            save_img(sr, os.path.join(img_dir, f"{base}_{step}.png"))
+
+    inflight, chunk = None, []
+    for i in range(n):
+        data = val_set[i]
+        if chunk and (len(chunk) == per_chunk or chunk[0]["LR"].shape != data["LR"].shape):
+            issue(chunk)
+            chunk = []
+        chunk.append(data)
+    if chunk:
+        issue(chunk)
     if inflight is not None:
         drain(*inflight)
     avg = average(results)

@@ -4,14 +4,16 @@ and the ``paths.yml`` dataset registry.
 Framework-free host code, copied from ``dasr_tpu.core.config`` so that the
 port never imports the JAX package: comment stripping, phase/scale
 injection, experiment-dir derivation, missing keys read as ``None``
-(``NoneDict``), the legacy model-name normalisation, and the registry's
-``[dataset][artifact][source|target|valid_hr|valid_lr]`` lookup.
+(``NoneDict``), the legacy model-name normalisation, ``check_resume``, and
+the registry's ``[dataset][artifact][source|target|valid_hr|valid_lr]``
+lookup.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from collections import OrderedDict
 from typing import Any
 
@@ -114,6 +116,38 @@ def parse_srn_options(json_path: str, is_train: bool = True) -> NoneDict:
         path["log"] = results_root
 
     return dict_to_nonedict(opt)
+
+
+def check_resume(opt: NoneDict) -> NoneDict:
+    """Point the pretrain paths at a reference ``{iter}.state``'s networks
+    (reference: options.py:107-122): ``{models}/{iter}_G.pth``, and
+    ``_D_target.pth`` / ``_D_source.pth`` for the discriminators the DASR
+    trainer builds (``gan_H_target`` / ``gan_H_source`` > 0).
+
+    Two deviations from ``dasr_tpu.core.config.check_resume``:
+
+    * (ROADMAP C.2) it applies only when ``resume_state`` ends in
+      ``.state``. The JAX function rewires every resume path, so a
+      directory resume there points ``pretrain_model_G`` at
+      ``{models}/0_G.pth``; the port's own ``{iter}.pt`` resume carries its
+      networks and is left as it is.
+    * an absent ``gan_H_target`` reads as the trainer's default, 0.005, as
+      ``models/registry.py:srn_config`` reads it. The JAX function reads it
+      as 0, so there a config without the key trains a D_target that a
+      resume leaves at its fresh init."""
+    state_path = opt["path"]["resume_state"]
+    if not (state_path or "").endswith(".state"):
+        return opt
+    m = re.search(r"(\d+)\.state$", os.path.basename(state_path))
+    it = int(m.group(1)) if m else 0
+    models = opt["path"]["models"]
+    train = opt.get("train") or {}
+    opt["path"]["pretrain_model_G"] = os.path.join(models, f"{it}_G.pth")
+    for key, label, default in (("gan_H_target", "D_target", 0.005),
+                                ("gan_H_source", "D_source", 0.0)):
+        if train.get(key, default):
+            opt["path"][f"pretrain_model_{label}"] = os.path.join(models, f"{it}_{label}.pth")
+    return opt
 
 
 def load_paths_yml(path: str) -> NoneDict:

@@ -129,6 +129,19 @@ def metrics_dict(values, lpips: bool = False) -> Dict[str, float]:
     return {k: float(v) for k, v in zip(keys, values)}
 
 
+def pad_pair_to_bucket(a: np.ndarray, b: np.ndarray, bucket: int):
+    """Zero-pad an HWC pair up to the next multiple of ``bucket`` in H and W:
+    ``(a_pad, b_pad, h, w)``, the input of the masked metrics (copied from
+    ``dasr_tpu.utils.transfer``)."""
+    h, w = a.shape[0], a.shape[1]
+    ph = (h + bucket - 1) // bucket * bucket
+    pw = (w + bucket - 1) // bucket * bucket
+    pa = np.zeros((ph, pw, a.shape[2]), a.dtype)
+    pb = np.zeros_like(pa)
+    pa[:h, :w], pb[:h, :w] = a, b
+    return pa, pb, h, w
+
+
 def sr_metrics_on(opt, lpips_fn=None, device_metrics: bool = False, bucket: int = 0):
     """The SRN protocol as the CLIs choose it: ``measure(sr, gt)``, with
     ``sr`` the SR image as an f32 HWC device tensor and ``gt`` the HR image

@@ -7,7 +7,9 @@ like the reference (codes/SRN/models/__init__.py:5-26) and ``define_G``
 trainer (``DASRModel`` with ``is_train``): host batches one step or a
 window at a time, uint8 batches cast on the device, and windows sampled
 from device-resident banks (``setup_device_bank``,
-``train_banked_window_async``). Any other model or trainer raises
+``train_banked_window_async``), resumed from the port's own ``{iter}.pt``
+(``resume``) or a reference ``{iter}.state`` (``resume_reference_state``).
+Any other model or trainer raises
 ``NotImplementedError`` naming its ROADMAP queue item.
 """
 
@@ -127,6 +129,18 @@ class _InferenceModel:
         out = out[0, :, : scale * h0, : scale * w0]
         return out.permute(1, 2, 0).float()
 
+    @torch.no_grad()
+    def test_batch_async(self, lr_imgs) -> torch.Tensor:
+        """One plain forward over a stack of same-shape LR images (HWC, float
+        [0, 1] or uint8): their SR images as an f32 (B, H, W, C) tensor on
+        the device, without waiting (srn_train's ``val_batch``). The chop
+        and ``pad_bucket`` forwards stay per image."""
+        x = torch.from_numpy(np.ascontiguousarray(np.stack(lr_imgs))).permute(0, 3, 1, 2)
+        x = x.to(self.device)
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        return self._apply_g(x).permute(0, 2, 3, 1).float()
+
     def train_step(self, batch):
         raise NotImplementedError(self._train_todo)
 
@@ -200,12 +214,11 @@ class DASRModel(_InferenceModel):
         return self
 
     def load(self):
+        """The ``pretrain_model_*`` ``.pth`` files (``check_resume`` points
+        them at a reference ``{iter}.state``'s networks), then, for a
+        ``resume_state`` ending in ``.state``, its Adam states and iteration
+        (``resume_reference_state``)."""
         paths = self.opt.get("path") or {}
-        if (paths.get("resume_state") or "").endswith(".state"):
-            raise NotImplementedError(
-                "resume_state from a reference .state is not yet ported (ROADMAP A.5): the "
-                "port resumes from its own {iter}.pt train states"
-            )
         if self.trainer is None:
             for key in ("pretrain_model_D_target", "pretrain_model_D_source"):
                 if paths.get(key):
@@ -217,7 +230,25 @@ class DASRModel(_InferenceModel):
                          ("pretrain_model_D_source", st.d_source)):
             if paths.get(key) and net is not None:
                 checkpoints.load_pth(net.net, paths[key])
+        rstate = paths.get("resume_state") or ""
+        if rstate.endswith(".state"):
+            self.resume_reference_state(rstate)
         return self
+
+    def resume_reference_state(self, path: str) -> int:
+        """Resume from a reference ``{iter}.state`` (base_model.py:76-86; the
+        port of ``dasr_tpu``'s ``DASRModel.resume_reference_state``): its
+        ``optimizers`` list, zipped over (G, D_target, D_source), gives each
+        network this config has its Adam moments and its own update count
+        (``checkpoints.import_adam_state``); ``iter`` gives the step.
+        Returns the step."""
+        saved = checkpoints.load_reference_training_state(path)
+        st = self._trainer().state
+        for ns, adam_sd in zip((st.g, st.d_target, st.d_source), saved.get("optimizers", [])):
+            if ns is not None:
+                checkpoints.import_adam_state(ns, adam_sd)
+        st.step = int(saved.get("iter", 0))
+        return st.step
 
     def _trainer(self) -> SRNTrainer:
         if self.trainer is None or self.trainer.state is None:

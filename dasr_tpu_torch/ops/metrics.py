@@ -14,9 +14,9 @@ On the device, batched torch functions of NHWC tensors in f32
 window, which needs TF32 off, as ``core/device.py:f32_numerics`` sets it),
 and their masked forms for images zero-padded to a shared bucket shape
 with their true (h, w) (``psnr_device_masked``, ``ssim_device_masked``,
-``mean_color_device_masked``). The masked forms are exact: the sums are
-masked, and the SSIM map keeps only the positions whose 11x11 window lies
-inside the true image, so no kept position reads a padded pixel.
+``psnr_col_device``). The masked forms are exact: the sums are masked, and
+the SSIM map keeps only the positions whose 11x11 window lies inside the
+true image, so no kept position reads a padded pixel.
 """
 
 from __future__ import annotations
@@ -141,11 +141,19 @@ def psnr_device_masked(img1, img2, h, w, peak: float = 1.0) -> torch.Tensor:
     return 20.0 * math.log10(peak) - 10.0 * torch.log10(sse / float(h * w * x.shape[-1]))
 
 
-def mean_color_device_masked(img, h, w) -> torch.Tensor:
-    """Per-channel spatial mean of a zero-padded NHWC tensor (PSNR_col)."""
-    x = img.float()
+def psnr_col_device(img1, img2, h: int, w: int) -> torch.Tensor:
+    """Per-image PSNR_col (reference: codes/DSN/evaluate.py:45, the PSNR of
+    the per-channel spatial means in [0, 1]) of NHWC tensors of uint8
+    values, padded beyond their true size (h, w) or not. The masked channel
+    sums of the difference are integers, taken in int64 and so exact, and
+    the rest runs in f64: the value is the host f64 one. (The difference of
+    two f32 means, as ``dasr_tpu``'s device path takes it, cancels to a few
+    significant digits where the means nearly agree: ~5e-4 dB at 60 dB.)"""
+    x, y = img1.float(), img2.float()
     mask = _hw_mask(x.shape[-3], x.shape[-2], h, w, x.device)
-    return (x * mask).sum(dim=(-3, -2)) / float(h * w)
+    diff = ((x - y) * mask).to(torch.int64).sum(dim=(-3, -2))
+    mean = diff.double() / (h * w * 255.0)
+    return (-10.0 * torch.log10((mean * mean).mean(dim=-1))).float()
 
 
 def ssim_device_masked(img1, img2, h, w) -> torch.Tensor:

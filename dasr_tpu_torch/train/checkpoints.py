@@ -11,8 +11,9 @@ the JAX package).
 The port saves a train state as one torch file (``save_train_state``) and,
 on request, in the reference's layout (``save_reference_formats``:
 ``{iter}_G.pth``, ``{iter}_D_target.pth``, ``{iter}.state`` with the Adam
-state dicts). ``load_train_state`` resumes the DSN stage from the port's
-own saves; resuming the SRN stage waits for ROADMAP A.5. The DSN stage's
+state dicts). ``load_train_state`` resumes either stage from the port's
+own saves; ``load_reference_training_state`` and ``import_adam_state``
+resume the SRN stage from a reference ``{iter}.state``. The DSN stage's
 reference checkpoint is one ``.tar`` (``save_dsn_tar`` / ``load_dsn_tar``,
 the key schema of codes/DSN/train.py:361-373), which the JAX package writes
 too.
@@ -240,13 +241,73 @@ def load_train_state(path: str, state) -> int:
         ns.net.load_state_dict(saved[label]["net"])
         ns.opt.load_state_dict(saved[label]["opt"])
         ns.sched.load_state_dict(saved[label]["sched"])
-        # the saved LR is the old run's schedule at this count; this run's
-        # schedule (a LambdaLR of the count, as optax's) sets the next one
-        for group, base, factor in zip(ns.opt.param_groups, ns.sched.base_lrs,
-                                       ns.sched.lr_lambdas):
-            group["lr"] = base * factor(ns.sched.last_epoch)
+        set_schedule_count(ns, ns.sched.last_epoch)
     state.step = int(saved["step"])
     return state.step
+
+
+def set_schedule_count(ns, count: int) -> None:
+    """Put a network's LR schedule at ``count`` updates. A saved LR is the
+    old run's schedule at that count; this run's schedule (a LambdaLR of the
+    count, as optax's) sets the next one."""
+    ns.sched.last_epoch = count
+    for group, base, factor in zip(ns.opt.param_groups, ns.sched.base_lrs, ns.sched.lr_lambdas):
+        group["lr"] = base * factor(count)
+
+
+def load_reference_training_state(path: str) -> Dict[str, Any]:
+    """A reference ``{iter}.state`` pickle (base_model.py:65-74): ``epoch``,
+    ``iter``, ``schedulers`` and ``optimizers``. Not ``weights_only``: the
+    reference's MultiStepLR state holds its milestones as a ``Counter``."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def import_adam_state(ns, adam_sd: Dict[str, Any]) -> int:
+    """Write a torch Adam state dict's moments into ``ns.opt`` by parameter
+    index and put the network's Adam count and LR schedule at the largest
+    ``step`` in it; returns that count (the counterpart of
+    ``dasr_tpu.train.checkpoints.import_adam_state``).
+
+    The port's modules register their parameters in the reference's order,
+    so index i of the state dict is ``ns.params()[i]``; each moment's shape
+    is checked against its parameter's. As in JAX, the moments and the
+    count are taken and the saved ``param_groups`` are not: a JAX-written
+    ``.state`` carries lr 1e-4 and the default betas whatever the run used,
+    so the config's lr and betas stay. JAX keeps one count a network; here
+    every parameter's ``step`` is set to it (a parameter the state dict
+    lacks starts from zero moments at that count, as in JAX). ``step`` is a
+    tensor, on the parameter's device where the Adam is ``capturable`` or
+    ``fused``."""
+    params = ns.params()
+    state = adam_sd["state"]
+    saved = {}
+    for key, st in state.items():
+        idx = int(key)
+        if not 0 <= idx < len(params):
+            raise ValueError(f"Adam state index {idx} is past the network's {len(params)} "
+                             f"parameters")
+        for name in ("exp_avg", "exp_avg_sq"):
+            shape = tuple(torch.as_tensor(st[name]).shape)
+            if shape != tuple(params[idx].shape):
+                raise ValueError(f"Adam state {idx} {name}: shape {shape}, parameter "
+                                 f"{tuple(params[idx].shape)}")
+        saved[idx] = st
+    count = max((int(st["step"]) for st in saved.values()), default=0)
+    group = ns.opt.param_groups[0]
+    on_device = group.get("capturable") or group.get("fused")
+    ns.opt.state.clear()
+    for idx, p in enumerate(params):
+        moments = [torch.zeros_like(p, memory_format=torch.preserve_format) for _ in range(2)]
+        if idx in saved:
+            for m, name in zip(moments, ("exp_avg", "exp_avg_sq")):
+                m.copy_(torch.as_tensor(saved[idx][name]))
+        ns.opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
+            "exp_avg": moments[0], "exp_avg_sq": moments[1],
+        }
+    set_schedule_count(ns, count)
+    return count
 
 
 def save_dsn_tar(path: str, g: torch.nn.Module, d: torch.nn.Module, epoch: int = 0,

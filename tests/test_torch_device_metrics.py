@@ -48,8 +48,10 @@ def test_device_metrics_match_jax(rng, channels):
                                atol=1e-4, rtol=0)
     np.testing.assert_allclose(m.ssim_device_masked(ta, tb, h, w).numpy(),
                                np.asarray(jm.ssim_device_masked(ja, jb, h, w)), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(m.mean_color_device_masked(ta, h, w).numpy(),
-                               np.asarray(jm.mean_color_device_masked(ja, h, w)), rtol=1e-6)
+    # PSNR_col from integer sums: the f64 value of the true crop
+    diff = (a[:, :h, :w].astype(np.float64) - b[:, :h, :w]).mean(axis=(1, 2)) / 255.0
+    np.testing.assert_allclose(m.psnr_col_device(ta, tb, h, w).numpy(),
+                               -10 * np.log10((diff ** 2).mean(axis=-1)), rtol=1e-6)
 
 
 def test_masked_metrics_equal_the_plain_ones_on_the_true_crop(rng):
@@ -65,8 +67,7 @@ def test_masked_metrics_equal_the_plain_ones_on_the_true_crop(rng):
                                m.psnr_device(ta, tb, 255.0), rtol=1e-6, atol=0)
     torch.testing.assert_close(m.ssim_device_masked(tpa, tpb, 29, 34), m.ssim_device(ta, tb),
                                rtol=1e-6, atol=0)
-    torch.testing.assert_close(m.mean_color_device_masked(tpa, 29, 34),
-                               ta.mean(dim=(1, 2)), rtol=1e-6, atol=0)
+    assert torch.equal(m.psnr_col_device(tpa, tpb, 29, 34), m.psnr_col_device(ta, tb, 29, 34))
 
 
 @pytest.fixture(scope="module")

@@ -117,6 +117,11 @@ def _train_args(dirs, root, save_path, epochs, *extra):
 
 
 def test_dsn_train_resumed_equals_straight(tmp_path, one_thread):
+    """One epoch, then a resume from its checkpoint to two, ends where two
+    epochs straight end. This deviates from dasr_tpu on purpose (ROADMAP
+    C.2): JAX's dsn_train sets ``iteration = 0`` after a resume
+    (dasr_tpu/cli/dsn_train.py:407) and would save the resumed run's last
+    checkpoint as 2.pt; the port continues from the saved step."""
     dirs = write_dsn_corpus(str(tmp_path / "corpus"), n_target=2, target=(80, 72))
     root = str(tmp_path / "exp")
     assert dsn_train.main(_train_args(dirs, root, "straight", 2)) == 4  # 2 steps an epoch
@@ -152,7 +157,11 @@ def test_dsn_train_resumed_equals_straight(tmp_path, one_thread):
 
 def test_dsn_windows_and_bank_resume(tmp_path, capsys, one_thread):
     """2-step windows on the host loader train as single steps; on the bank,
-    one epoch and a resume end where two epochs straight end."""
+    one epoch and a resume end where two epochs straight end. The resume
+    continues from the saved step, a deliberate deviation from dasr_tpu
+    (ROADMAP C.2): JAX's dsn_train restarts at ``iteration = 0``
+    (dasr_tpu/cli/dsn_train.py:407), so its banked windows would reseed
+    from 0 and replay the first epoch's draws."""
     dirs = write_dsn_corpus(str(tmp_path / "corpus"), n_target=2, target=(80, 72))
     root = str(tmp_path / "exp")
     k2 = ("--steps_per_call", "2")

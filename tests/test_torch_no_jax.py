@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of dasr_tpu_torch, serving a
 tiny corpus through its srn_test CLI, training two steps through its
-srn_train CLI and running the three stages through its auto_reproduce CLI
-(dsn_train, dsn_create_dataset, srn_train) load neither jax nor dasr_tpu.
+srn_train CLI, running the three stages through its auto_reproduce CLI
+(dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
+auto_test and add_corruptions CLIs on those runs' outputs load neither jax
+nor dasr_tpu.
 chip_smoke.py refuses to run without a card and outside the repository.
 
 Subprocesses, because this test process already imported JAX (conftest)."""
@@ -49,8 +51,24 @@ steps, last = srn_train.main(["-opt", train_config(troot, write_corpus(troot, n=
 assert steps == 2 and np.isfinite(last["loss/l_g_total"])
 from torch_dsn_corpus import auto_reproduce_args
 from dasr_tpu_torch.cli import auto_reproduce
-times = auto_reproduce.main(auto_reproduce_args(os.path.join(root, "ar"))[0])
+argv, dirs = auto_reproduce_args(os.path.join(root, "ar"))
+times = auto_reproduce.main(argv)
 assert list(times) == ["dsn_train", "dsn_create_dataset", "srn_train"]
+from dasr_tpu_torch.cli import add_corruptions, auto_test, dsn_test, evaluate
+avg = evaluate.main(["--dir_a", os.path.join(root, "results", "t", "s"), "--dir_b",
+                     os.path.join(root, "hr"), "--device", "cpu", "--device_metrics"])
+assert np.isfinite(avg["psnr"]) and np.isfinite(avg["lpips"])
+ckpt = os.path.join(root, "ar", "work", "DSN_experiments", "0603_DSN_aim2019", "checkpoints")
+out = dsn_test.main(["--checkpoint", ckpt, "--input_dir", dirs["target"], "--output_dir",
+                     os.path.join(root, "dsn_test"), "--num_res_blocks", "2", "--filter",
+                     "avg_pool", "--save_realness", "--device", "cpu"])
+assert len(os.listdir(out)) == 8
+sweep = auto_test.main(["-opt", os.path.join(root, "c.json"), "--models_dir",
+                        os.path.join(troot, "tiny_dasr", "models"), "--device", "cpu"])
+assert list(sweep) == ["2"] and np.isfinite(sweep["2"]["s"]["psnr"])
+add_corruptions.main(["--input_dir", os.path.join(root, "hr"), "--output_dir",
+                      os.path.join(root, "noisy")])
+assert os.listdir(os.path.join(root, "noisy")) == ["a.png"]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """

@@ -8,7 +8,8 @@ saved PNGs; ``--profile`` writes a trace; a run resumed from its
 ``{iter}.pt`` ends where the straight run ends; the bank gate falls back to
 the host loader, with two repairs against ``dasr_tpu`` (ADVICE.md:4, fake
 LR / HR / DDM counts must match; ADVICE.md:6, the corpus must hold a
-batch). A reference ``.state`` resume is refused."""
+batch); a run resumed from its reference-format ``{iter}.state`` continues
+to ``niter`` as a resume from its ``{iter}.pt`` does."""
 
 import contextlib
 import io
@@ -294,14 +295,39 @@ def test_bank_gate_accepts_the_tiny_corpus(tmp_path):
                                          "dataroot_fake_weights"))
 
 
-def test_resume_state_is_refused(tmp_path):
-    dirs = write_corpus(str(tmp_path), n=2)
-    path = train_config(str(tmp_path), dirs)
-    cfg = json.load(open(path))
-    cfg["path"]["resume_state"] = str(tmp_path / "10.state")
-    json.dump(cfg, open(path, "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        srn_train.main(["-opt", path, "--device", "cpu"])
+def test_resume_from_a_reference_state_continues_to_niter(run, caplog):
+    """Resume from the run's reference-format ``4.state`` (with its
+    ``4_G.pth`` / ``4_D_target.pth`` beside it, where ``check_resume`` looks)
+    to step 8: finite losses at steps 5-8, and the same weights as a resume
+    from the run's own ``4.pt``, which carries the same params, moments and
+    count. The config names no ``gan_H_target``: ``check_resume`` reads the
+    trainer's default and loads the D_target (JAX's would leave it at its
+    fresh init, and the two resumes would end apart)."""
+    root, _, _ = run
+    for name in ("from_state", "from_pt"):
+        shutil.copytree(root / "tiny_dasr" / "models", root / name / "models")
+    ends = {}
+    for name, resume in (("from_state", root / "from_state" / "models" / "4.state"),
+                         ("from_pt", root / "tiny_dasr" / "training_state" / "4.pt")):
+        cfg = json.load(open(root / "train.json"))
+        cfg["name"] = name
+        cfg["path"]["resume_state"] = str(resume)
+        cfg["train"].update(niter=8, val_freq=8)
+        cfg["logger"].update(save_checkpoint_freq=8, save_ref_formats=False)
+        path = root / f"{name}.json"
+        json.dump(cfg, open(path, "w"))
+        caplog.clear()
+        with caplog.at_level("INFO", logger="base"):
+            steps, last = srn_train.main(["-opt", str(path), "--device", "cpu"])
+        assert steps == 8 and "Resuming training from iteration: 4." in caplog.text, name
+        train = [r for r in _records(str(root), name) if "loss/l_g_total" in r]
+        assert [r["step"] for r in train] == [5, 6, 7, 8], name
+        assert all(np.isfinite(r[k]) for r in train for k in LOSSES), name
+        ends[name] = torch.load(root / name / "training_state" / "8.pt", weights_only=True)
+    for label in ("G", "D_target"):
+        for k, v in ends["from_pt"][label]["net"].items():
+            assert torch.equal(ends["from_state"][label]["net"][k], v), (label, k)
+    assert ends["from_state"]["G"]["sched"]["last_epoch"] == 8
 
 
 def test_cuda_without_a_card_raises(tmp_path):
