@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases dsn,dataset,pipeline      # stages 1 and 2, and all three
     python3 chip_smoke.py --phases bank                      # the banked fast path
     python3 chip_smoke.py --phases tools                     # resume, val_batch, the tool CLIs
+    python3 chip_smoke.py --phases adaptive                  # the DASR Adaptive model
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -105,6 +106,24 @@ CPU or to a plain version):
             add_corruptions in its three modes; the kernel's launches and
             shapes over the phase, s/pair, s/image and the phase's wall
             time. It needs phases 2, 4, 6 and 7.
+11. adaptive - the DASR Adaptive model at the full width of
+            dasr_tpu_torch/configs/train_DASR_Adaptive.json (RRDB_Residual_conv
+            nf 64 nb 19 ada_nb 4 gc 32, NLayer D on 9 Haar bands, LPIPS alex
+            seeded, batch 2 + 2, HR 192, bf16), its patch D the FSD of phase
+            6's .tar (that .tar's filter and kernel size): srn_train on the
+            host loader for ADAPTIVE_STEPS steps and with --device_bank
+            --steps_per_call 8 --transfer_uint8 for ADAPTIVE_BANK_STEPS, each
+            with one validation and one save, and srn_test plain and chopped
+            on the serve set plus one 540x600 LR image past the chop gate,
+            from the host run's save; each run counted (345 kernel launches
+            per generator forward) and its kernel shapes checked in phases 2
+            and 4; the forward's ms/image; the step's ms/step, host ms/step,
+            busy ms, rdb_level ms, idle share, device events and peak memory,
+            host loader and device bank in turns; at f32, nb 2, three steps
+            with the kernel against the plain version (resconv; concat with
+            the patch D trained) and banked windows against train_step on
+            the same draws, within the three-step limits. It needs phases 2,
+            4 and 6.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -143,6 +162,16 @@ TIMED_SHAPES = ((8, 128, 128), (1, 256, 256), (12, 32, 32))
 # with val_batch TOOLS_VAL over TOOLS_VAL same-shape 64x64 val images, one forward
 TOOLS_VAL = 4
 TOOLS_SHAPES = ((TOOLS_VAL, 64, 64),)
+# what the adaptive phase gives the kernel beyond those: the step's 2 fake + 2
+# real LR crops of 48x48 (HR 192), and its serve set's 540x600 image (past
+# the DASR chop gate of 320000 px) whole and chopped into 5 x 5 tiles of 160x160
+ADAPTIVE_SHAPES = ((4, 48, 48), (1, 540, 600), (25, 160, 160))
+ADAPTIVE_LR_SIZES = LR_SIZES + ((540, 600),)
+ADAPTIVE_CONFIG = os.path.join("dasr_tpu_torch", "configs", "train_DASR_Adaptive.json")
+ADAPTIVE_NB, ADAPTIVE_NB_ADA = 19, 4  # train_DASR_Adaptive.json's trunk
+ADAPTIVE_STEPS = 30
+ADAPTIVE_BANK_K = 8
+ADAPTIVE_BANK_STEPS = 16
 TRAIN_STEPS = 30
 DSN_STEPS = 30  # 48 source images, batch 8: 6 steps an epoch, 5 epochs
 # phase dataset: (h, w) of the targets, DIV2K-sized (tiled), half (whole), ragged
@@ -266,7 +295,8 @@ def phase_kernel(gpu):
     report = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_abs_err_vs_f32": 0.0}
     checked = set()
     with torch.no_grad():
-        for b, h, w in KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES:
+        for b, h, w in (KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES
+                        + ADAPTIVE_SHAPES):
             x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
             x = torch.from_numpy(x_np).to(dev)
             ks = [torch.from_numpy(k).to(dev) for k in ks_np]
@@ -406,13 +436,13 @@ def level_device_ms(fn, calls=5):
     return [float(np.median(t)) / 1e3 for t in own], traces
 
 
-def write_corpus(root, rng):
-    """Synthetic LRHR set: LR_SIZES LR images and their 4x HR images."""
+def write_corpus(root, rng, sizes=LR_SIZES):
+    """Synthetic LRHR set: LR images of ``sizes`` and their 4x HR images."""
     from dasr_tpu_torch.data.io import save_img
 
     for d in ("lr", "hr"):
         os.makedirs(os.path.join(root, d))
-    for i, (h, w) in enumerate(LR_SIZES):
+    for i, (h, w) in enumerate(sizes):
         lr = rng.random((h, w, 3), dtype=np.float32)
         hr = np.clip(np.kron(lr, np.ones((4, 4, 1), np.float32))
                      + rng.normal(0, 0.05, (4 * h, 4 * w, 3)).astype(np.float32), 0, 1)
@@ -684,7 +714,7 @@ def phase_grad(gpu):
     rng = np.random.default_rng(SEED + 1)
     report = {"grad_rel_err_f32": 0.0, "grad_rel_err_bf16": 0.0}
     checked = set()
-    for b, h, w in KERNEL_SHAPES + TRAIN_SHAPES:
+    for b, h, w in KERNEL_SHAPES + TRAIN_SHAPES + ADAPTIVE_SHAPES[:1]:
         x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
         g_np = rng.normal(0, 1, (b, h, w, NC)).astype(np.float32)
         for dt, tol in ((torch.float32, "grad_f32"), (torch.bfloat16, "grad_bf16")):
@@ -1449,11 +1479,14 @@ def window_times(fns, steps, rounds=2):
     return {name: tuple(float(v) for v in np.median(t, axis=0)) for name, t in times.items()}
 
 
-def time_arms(what, fns, steps, gpu):
+def time_arms(what, fns, steps, gpu, rounds=2, profiled=None):
     """The in-turns times, idle share (torch.profiler over one call) and peak
-    memory of each arm, printed; returns them by arm."""
+    memory of each arm, printed; returns them by arm. ``profiled``: {arm:
+    (a shorter call, its steps)} to trace in place of the arm's window
+    (the tracer's cost grows with the events it records)."""
     import torch
 
+    t0 = time.perf_counter()
     peaks = {}
     for name, fn in fns.items():  # the first call of each arm: its peak memory
         torch.cuda.synchronize()
@@ -1461,18 +1494,28 @@ def time_arms(what, fns, steps, gpu):
         fn()
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    times = window_times(fns, steps, rounds)
+    t2 = time.perf_counter()
     out = {}
-    for name, (ms, host_ms) in window_times(fns, steps).items():
+    for name, (ms, host_ms) in times.items():
         peak = peaks[name]
-        prof = device_profile(fns[name], iters=1)
-        busy = prof["busy"] / steps if prof else float("nan")
+        fn, n = (profiled or {}).get(name, (fns[name], steps))
+        prof = device_profile(fn, iters=1)
+        busy = prof["busy"] / n if prof else float("nan")
         idle = max(0.0, 1 - busy / ms) if prof else float("nan")
+        rdb = prof["rdb"] / n if prof else float("nan")
+        events = prof["events"] / n if prof else float("nan")
         out[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms, "busy_ms_per_step": busy,
-                     "idle_share": idle, "peak_mem_bytes": peak}
-        print(f"{what} {name}: {ms:.3f} ms/step (CUDA events, median of 4 windows of {steps} "
-              f"steps in turns), host {host_ms:.3f} ms/step to issue, device busy "
-              f"{busy:.3f} ms/step (torch.profiler), idle share {100 * idle:.2f}%, peak "
-              f"device memory {peak / 2**30:.3f} GiB [{gpu}]", flush=True)
+                     "idle_share": idle, "rdb_ms_per_step": rdb, "device_events_per_step": events,
+                     "peak_mem_bytes": peak}
+        print(f"{what} {name}: {ms:.3f} ms/step (CUDA events, median of {2 * rounds} windows "
+              f"of {steps} steps in turns), host {host_ms:.3f} ms/step to issue, device busy "
+              f"{busy:.3f} ms/step (torch.profiler over {n} steps), of which rdb_level kernels "
+              f"{rdb:.3f} ms, idle share {100 * idle:.2f}%, {events:.0f} device events per "
+              f"step, peak device memory {peak / 2**30:.3f} GiB [{gpu}]", flush=True)
+    print(f"{what}: {t1 - t0:.2f} s first calls, {t2 - t1:.2f} s in turns, "
+          f"{time.perf_counter() - t2:.2f} s traced", flush=True)
     return out
 
 
@@ -2046,12 +2089,342 @@ def phase_tools(gpu, root, checked, checked_grad, dsn_ckpt):
     return report
 
 
+def adaptive_config(root, dirs, name, niter, tar, patchd, nb=ADAPTIVE_NB, bf16=True,
+                    print_freq=1, **train):
+    """The shipped DASR Adaptive configuration (dasr_tpu_torch/configs/
+    train_DASR_Adaptive.json) with the synthetic corpus, no DDMs (its mode
+    is LRHR_unpair), the patch D from ``tar`` with ``patchd`` (its filter and
+    kernel size) and ``train`` as more train options."""
+    with open(os.path.join(ROOT, ADAPTIVE_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, bf16=bf16, use_tb_logger=False)
+    cfg["path"] = {"root": root, "Patch_Discriminator": tar}
+    cfg["datasets"]["train"].update(dataroot_HR=dirs["hr"], dataroot_fake_LR=dirs["fake"],
+                                    dataroot_real_LR=dirs["real"], n_workers=6)
+    cfg["datasets"]["val"].update(dataroot_HR=dirs["val_hr"], dataroot_LR=dirs["val_lr"])
+    cfg["network_G"]["nb"] = nb
+    cfg["network_patchD"].update(patchd)
+    cfg["train"].update(niter=niter, val_freq=niter, **train)
+    cfg["logger"] = {"print_freq": print_freq, "save_checkpoint_freq": niter}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def adaptive_serve_config(root, name, chop, g_path, tar, patchd):
+    cfg = {"name": name, "model": "DASR_Adaptive_Model", "scale": 4, "chop": chop,
+           "val_lpips": False,
+           "datasets": {"test_1": {"name": "synth", "mode": "LRHR",
+                                   "dataroot_HR": os.path.join(root, "hr"),
+                                   "dataroot_LR": os.path.join(root, "lr")}},
+           "path": {"root": root, "pretrain_model_G": g_path, "Patch_Discriminator": tar},
+           "network_G": {"which_model_G": "RRDB_Residual_conv", "nf": NC, "nb": ADAPTIVE_NB,
+                         "gc": GC, "ada_nb": ADAPTIVE_NB_ADA},
+           "network_patchD": {"which_patchD": "FSD", "norm_layer": "Instance", **patchd}}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
+    """The DASR Adaptive model at the full width of train_DASR_Adaptive.json
+    (RRDB_Residual_conv nf 64 nb 19 ada_nb 4, batch 2 + 2, HR 192, bf16), its
+    patch D from the dsn phase's .tar: srn_train on the host loader and on
+    the device bank, srn_test plain and chopped, each counted (345 kernel
+    launches per generator forward); the step's times, host loader and
+    device bank in turns; three f32 steps with the kernel against the plain
+    version (resconv, and concat with the patch D trained), and banked
+    against train_step on the same draws."""
+    import contextlib
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    import dasr_tpu_torch.nn.blocks as blocks
+    from dasr_tpu_torch.cli import srn_test, srn_train
+    from dasr_tpu_torch.core.config import parse_srn_options
+    from dasr_tpu_torch.data import device_bank as bank
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import (
+        LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference)
+    from dasr_tpu_torch.train.checkpoints import load_dsn_tar
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap(part):
+        laps.append(time.perf_counter())
+        report.setdefault("part_s", {})[part] = laps[-1] - laps[-2]
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    base = os.path.join(root, "adaptive")
+    dirs = write_train_corpus(base, rng)
+    tar = os.path.join(dsn_ckpt, "last_iteration.tar")
+    meta = load_dsn_tar(tar)
+    patchd = {"FS_type": meta["fs_type"], "kernel_size": meta["fs_kernel_size"]}
+    per_forward = 3 * (ADAPTIVE_NB + ADAPTIVE_NB_ADA) * LAUNCHES_PER_RDB
+    report, launches, seen = {}, {}, set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+    def counted(label, fn, forwards):
+        # one run of the main path: the count set to 0 just before it, read
+        # just after, and held against 345 launches per generator forward
+        fused_rdb.launches = 0
+        handle = register_module_forward_pre_hook(record)
+        tee = Tee()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            handle.remove()
+        n = fused_rdb.launches
+        print(f"adaptive {label}: fused_rdb launches {n}, expected {per_forward} x {forwards} "
+              f"= {per_forward * forwards}; {secs:.2f} s", flush=True)
+        if n != per_forward * forwards:
+            fail(f"adaptive {label}: {n} kernel launches, expected {per_forward * forwards}")
+        launches[label] = n
+        return out, secs, "".join(tee.parts)
+
+    def losses_of(name, steps, every):
+        with open(os.path.join(base, name, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r for r in recs if "loss/l_g_total" in r]
+        val = [r for r in recs if "val/psnr" in r]
+        if [r["step"] for r in losses] != list(range(every, steps + 1, every)) or not all(
+                np.isfinite(v) for r in losses for k, v in r.items() if k.startswith("loss/")):
+            fail(f"adaptive {name}: losses missing or not finite: {losses}")
+        if len(val) != 1 or not all(np.isfinite(val[0][f"val/{k}"]) for k in ("psnr", "lpips")):
+            fail(f"adaptive {name}: validation missing or not finite: {val}")
+        if not os.path.exists(os.path.join(base, name, "training_state", f"{steps}.pt")):
+            fail(f"adaptive {name}: the train state was not saved")
+        return losses, val[0]
+
+    # the main path, 1: srn_train on the host loader, one validation, one save
+    cfg = adaptive_config(base, dirs, "ada_train", ADAPTIVE_STEPS, tar, patchd)
+    (steps, _), secs, out = counted(
+        "train", lambda: run_cli(srn_train.main, ["-opt", cfg, "--device", "cuda"]),
+        ADAPTIVE_STEPS + 2)  # one G forward per step, one per validation image
+    if steps != ADAPTIVE_STEPS or f"patch D: loaded from {tar}" not in out:
+        fail(f"adaptive train: {steps} steps, or the patch D was not loaded from {tar}")
+    losses, val = losses_of("ada_train", ADAPTIVE_STEPS, 1)
+    print(f"adaptive train: {steps} steps in {secs:.2f} s through the CLI (host loader, patch D "
+          f"from the dsn phase's .tar, {patchd}); losses step 1 -> {ADAPTIVE_STEPS}: "
+          + ", ".join(f"{k.split('/')[-1]} {losses[0][k]:.4e} -> {losses[-1][k]:.4e}"
+                      for k in sorted(losses[0]) if k.startswith("loss/"))
+          + f"; validation {({k: v for k, v in val.items() if k.startswith('val/')})}",
+          flush=True)
+    lap("train")
+
+    # the main path, 2: srn_train on the device bank, windows of 8, uint8
+    cfg_bank = adaptive_config(base, dirs, "ada_bank", ADAPTIVE_BANK_STEPS, tar, patchd,
+                               print_freq=ADAPTIVE_BANK_K)
+    (steps, _), secs, out = counted(
+        "bank", lambda: run_cli(srn_train.main, [
+            "-opt", cfg_bank, "--device", "cuda", "--device_bank", "--steps_per_call",
+            str(ADAPTIVE_BANK_K), "--transfer_uint8"]), ADAPTIVE_BANK_STEPS + 2)
+    if (steps != ADAPTIVE_BANK_STEPS or "device bank: " not in out
+            or "using the host loader" in out):
+        fail(f"adaptive bank: {steps} steps, or srn_train did not train on the device bank")
+    losses, _ = losses_of("ada_bank", ADAPTIVE_BANK_STEPS, ADAPTIVE_BANK_K)
+    print(f"adaptive bank: srn_train --device_bank --steps_per_call {ADAPTIVE_BANK_K} "
+          f"--transfer_uint8: {steps} steps in {secs:.2f} s; l_g_total "
+          + " -> ".join(f"{r['loss/l_g_total']:.4e}" for r in losses) + "; "
+          + [ln for ln in out.splitlines() if ln.startswith("device bank: ")][0], flush=True)
+    lap("bank")
+
+    # the main path, 3: srn_test plain and chopped, the G of the host run's
+    # save, on the serve phase's images and one past the chop gate
+    serve_root = os.path.join(base, "serve")
+    os.makedirs(serve_root)
+    write_corpus(serve_root, rng, ADAPTIVE_LR_SIZES)
+    g_pt = os.path.join(base, "ada_train", "training_state", f"{ADAPTIVE_STEPS}.pt")
+    n_img = len(ADAPTIVE_LR_SIZES)
+    for chop in (False, True):
+        name = f"ada_serve_{'chop' if chop else 'plain'}"
+        scfg = adaptive_serve_config(serve_root, name, chop, g_pt, tar, patchd)
+        avg, secs, _ = counted(name, lambda: run_cli(srn_test.main, [
+            "-opt", scfg, "--device", "cuda", "--device_metrics", "--metrics_pad_bucket",
+            "128"]), n_img)
+        pngs = os.listdir(os.path.join(serve_root, "results", name, "synth"))
+        vals = avg.get("synth", {})
+        if len(pngs) != n_img or not vals or not all(np.isfinite(v) for v in vals.values()):
+            fail(f"adaptive {name}: {len(pngs)} PNGs, metrics {vals}")
+        print(f"adaptive {name}: {n_img} images ({ADAPTIVE_LR_SIZES} LR) in {secs:.2f} s, "
+              f"{secs / n_img:.3f} s/image with device metrics (bucket 128) and PNG IO; "
+              f"{vals} [{gpu}]", flush=True)
+        report[f"serve_s_per_image_{'chop' if chop else 'plain'}"] = secs / n_img
+    lap("serve")
+    report["launches_adaptive"] = sum(launches.values())
+    report["launches_by_run"] = dict(launches)
+
+    shapes = sorted((*k[:3], str(k[3]), k[4]) for k in seen)
+    print(f"adaptive: kernel input shapes {shapes}", flush=True)
+    missing = {k[:4] for k in seen} - checked
+    missing |= {k[:4] for k in seen if k[4]} - checked_grad
+    if missing:
+        fail(f"adaptive: the runs gave the kernel shapes phases 2 and 4 did not check: {missing}")
+
+    # the forward alone at a serve image: ms/image
+    model = create_model(parse_srn_options(scfg, is_train=False), dev)
+    model.init()
+    with contextlib.redirect_stdout(Tee()):
+        model.load()
+    lr = np.random.default_rng(SEED).random((256, 256, 3), dtype=np.float32)
+    ms = cuda_ms(lambda: model.test_async(lr), warmup=2, iters=10)
+    print(f"adaptive serve rate: 256x256 LR -> 1024x1024, bf16, patch D + G: {ms:.3f} ms/image "
+          f"[{gpu}]", flush=True)
+    report["serve_ms_per_image"] = ms
+    del model
+    lap("serve_rate")
+
+    # the step's times: host-loader batches and device-bank windows in turns
+    opt = parse_srn_options(cfg, is_train=True)
+    model = create_model(opt, dev)
+    model.init()
+    with contextlib.redirect_stdout(Tee()):
+        model.load()
+    banks = bank.SrnBanks(bank.build_bank(dirs["fake"]), bank.build_bank(dirs["hr"]),
+                          bank.build_bank(dirs["real"]), None)
+    model.setup_device_bank(*banks, 192)
+    opt["datasets"]["train"]["transfer_uint8"] = True
+    loader = Loader(create_dataset(opt["datasets"]["train"]), batch_size=2, num_workers=6,
+                    seed=0, pin_memory=True)
+    batches = []
+    while len(batches) < ADAPTIVE_BANK_K:
+        loader.set_epoch(len(batches))
+        batches += list(loader)[:ADAPTIVE_BANK_K - len(batches)]
+    tr = model.trainer
+    window = np.stack(bank.epoch_rows(SEED, 0, 12, 2) * 2)[:ADAPTIVE_BANK_K]
+    report["step"] = time_arms("adaptive step", {
+        "host loader": lambda: [tr.train_step(model._to_device(b)) for b in batches],
+        "device bank": lambda: model.train_banked_window_async(window, 0)},
+        ADAPTIVE_BANK_K, gpu, rounds=1, profiled={
+            "host loader": (lambda: tr.train_step(model._to_device(batches[0])), 1),
+            "device bank": (lambda: model.train_banked_window_async(window[:1], 0), 1)})
+    del model, tr, batches
+    lap("step_times")
+
+    # held at f32 on the card, nb 2 (cuDNN off in both runs, see phase_grad):
+    # the kernel against the plain version, and the banked window against
+    # train_step on the plain gather's batches of the same draws
+    atol, rtol = TOLERANCES["train_loss_f32"]
+    _, utol = TOLERANCES["train_update_f32"]
+    _, mtol = TOLERANCES["train_moment_f32"]
+
+    def nets_of(model):
+        st = model.trainer.state
+        nets = {"G": st.g, "D_target": st.d_target}
+        if model.cfg.use_patchD_opt:
+            nets["patchD"] = st.patchd
+        return nets
+
+    def three_steps(what, cfg32, arms):
+        # arms: (run, whether it launches the kernel), the reference last
+        runs = []
+        for arm, on_kernel in arms:
+            with torch.backends.cudnn.flags(enabled=False), contextlib.redirect_stdout(Tee()):
+                model = create_model(parse_srn_options(cfg32, is_train=True), dev)
+                model.init()
+                model.load()
+                nets = nets_of(model)
+                init = {name: flat(ns).clone() for name, ns in nets.items()}
+                before = fused_rdb.launches
+                traj = arm(model)
+            launched = fused_rdb.launches - before
+            if launched != 3 * 3 * (2 + ADAPTIVE_NB_ADA) * LAUNCHES_PER_RDB * on_kernel:
+                fail(f"{what}: {launched} kernel launches in a run that should launch "
+                     f"{'it' if on_kernel else 'none'}")
+            runs.append((traj, init, {name: (flat(ns), flat(ns, True))
+                                      for name, ns in nets.items()}))
+        worst, parts, bad, perr = compare_three_steps(what, *runs, (atol, rtol), utol, mtol)
+        print(f"{what}, 3 steps, on the card, cuDNN off: losses within {worst:.3f} of their "
+              f"limit (atol {atol}, rtol {rtol}); |dtheta - dtheta_ref| / |dtheta_ref| and the "
+              f"same of Adam's first moments (limits {utol}, {mtol}): {'; '.join(parts)}; "
+              f"l_g_total {[round(t['loss/l_g_total'], 6) for t in runs[0][0]]}", flush=True)
+        if bad:
+            fail(f"{what}: the updates or moments of {bad} are off the reference run's")
+        return perr
+
+    def host_batches(cfg32):
+        o = parse_srn_options(cfg32, is_train=True)
+        loader = Loader(create_dataset(o["datasets"]["train"]), batch_size=2, num_workers=6,
+                        seed=0)
+        loader.set_epoch(0)
+        return list(loader)[:3]
+
+    def kernel(model, batches):
+        return [model.train_step(b) for b in batches]
+
+    def plain(model, batches):
+        blocks.fused_rdb = fused_rdb_reference
+        try:
+            return kernel(model, batches)
+        finally:
+            blocks.fused_rdb = fused_rdb
+
+    for flavor, train in (("RRDB_Residual_conv", {}),
+                          ("RRDB_Residual_conv_concat", {"use_patchD_opt": True})):
+        cfg32 = adaptive_config(base, dirs, f"ada_f32_{flavor}", 3, tar, patchd, nb=2,
+                                bf16=False, **train)
+        with open(cfg32) as f:
+            c = json.load(f)
+        c["network_G"]["which_model_G"] = flavor
+        with open(cfg32, "w") as f:
+            json.dump(c, f)
+        batches = host_batches(cfg32)
+        perr = three_steps(f"adaptive f32 {flavor} nb 2 {train or ''} kernel vs plain", cfg32,
+                           [(lambda m: kernel(m, batches), True),
+                            (lambda m: plain(m, batches), False)])
+        report[f"f32_param_max_abs_err_{flavor}"] = perr
+        lap(f"f32_{flavor}")
+
+    idx = np.stack(bank.epoch_rows(SEED, 0, 12, 2))[:3]
+
+    def banked(model):
+        model.setup_device_bank(*banks, 192)
+        return [model.metrics_to_host(model.train_banked_window_async(idx[s:s + 1], s))
+                for s in range(3)]
+
+    def stepped(model):
+        model.setup_device_bank(*banks, 192)
+        out = []
+        for s in range(3):
+            gen = bank.window_generator(model.trainer.cfg.seed, s, dev)
+            d = bank.draw_dasr(gen, 2, 12, 12)
+            b = bank.gather_dasr_plain(model._banks, torch.from_numpy(idx[s]).to(dev), d, 192, 4)
+            out.append(model.metrics_to_host(model.trainer.train_step(
+                {k: v.permute(0, 3, 1, 2) for k, v in b.items() if k != "fake_w"})))
+        return out
+
+    cfg32 = adaptive_config(base, dirs, "ada_f32_bank", 3, tar, patchd, nb=2, bf16=False)
+    three_steps("adaptive f32 nb 2 banked vs train_step on the same draws", cfg32,
+                [(banked, True), (stepped, True)])
+    lap("f32_bank")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"adaptive: the phase took {report['phase_s']:.2f} s [{gpu}]", flush=True)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools",
+                    default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
+                            "adaptive",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools")
+                         "pipeline,bank,tools,adaptive")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2080,8 +2453,10 @@ def main(argv=None):
     }
     if "serve" in phases:
         phases.add("kernel")  # serve checks its shapes against phase 2's
-    if phases & {"train", "pipeline", "bank", "tools"}:
-        phases |= {"kernel", "grad"}  # and train, pipeline, bank, tools against phases 2 and 4
+    if phases & {"train", "pipeline", "bank", "tools", "adaptive"}:
+        phases |= {"kernel", "grad"}  # and these against phases 2 and 4
+    if "adaptive" in phases:
+        phases.add("dsn")  # its patch D is stage 1's discriminator
     if "tools" in phases:
         phases.add("dataset")  # dsn_test reads stage 1's checkpoint and stage 2's outputs
     if "dataset" in phases:
@@ -2118,10 +2493,15 @@ def main(argv=None):
             entry["launches_tools"] = report.pop("launches_tools")
             print(f"tools (resume, val_batch, evaluate, dsn_test, auto_test, add_corruptions): "
                   f"{json.dumps(report)}", flush=True)
+        if "adaptive" in phases:
+            report = phase_adaptive(gpu, root, checked, checked_grad, ckpt_dir)
+            entry["launches_adaptive"] = report.pop("launches_adaptive")
+            print(f"adaptive (DASR_Adaptive_Model, train, bank, serve): {json.dumps(report)}",
+                  flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
-                            for p in ("serve", "train", "pipeline", "bank", "tools"))
+                            for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

@@ -16,9 +16,10 @@ The JAX package's fast path, with its semantics:
   for a window that crosses a print boundary and one window late, so the
   host never waits for the card between windows;
 * ``--transfer_uint8``: host batches as uint8, cast on the card (exact);
-* ``--device_bank``: the four stage-3 corpora resident on the card, each
-  window sampled there from a (K, B) index window (``_bank_gate`` says when
-  the host loader serves instead); epochs draw their order by
+* ``--device_bank``: the four stage-3 corpora resident on the card (three
+  for 'DASR_Adaptive_Model', whose DDM is computed online), each window
+  sampled there from a (K, B) index window (``_bank_gate`` says when the
+  host loader serves instead); epochs draw their order by
   ``np.random.default_rng((manual_seed, epoch)).permutation(n)`` with
   ``drop_last``;
 * ``val_device_metrics`` (and ``val_metrics_pad_bucket``): the validation
@@ -31,6 +32,10 @@ The JAX package's fast path, with its semantics:
   the epoch where the save left it (the JAX CLI restarts the epoch order);
 * ``val_batch`` K > 1: consecutive same-shape val images share one forward,
   as in the JAX CLI.
+
+'DASR_Adaptive_Model' trains through the same loop; as the JAX CLI has no
+path for its reference formats, a ``.state`` ``resume_state`` and
+``save_ref_formats`` are refused.
 """
 
 from __future__ import annotations
@@ -62,10 +67,11 @@ def main(argv=None):
                              "datasets.train.transfer_uint8")
     parser.add_argument("--device_bank", action="store_true",
                         help="keep the decoded train corpus (HR, fake LR, real LR, DDMs) "
-                             "on the device and sample each batch there; DASR model and "
-                             "LRHR_wavelet_unpair_fake_weights_EQ mode only, else, or "
-                             "over --device_bank_gb, or with images smaller than the crop, "
-                             "the host loader serves")
+                             "on the device and sample each batch there; the DASR model with "
+                             "the LRHR_wavelet_unpair_fake_weights_EQ mode, or "
+                             "DASR_Adaptive_Model with LRHR_unpair (no DDMs), only; else, "
+                             "or over --device_bank_gb, or with images smaller than the "
+                             "crop, the host loader serves")
     parser.add_argument("--device_bank_gb", type=float, default=12.0,
                         help="device memory budget for --device_bank (padded bytes, all "
                              "four banks)")
@@ -81,7 +87,20 @@ def main(argv=None):
     from dasr_tpu_torch.utils import guards
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
-    opt = check_resume(parse_srn_options(args.opt, is_train=True))
+    opt = parse_srn_options(args.opt, is_train=True)
+    if opt.get("model") == "DASR_Adaptive_Model":
+        # as the JAX CLI, which resumes a reference .state only for a model
+        # with resume_reference_state and saves the reference formats only
+        # for one with save_reference_formats
+        if (opt["path"].get("resume_state") or "").endswith(".state"):
+            raise NotImplementedError("resume_state: a reference .state is not a "
+                                      "DASR_Adaptive_Model checkpoint; resume from the port's "
+                                      "{iter}.pt (ROADMAP A.9)")
+        if (opt.get("logger") or {}).get("save_ref_formats"):
+            raise NotImplementedError("logger.save_ref_formats: DASR_Adaptive_Model has no "
+                                      "reference formats; its train state saves as {iter}.pt "
+                                      "(ROADMAP A.9)")
+    opt = check_resume(opt)
     rstate = opt["path"].get("resume_state")
     device = resolve_device(args.device)
     if args.decode_cache_gb is not None:
@@ -163,7 +182,7 @@ def main(argv=None):
         fake_h = build_bank(fake_dir, min_size=lr_size)
         banks = (fake_h, build_bank(hr_dir, min_size=hr_size),
                  build_bank(real_dir, min_size=lr_size),
-                 build_ddm_bank(list_images(ddm_dir), fake_h.sizes))
+                 build_ddm_bank(list_images(ddm_dir), fake_h.sizes) if ddm_dir else None)
         t1 = time.perf_counter()
         model.setup_device_bank(*banks, hr_size,
                                 use_flip=bool(train_ds_opt.get("use_flip", True)),
@@ -291,14 +310,16 @@ def main(argv=None):
 
 
 def _bank_gate(opt, dataset_opt, budget_gb):
-    """The four dataroots (fake LR, HR, real LR, DDM) when ``--device_bank``
-    can serve this run, else None, printing why the host loader serves
-    (counterpart of the JAX CLI's ``_bank_gate``). Besides the JAX gate's
-    reasons (the model or mode, G/D_update_inter != 1, a missing dataroot,
-    an image smaller than its crop, the budget), two repairs: the fake-LR,
-    HR and DDM counts must be equal (the device gather would read an index
-    that is not there, where the host loader fails), and the corpus must
-    hold one batch (the host loader's ``drop_last`` yields none)."""
+    """The four dataroots (fake LR, HR, real LR, DDM; the DDM None for the
+    Adaptive model, which computes its weights online) when
+    ``--device_bank`` can serve this run, else None, printing why the host
+    loader serves (counterpart of the JAX CLI's ``_bank_gate``, with its
+    (model, mode) pairs). Besides the JAX gate's reasons (the model or mode,
+    G/D_update_inter != 1, a missing dataroot, an image smaller than its
+    crop, the budget), two repairs: the fake-LR, HR and DDM counts must be
+    equal (the device gather would read an index that is not there, where
+    the host loader fails), and the corpus must hold one batch (the host
+    loader's ``drop_last`` yields none)."""
     from dasr_tpu_torch.data.device_bank import bank_min_hw, bank_nbytes
     from dasr_tpu_torch.data.io import list_images
 
@@ -306,26 +327,27 @@ def _bank_gate(opt, dataset_opt, budget_gb):
         print(f"--device_bank: {reason}; using the host loader", flush=True)
         return None
 
+    pairs = {"DASR": "LRHR_wavelet_unpair_fake_weights_EQ",
+             "DASR_Adaptive_Model": "LRHR_unpair"}
     model = opt.get("model")
-    if model == "DASR_Adaptive_Model":
-        return fall("the DASR_Adaptive_Model trainer is not yet ported (ROADMAP A.9)")
-    if model != "DASR":
+    if model not in pairs:
         return fall(f"model [{model}] has no banked path")
     train = opt.get("train") or {}
     if (train.get("G_update_inter", 1) or 1) != 1 or (train.get("D_update_inter", 1) or 1) != 1:
         return fall("G/D_update_inter != 1")
     mode = dataset_opt.get("mode")
-    if mode != "LRHR_wavelet_unpair_fake_weights_EQ":
+    if mode != pairs[model]:
         return fall(f"dataset mode [{mode}] unsupported for model [{model}]")
-    dirs = tuple(dataset_opt.get(k) for k in ("dataroot_fake_LR", "dataroot_HR",
-                                              "dataroot_real_LR", "dataroot_fake_weights"))
+    keys = ("dataroot_fake_LR", "dataroot_HR", "dataroot_real_LR", "dataroot_fake_weights")
+    with_ddm = model == "DASR"
+    dirs = tuple(dataset_opt.get(k) for k in keys[:3 + with_ddm])
     if not all(dirs):
-        return fall("missing a dataroot (fake_LR/HR/real_LR/fake_weights)")
-    fake_dir, hr_dir, real_dir, ddm_dir = dirs
-    counts = [len(list_images(d)) for d in (fake_dir, hr_dir, ddm_dir)]
+        return fall("missing a dataroot (fake_LR/HR/real_LR" + "/fake_weights" * with_ddm + ")")
+    fake_dir, hr_dir, real_dir = dirs[:3]
+    counts = [len(list_images(d)) for d in (fake_dir, hr_dir) + dirs[3:]]
     if len(set(counts)) != 1:
-        return fall(f"{counts[0]} fake LRs, {counts[1]} HRs and {counts[2]} DDMs are not "
-                    f"paired one to one")
+        return fall(f"{counts[0]} fake LRs, {counts[1]} HRs"
+                    + (f" and {counts[2]} DDMs" if with_ddm else "") + " are not paired one to one")
     bs = int(dataset_opt.get("batch_size", 6) or 6)
     if counts[0] < bs:
         return fall(f"{counts[0]} train images hold no batch of {bs}")
@@ -334,11 +356,12 @@ def _bank_gate(opt, dataset_opt, budget_gb):
     if (min(bank_min_hw(fake_dir)) < lr_size or min(bank_min_hw(real_dir)) < lr_size
             or min(bank_min_hw(hr_dir)) < hr_size):
         return fall("corpus has images smaller than the crop")
-    # the uint8 banks and the f32 1-channel DDM bank at the fake LRs' sizes
-    need = (bank_nbytes(fake_dir) * 7 // 3 + bank_nbytes(hr_dir) + bank_nbytes(real_dir))
+    # the uint8 banks, and the f32 1-channel DDM bank at the fake LRs' sizes
+    need = (bank_nbytes(fake_dir) * (7 if with_ddm else 3) // 3 + bank_nbytes(hr_dir)
+            + bank_nbytes(real_dir))
     if need > budget_gb * 2**30:
         return fall(f"padded corpus needs {need / 2**30:.1f} GiB > budget {budget_gb} GiB")
-    return dirs
+    return dirs if with_ddm else dirs + (None,)
 
 
 def _save(model, opt, logger_opt, step, logger):

@@ -11,6 +11,8 @@ dicts of RGB float32 HWC numpy arrays in [0, 1]:
     (codes/SRN/data/LRHR_wavelet_unpairEq_fake_w_dataset.py)
   * ``DASRUnpairedEqDataset`` — 'LRHR_wavelet_unpair_fake_real_w_EQ': also
     the per-real-LR DDMs (LRHR_wavelet_unpairEq_dataset.py)
+  * ``UnpairDataset`` — 'LRHR_unpair', the DASR Adaptive mode: the DASR
+    mode without weights (LRHR_unpair_dataset.py:50-155)
   * ``DSNTrainDataset`` — the DSN feed: a clean HR crop, its MATLAB-bicubic
     LR, and a crop of a noisy LR image (codes/DSN/data_loader.py:12-59)
   * ``DSNValDataset``   — the DSN validation feed (data_loader.py:157-190)
@@ -217,6 +219,17 @@ class DASRUnpairedEqDataset(DASRUnpairedDataset):
         return item
 
 
+class UnpairDataset(DASRUnpairedDataset):
+    """'LRHR_unpair' — the Adaptive model's mode: no precomputed weights
+    (the trainer computes the DDM online from its patch discriminator), the
+    same draws as the DASR mode otherwise."""
+
+    def __init__(self, opt: Dict):
+        opt = dict(opt)
+        opt.pop("dataroot_fake_weights", None)
+        super().__init__(opt)
+
+
 class DSNTrainDataset:
     """DSN unpaired trainer feed (codes/DSN/data_loader.py:12-59).
 
@@ -293,6 +306,7 @@ _REGISTRY = {
     "LR": LRDataset,
     "LRHR_wavelet_unpair_fake_weights_EQ": DASRUnpairedDataset,
     "LRHR_wavelet_unpair_fake_real_w_EQ": DASRUnpairedEqDataset,
+    "LRHR_unpair": UnpairDataset,
 }
 
 

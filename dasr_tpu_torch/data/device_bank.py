@@ -307,9 +307,10 @@ def gather_dasr(banks: SrnBanks, fake_idx, d: DasrDraws, hr_size: int, scale: in
                 use_flip: bool = True, use_rot: bool = True) -> Dict[str, torch.Tensor]:
     """The DASR batch (DASRUnpairedDataset's train branch) of ``fake_idx``
     (B,): LR_fake/HR aligned crops of pair i, the DDM crop on the LR_fake
-    window (ones without a DDM bank), LR_real and HR_unpair crops of the
-    picked images, one augment per item on all five. LR_fake, LR_real, HR,
-    HR_unpair f32 in [0, 1] and fake_w f32, NHWC."""
+    window (ones without a DDM bank: the Adaptive model's 'LRHR_unpair'
+    window, as ``sample_dasr_batch`` with ``ddm_bank=None``), LR_real and
+    HR_unpair crops of the picked images, one augment per item on all five.
+    LR_fake, LR_real, HR, HR_unpair f32 in [0, 1] and fake_w f32, NHWC."""
     lr = hr_size // scale
     idx = fake_idx.long()
     tl = _aligned_offsets(d.fake_u, banks.fake.sizes[idx], banks.hr.sizes[idx], lr, scale)

@@ -8,8 +8,10 @@ trainer (``DASRModel`` with ``is_train``): host batches one step or a
 window at a time, uint8 batches cast on the device, and windows sampled
 from device-resident banks (``setup_device_bank``,
 ``train_banked_window_async``), resumed from the port's own ``{iter}.pt``
-(``resume``) or a reference ``{iter}.state`` (``resume_reference_state``).
-Any other model or trainer raises
+(``resume``) or a reference ``{iter}.state`` (``resume_reference_state``);
+and 'DASR_Adaptive_Model' (``DASRAdaptiveModel``), serving and training
+its DDM-conditioned generator. Any other model, trainer, or model and
+generator pair raises
 ``NotImplementedError`` naming its ROADMAP queue item.
 """
 
@@ -24,17 +26,20 @@ import torch
 
 from dasr_tpu_torch.data import device_bank
 from dasr_tpu_torch.losses.lpips import default_lpips
-from dasr_tpu_torch.nn.generators import RRDBNet
+from dasr_tpu_torch.nn.layers import init_lecun_
+from dasr_tpu_torch.nn.discriminators import FSDiscriminator
+from dasr_tpu_torch.nn.generators import RRDBNet, RRDBNetResidualConv, RRDBNetSEAN
 from dasr_tpu_torch.ops.tiled import forward_chop, pad_reflect, tiled_apply
 from dasr_tpu_torch.train import checkpoints
+from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 
 logger = logging.getLogger("base")
 
-_TRAINERS = ("srgan", "srragan", "De_Resnet", "De_patch_wavelet_GAN", "DASR_Adaptive_Model")
+_TRAINERS = ("srgan", "srragan", "De_Resnet", "De_patch_wavelet_GAN")
 _GENERATORS = (
     "sr_resnet", "De_Resnet", "De_RRDB", "De_Resnet_bilinear", "De_Resnet2xd", "DSGAN",
-    "RRDB_SEAN", "RRDB_Residual_conv", "RRDB_Residual_conv_concat", "sft_arch",
+    "sft_arch",
 )
 
 
@@ -43,23 +48,46 @@ def compute_dtype(opt: Dict) -> torch.dtype:
     return torch.bfloat16 if opt.get("bf16", True) else torch.float32
 
 
-def define_G(opt: Dict) -> RRDBNet:
+def define_G(opt: Dict) -> torch.nn.Module:
     """Build the generator module from a network_G config block."""
     net = opt["network_G"]
     which = net["which_model_G"]
+    widths = dict(in_nc=net.get("in_nc", 3), out_nc=net.get("out_nc", 3), nf=net.get("nf", 64),
+                  nb=net.get("nb", 23), gc=net.get("gc", 32), upscale=opt.get("scale", 4),
+                  dtype=compute_dtype(opt))
     if which in ("RRDB_net", "RRDB_mask"):
         return RRDBNet(
-            in_nc=net.get("in_nc", 3), out_nc=net.get("out_nc", 3),
-            nf=net.get("nf", 64), nb=net.get("nb", 23), gc=net.get("gc", 32),
-            upscale=opt.get("scale", 4), norm_type=net.get("norm_type"),
+            **widths, norm_type=net.get("norm_type"),
             fused_tail=bool(net.get("fused_tail")), scan_blocks=bool(net.get("scan_blocks")),
-            dtype=compute_dtype(opt),
         )
+    if which == "RRDB_SEAN":
+        return RRDBNetSEAN(**widths, nb_ada=net.get("ada_nb", 1) or 1,
+                           norm_type=net.get("norm_type"))
+    if which in ("RRDB_Residual_conv", "RRDB_Residual_conv_concat"):
+        return RRDBNetResidualConv(**widths, nb_ada=net.get("ada_nb", 1) or 1,
+                                   concat=which != "RRDB_Residual_conv")
     if which in _GENERATORS:
         raise NotImplementedError(
             f"Generator model [{which}] is not ported yet (ROADMAP A.9)"
         )
     raise NotImplementedError(f"Generator model [{which}] not recognized")
+
+
+def define_patchD(opt: Dict) -> FSDiscriminator:
+    """The FS patch discriminator (networks.py:229-245): ``network_patchD``'s
+    ``FS_type`` (default gau), ``kernel_size`` and ``norm_layer``, its body
+    in the compute dtype. The Adaptive model's too, as in the reference;
+    ``dasr_tpu``'s Adaptive model defaults ``FS_type`` to avg_pool
+    (``registry.py:838``), so a config without the key gets another patch D
+    there (ROADMAP C.2)."""
+    net = opt.get("network_patchD") or {}
+    if net.get("which_patchD", "FSD") != "FSD":
+        raise NotImplementedError(
+            f"Patch Discriminator model [{net.get('which_patchD')}] not recognized")
+    return FSDiscriminator(d_arch="FSD", filter_type=net.get("FS_type", "gau") or "gau",
+                           kernel_size=net.get("kernel_size", 5) or 5,
+                           norm_layer=net.get("norm_layer", "Instance") or "Instance",
+                           dtype=compute_dtype(opt))
 
 
 class _InferenceModel:
@@ -71,14 +99,22 @@ class _InferenceModel:
     320k input pixels (DASR_model.py:337), exposed as ``chop_threshold``.
     ``chop_parity`` selects the reference's recursive chopper, otherwise
     ``tiled_apply`` runs 128-px tiles with a 16-px halo. ``pad_bucket: N``
-    reflect-pads inputs up to multiples of N and crops after."""
+    reflect-pads inputs up to multiples of N and crops after.
+
+    ``g_types``: the generators the model feeds; ``define_G`` builds the
+    DDM-conditioned ones too, which only ``DASRAdaptiveModel`` feeds a map."""
 
     chop_threshold: int = 0
+    g_types: tuple = (RRDBNet,)
 
     def __init__(self, opt: Dict, device: torch.device):
         self.opt = opt
         self.device = torch.device(device)
         self.g = define_G(opt)
+        if not isinstance(self.g, self.g_types):
+            raise NotImplementedError(
+                f"Model [{opt.get('model')}] with generator "
+                f"[{opt['network_G']['which_model_G']}] is not ported yet (ROADMAP A.9)")
 
     def init(self, seed: int = 0):
         """Seeded random weights in the JAX init's law, then move to the device."""
@@ -193,17 +229,23 @@ class DASRModel(_InferenceModel):
     and optimizers (the reference's ``optimize_parameters``)."""
 
     chop_threshold = 320000  # DASR_model.py:337
+    _batch_keys = ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w")
 
     def __init__(self, opt: Dict, device: torch.device):
         super().__init__(opt, device)
         self.trainer: Optional[SRNTrainer] = None
         if opt.get("is_train"):
-            cfg = srn_config(opt)
-            lpips = None
-            if cfg.feature_weight > 0 and cfg.feature_criterion == "LPIPS":
-                lpips = default_lpips("alex", seed=cfg.seed, dtype=cfg.dtype,
-                                      backbone_path=(opt.get("path") or {}).get("lpips_backbone"))
-            self.trainer = SRNTrainer(cfg, self.device, g_model=self.g, lpips=lpips)
+            self.trainer = self.make_trainer()
+
+    def _lpips(self, cfg: SRNConfig):
+        if cfg.feature_weight > 0 and cfg.feature_criterion == "LPIPS":
+            return default_lpips("alex", seed=cfg.seed, dtype=cfg.dtype,
+                                 backbone_path=(self.opt.get("path") or {}).get("lpips_backbone"))
+        return None
+
+    def make_trainer(self) -> SRNTrainer:
+        cfg = srn_config(self.opt)
+        return SRNTrainer(cfg, self.device, g_model=self.g, lpips=self._lpips(cfg))
 
     def init(self, seed: Optional[int] = None):
         """Seeded weights (``train.manual_seed`` by default) on the device;
@@ -260,7 +302,7 @@ class DASRModel(_InferenceModel):
         NCHW device tensors; uint8 images (``transfer_uint8``) are cast to
         f32 / 255 on the device."""
         dev = {}
-        for k in ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w"):
+        for k in self._batch_keys:
             v = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
             if v.dtype == torch.uint8 and k != "fake_w":
                 v = v.float() / 255.0
@@ -344,11 +386,125 @@ class DASRModel(_InferenceModel):
         return checkpoints.save_reference_formats(out_dir, self._trainer().state, iter_step)
 
 
+def adaptive_config(opt: Dict) -> AdaptiveConfig:
+    """AdaptiveConfig from the options, with the JAX package's keys and
+    defaults but one: the DDM switch is read from the shipped configs' key
+    ``use_domain_distance_map``, then from ``adaptive_weights``, the only key
+    ``dasr_tpu`` reads (``registry.py:836``), where a shipped config's
+    ``false`` is ignored (ROADMAP C.2)."""
+    train = opt.get("train") or {}
+    net_g = opt.get("network_G") or {}
+    net_d = opt.get("network_D") or {}
+    switch = next((opt[k] for k in ("use_domain_distance_map", "adaptive_weights")
+                   if opt.get(k) is not None), True)
+    return AdaptiveConfig(
+        scale=opt.get("scale", 4),
+        nf=net_g.get("nf", 64), nb=net_g.get("nb", 23), gc=net_g.get("gc", 32),
+        d_in_nc=net_d.get("in_nc", 9), d_nf=net_d.get("nf", 64),
+        d_n_layers=net_d.get("n_layers", 2),
+        lr_g=train.get("lr_G", 1e-4), lr_d=train.get("lr_D", 1e-4),
+        beta1_g=train.get("beta1_G", 0.9), beta1_d=train.get("beta1_D", 0.9),
+        lr_steps=tuple(int(m) for m in (train.get("lr_steps") or (35000,))),
+        lr_gamma=train.get("lr_gamma", 0.5),
+        fs=train.get("fs", "wavelet"),
+        norm=bool(train.get("norm", True)),
+        sup_LL=bool(train.get("sup_LL", True)),
+        pixel_weight=train.get("pixel_weight", 1.0),
+        pixel_LL_weight=train.get("pixel_LL_weight", 1.0),
+        feature_criterion=train.get("feature_criterion", "LPIPS"),
+        feature_weight=train.get("feature_weight", 1.0),
+        gan_type=train.get("gan_type", "vanilla"),
+        ragan=bool(train.get("ragan", False)),
+        gan_H_target=train.get("gan_H_target", 0.005),
+        use_domain_distance_map=bool(switch),
+        use_patchD_opt=bool(train.get("use_patchD_opt", False)),
+        seed=int(train.get("manual_seed", 0) or 0),
+        dtype=compute_dtype(opt),
+    )
+
+
+def patchd_tar_path(opt: Dict) -> Optional[str]:
+    """The patch D's DSN ``.tar``: the shipped configs' key
+    ``path.Patch_Discriminator``, then ``path.pretrain_model_patchD``, the
+    only key ``dasr_tpu`` reads (``registry.py:845``), so that with a
+    shipped config it serves and trains from a random patch D (ROADMAP
+    C.2)."""
+    paths = opt.get("path") or {}
+    return paths.get("Patch_Discriminator") or paths.get("pretrain_model_patchD")
+
+
+class DASRAdaptiveModel(DASRModel):
+    """'DASR_Adaptive_Model' (reference: codes/SRN/models/
+    DASR_Adaptive_model.py): the DDM computed online by the patch D
+    (``self.patchd``, ``define_patchD``) conditions the generator
+    (``define_G``; ``RRDB_Residual_conv[_concat]``, the ones ``dasr_tpu``
+    trains). Without ``is_train`` it serves; with it, a ``DASRAdaptiveTrainer``
+    around the same two modules. The step has no G/D update cadence, so
+    windows of K steps and the device bank (``LRHR_unpair``, no DDM bank)
+    always serve. Its train state (the patch D's included) saves to and
+    resumes from the port's ``{iter}.pt``; ``dasr_tpu`` has no reference
+    formats for this model, and ``srn_train`` refuses them."""
+
+    _batch_keys = ("LR_fake", "LR_real", "HR", "HR_unpair")
+    g_types = (RRDBNetResidualConv,)
+
+    def __init__(self, opt: Dict, device: torch.device):
+        self.cfg = adaptive_config(opt)
+        self.patchd = define_patchD(opt)
+        super().__init__(opt, device)
+
+    def make_trainer(self) -> DASRAdaptiveTrainer:
+        return DASRAdaptiveTrainer(self.cfg, self.g, self.patchd, self.device,
+                                   lpips=self._lpips(self.cfg))
+
+    def init(self, seed: Optional[int] = None):
+        """Seeded weights on the device (the patch D's too); with a trainer,
+        also the discriminators and optimizers."""
+        if self.trainer is not None:
+            self.trainer.init_state(seed)
+            return self
+        seed = seed or 0
+        super().init(seed)
+        init_lecun_(self.patchd, torch.Generator().manual_seed(seed + 1))
+        self.patchd.to(self.device, memory_format=torch.channels_last).eval()
+        return self
+
+    def load(self):
+        """G from ``pretrain_model_G`` (a ``.pth`` of the port's generator, or
+        the port's ``{iter}.pt`` train state), the patch D from its DSN
+        ``.tar`` (``patchd_tar_path``); with no ``.tar`` the patch D keeps
+        its fresh init, as in ``dasr_tpu``, and one line says so."""
+        paths = self.opt.get("path") or {}
+        g_path = paths.get("pretrain_model_G")
+        if g_path:
+            if g_path.endswith(".pt"):
+                saved = torch.load(g_path, map_location="cpu", weights_only=True)
+                self.g.load_state_dict(saved["G"]["net"])
+            else:
+                checkpoints.load_pth(self.g, g_path)
+        tar = patchd_tar_path(self.opt)
+        if tar:
+            if not tar.endswith(".tar"):
+                raise ValueError(f"the patch D's checkpoint {tar!r} is not a DSN .tar")
+            checkpoints.load_patchd_tar(self.patchd, tar)
+            print(f"patch D: loaded from {tar}", flush=True)
+        else:
+            print("patch D: no DSN .tar under path.Patch_Discriminator or "
+                  "path.pretrain_model_patchD; the DDM comes from a fresh patch D init",
+                  flush=True)
+        return self
+
+    def _apply_g(self, x):
+        return self.g(x, self.patchd(x))
+
+
 def create_model(opt: Dict, device: torch.device = torch.device("cpu")):
     """Trainer registry (reference: codes/SRN/models/__init__.py:5-26)."""
     model = opt.get("model")
     if model == "DASR":
         return DASRModel(opt, device)
+    if model == "DASR_Adaptive_Model":
+        return DASRAdaptiveModel(opt, device)
     if model == "sr":
         if opt.get("is_train"):
             raise NotImplementedError(SRModel._train_todo)

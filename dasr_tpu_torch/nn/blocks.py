@@ -4,7 +4,9 @@ Counterpart of ``dasr_tpu.nn.blocks``:
   * ``RDB5C`` / ``RRDB``   — ESRGAN residual-dense core
                              (reference: codes/SRN/models/modules/block.py:254-309)
   * ``upconv``             — nearest-x`factor` + conv + act (block.py:854-861)
-  * ``pixelshuffle_block`` — conv + depth-to-space + act (block.py:838-851)
+  * ``pixelshuffle_block`` — conv + ``nn.PixelShuffle`` + act (block.py:838-851)
+  * ``RRDBResidualConv`` / ``RRDBResidualConvConcat`` — the DDM-conditioned
+                             RRDBs of the Adaptive generator (block.py:462-528)
   * ``ShortcutBlock`` / ``sequential`` — the reference's containers, so a
     module tree carries the reference's parameter names.
   * ``ResidualBlock``      — the DSN generators' conv-PReLU-conv + skip
@@ -151,25 +153,62 @@ def upconv(in_ch: int, out_ch: int, factor: int = 2,
     )
 
 
-class DepthToSpace(nn.Module):
-    """(B, r*r*C, H, W) -> (B, C, r*H, r*W) in ``dasr_tpu``'s channel order:
-    input channel (i*r + j)*C + c lands at offset (i, j) of channel c.
-    ``nn.PixelShuffle`` orders the channels as c*r*r + i*r + j instead."""
-
-    def __init__(self, r: int):
-        super().__init__()
-        self.r = r
-
-    def forward(self, x):
-        b, c, h, w = x.shape
-        r = self.r
-        x = x.reshape(b, r, r, c // (r * r), h, w).permute(0, 3, 4, 1, 5, 2)
-        return x.reshape(b, c // (r * r), h * r, w * r)
-
-
 def pixelshuffle_block(in_ch: int, out_ch: int, factor: int = 2,
                        act_type: Optional[str] = "relu") -> nn.Sequential:
-    """conv to r^2*C, depth-to-space, act (block.py:838-851)."""
+    """conv to r^2*C, ``nn.PixelShuffle``, act (block.py:838-851): the
+    reference's layer and channel order (c, i, j), so a reference ``.pth``
+    loads as it is. ``dasr_tpu``'s depth-to-space reads the conv's channels
+    as (i, j, c); ``checkpoints.ps_conv_from_jax`` permutes a JAX kernel's
+    output channels into this order."""
     act = act_fn(act_type)
-    mods = [conv_block(in_ch, out_ch * factor * factor, 3, act_type=None), DepthToSpace(factor)]
+    mods = [conv_block(in_ch, out_ch * factor * factor, 3, act_type=None),
+            nn.PixelShuffle(factor)]
     return sequential(*mods, *([act] if act is not None else []))
+
+
+class RRDBResidualConv(nn.Module):
+    """DDM-conditioned RRDB, 'resconv' flavor (block.py:462-488):
+    ``RDB3(RDB2(RDB1(x))) * (w * 1.0) + res_conv(x) * 0.1``, where ``w``,
+    the (B, 1, h, w) adaptive map, broadcasts over the channels and
+    ``res_conv`` is two leaky-ReLU conv blocks."""
+
+    def __init__(self, nc: int = 64, gc: int = 32):
+        super().__init__()
+        self.RDB1 = RDB5C(nc, gc)
+        self.RDB2 = RDB5C(nc, gc)
+        self.RDB3 = RDB5C(nc, gc)
+        self.res_conv = sequential(conv_block(nc, nc, 3, act_type="leakyrelu"),
+                                   conv_block(nc, nc, 3, act_type="leakyrelu"))
+
+    def forward(self, x, w):
+        out = self.RDB3(self.RDB2(self.RDB1(x)))
+        return out * (w.to(out.dtype) * 1.0) + self.res_conv(x) * 0.1
+
+
+class RRDBResidualConvConcat(nn.Module):
+    """DDM-conditioned RRDB, 'concat' flavor (block.py:490-528): one shared
+    two-conv ``ada_conv`` stack maps ``[v, 0.2 w]`` (nc + 1 channels) back
+    to nc before each of the three RDBs, and the residual is the two-conv
+    ``res_conv([x, w])``; ``out * 0.2 + res``."""
+
+    def __init__(self, nc: int = 64, gc: int = 32):
+        super().__init__()
+
+        def stack():
+            return sequential(conv_block(nc + 1, nc, 3, act_type="leakyrelu"),
+                              conv_block(nc, nc, 3, act_type="leakyrelu"))
+
+        self.ada_conv = stack()
+        self.RDB1 = RDB5C(nc, gc)
+        self.RDB2 = RDB5C(nc, gc)
+        self.RDB3 = RDB5C(nc, gc)
+        self.res_conv = stack()
+
+    def forward(self, x, w):
+        w = w.to(x.dtype)
+
+        def ada(v):
+            return self.ada_conv(torch.cat([v, w * 0.2], 1))
+
+        out = self.RDB3(ada(self.RDB2(ada(self.RDB1(ada(x))))))
+        return out * 0.2 + self.res_conv(torch.cat([x, w * 1.0], 1))

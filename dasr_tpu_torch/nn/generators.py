@@ -1,6 +1,8 @@
 """Generators. Counterpart of ``dasr_tpu.nn.generators``; so far the x4
-ESRGAN generator ``RRDBNet`` that DASR serves and trains, and the DSN
-stage's degradation generators ``DeResnet`` and ``DSGANGenerator``."""
+ESRGAN generator ``RRDBNet`` that DASR serves and trains, its
+DDM-conditioned variants ``RRDBNetResidualConv`` (the Adaptive model's) and
+``RRDBNetSEAN``, and the DSN stage's degradation generators ``DeResnet``
+and ``DSGANGenerator``."""
 
 from __future__ import annotations
 
@@ -11,10 +13,13 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from dasr_tpu_torch.nn.adaptive_blocks import RRDBSEAN
 from dasr_tpu_torch.nn.blocks import (
     RDB5C,
     RRDB,
     ResidualBlock,
+    RRDBResidualConv,
+    RRDBResidualConvConcat,
     ShortcutBlock,
     pixelshuffle_block,
     sequential,
@@ -54,41 +59,117 @@ class RRDBNet(nn.Module):
         for flag, on in (("fused_tail", fused_tail), ("scan_blocks", scan_blocks)):
             if on:
                 logger.info(f"RRDBNet: {flag} ignored: a TPU rewrite of the same math, not ported")
-        n_up = 1 if upscale == 3 else int(math.log2(upscale))
-        factor = 3 if upscale == 3 else 2
         fea_conv = conv_block(in_nc, nf, 3, act_type=None)
         trunk = [RRDB(nf, gc, norm_type, act_type) for _ in range(nb)]
         lr_conv = conv_block(nf, nf, 3, norm_type=norm_type, act_type=None, mode=mode)
-        if upsample_mode == "upconv":
-            up = [upconv(nf, nf, factor, act_type) for _ in range(n_up)]
-        elif upsample_mode == "pixelshuffle":
-            up = [pixelshuffle_block(nf, nf, factor, act_type) for _ in range(n_up)]
-        else:
-            raise NotImplementedError(f"upsample mode [{upsample_mode}] is not found")
-        hr_conv0 = conv_block(nf, nf, 3, act_type=act_type)
-        hr_conv1 = conv_block(nf, out_nc, 3, act_type=None)
-        self.model = sequential(
-            fea_conv, ShortcutBlock(sequential(*trunk, lr_conv)), *up, hr_conv0, hr_conv1
-        )
+        self.model = sequential(fea_conv, ShortcutBlock(sequential(*trunk, lr_conv)),
+                                _tail(nf, out_nc, upscale, act_type, upsample_mode))
         self.dtype = dtype
 
     def init_weights(self, generator: Optional[torch.Generator] = None):
-        """The JAX init's law, drawn from ``generator``: kaiming fan-in x 0.1
-        for RDB convs, lecun-normal for every other conv, zero biases."""
-        rdb_convs = {id(c) for m in self.modules() if isinstance(m, RDB5C) for c in m.convs()}
-        for m in self.modules():
-            if isinstance(m, Conv2d):
-                if id(m) in rdb_convs:
-                    kaiming_normal_(m.weight, 0.1, generator)
-                else:
-                    lecun_normal_(m.weight, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-        return self
+        return init_rrdb_law_(self, generator)
 
     def forward(self, x):
         """x (B, in_nc, H, W) -> (B, out_nc, upscale*H, upscale*W) in ``dtype``."""
         return self.model(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
+
+
+def init_rrdb_law_(net: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The JAX init's law of the ESRGAN generators, drawn from ``generator``:
+    kaiming fan-in x 0.1 for RDB convs, lecun-normal for every other conv,
+    zero biases; other parameters keep their constructor's constants."""
+    rdb_convs = {id(c) for m in net.modules() if isinstance(m, RDB5C) for c in m.convs()}
+    for m in net.modules():
+        if isinstance(m, Conv2d):
+            if id(m) in rdb_convs:
+                kaiming_normal_(m.weight, 0.1, generator)
+            else:
+                lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return net
+
+
+def _tail(nf: int, out_nc: int, upscale: int, act_type: str, upsample_mode: str = "upconv"):
+    """The x``upscale`` upsampler and the two HR convs."""
+    n_up = 1 if upscale == 3 else int(math.log2(upscale))
+    factor = 3 if upscale == 3 else 2
+    if upsample_mode == "upconv":
+        up = [upconv(nf, nf, factor, act_type) for _ in range(n_up)]
+    elif upsample_mode == "pixelshuffle":
+        up = [pixelshuffle_block(nf, nf, factor, act_type) for _ in range(n_up)]
+    else:
+        raise NotImplementedError(f"upsample mode [{upsample_mode}] is not found")
+    return sequential(*up, conv_block(nf, nf, 3, act_type=act_type),
+                      conv_block(nf, out_nc, 3, act_type=None))
+
+
+class _ConditionedRRDBNet(nn.Module):
+    """Shared frame of the DDM-conditioned generators: ``fea_conv``, the
+    conditioned and plain trunk (``_trunk``), ``lr_conv``, the long skip and
+    ``tail``; ``forward(x, w)`` with a (B, 1, h, w) map at the LR size.
+    These generators have no published ``.pth`` layout; their parameter
+    names are the port's own (``checkpoints`` carries JAX trees to them)."""
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        return init_rrdb_law_(self, generator)
+
+    def forward(self, x, w):
+        """x (B, in_nc, H, W), w (B, 1, H, W) -> (B, out_nc, upscale*H,
+        upscale*W) in ``dtype``."""
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        fea = self.fea_conv(x)
+        return self.tail(fea + self.lr_conv(self._trunk(fea, w.to(self.dtype))))
+
+
+class RRDBNetResidualConv(_ConditionedRRDBNet):
+    """The DASR Adaptive generator (architecture.py:208-297):
+    ``nb_ada`` DDM-conditioned blocks (``RRDBResidualConv``, or
+    ``RRDBResidualConvConcat`` with ``concat``) on the head features, then
+    ``nb`` plain RRDBs, the trunk conv, the long skip and the
+    nearest-upconv tail."""
+
+    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 23,
+                 gc: int = 32, nb_ada: int = 1, concat: bool = False, upscale: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        block = RRDBResidualConvConcat if concat else RRDBResidualConv
+        self.fea_conv = conv_block(in_nc, nf, 3, act_type=None)
+        self.ada_blocks = nn.ModuleList(block(nf, gc) for _ in range(nb_ada))
+        self.trunk = nn.Sequential(*(RRDB(nf, gc) for _ in range(nb)))
+        self.lr_conv = conv_block(nf, nf, 3, act_type=None)
+        self.tail = _tail(nf, out_nc, upscale, "leakyrelu")
+        self.dtype = dtype
+
+    def _trunk(self, h, w):
+        for block in self.ada_blocks:
+            h = block(h, w)
+        return self.trunk(h)
+
+
+class RRDBNetSEAN(_ConditionedRRDBNet):
+    """ESRGAN generator with trailing SEAN-conditioned RRDBs
+    (architecture.py:873-918): ``nb`` plain RRDBs, then ``nb_ada``
+    ``RRDBSEAN``, the trunk conv, the long skip, the upsampler
+    (``upsample_mode``) and the HR convs."""
+
+    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 23,
+                 gc: int = 32, nb_ada: int = 1, upscale: int = 4,
+                 norm_type: Optional[str] = None, upsample_mode: str = "upconv",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fea_conv = conv_block(in_nc, nf, 3, act_type=None)
+        self.trunk = nn.Sequential(*(RRDB(nf, gc, norm_type) for _ in range(nb)))
+        self.ada_blocks = nn.ModuleList(RRDBSEAN(nf, gc) for _ in range(nb_ada))
+        self.lr_conv = conv_block(nf, nf, 3, norm_type=norm_type, act_type=None)
+        self.tail = _tail(nf, out_nc, upscale, "leakyrelu", upsample_mode)
+        self.dtype = dtype
+
+    def _trunk(self, h, w):
+        h = self.trunk(h)
+        for block in self.ada_blocks:
+            h = block(h, w)
+        return h
 
 
 class DeResnet(nn.Module):

@@ -22,6 +22,7 @@ too.
 from __future__ import annotations
 
 import glob
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -32,6 +33,11 @@ import torch
 def _j2t_conv(w: np.ndarray) -> np.ndarray:
     """flax HWIO conv kernel -> torch OIHW."""
     return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
+
+
+def _conv_t(kernel) -> torch.Tensor:
+    """A flax HWIO kernel as a writable f32 OIHW tensor."""
+    return torch.from_numpy(np.array(_j2t_conv(np.asarray(kernel, np.float32))))
 
 
 def rrdbnet_key_map(nb: int = 23):
@@ -74,9 +80,13 @@ def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return model
 
 
-def rrdbnet_state_dict_from_jax(params_np: Dict[str, Any], nb: int) -> Dict[str, torch.Tensor]:
+def rrdbnet_state_dict_from_jax(params_np: Dict[str, Any], nb: int,
+                                upsample_mode: str = "upconv") -> Dict[str, torch.Tensor]:
     """JAX ``RRDBNet`` parameters (nested dicts of arrays, with or without the
-    top ``params`` level) -> reference-named f32 state dict."""
+    top ``params`` level) -> reference-named f32 state dict. With
+    ``upsample_mode`` 'pixelshuffle' the upsampler convs sit at ``model.2``
+    and ``model.5``, their output channels put in ``nn.PixelShuffle``'s
+    order (``ps_conv_from_jax``)."""
     params = params_np.get("params", params_np)
 
     def node(path):
@@ -85,19 +95,177 @@ def rrdbnet_state_dict_from_jax(params_np: Dict[str, Any], nb: int) -> Dict[str,
             n = n[p]
         return n
 
-    def t(v):
-        return torch.from_numpy(np.array(v, dtype=np.float32))
-
     sd: Dict[str, torch.Tensor] = {}
     for tkey, fpath, kind in rrdbnet_key_map(nb):
         if kind == "rdbconv":
             n = node(fpath[:-1])
             kernel, bias = n[fpath[-1] + "_kernel"], n[fpath[-1] + "_bias"]
+            sd[tkey + ".weight"] = _conv_t(kernel)
+            sd[tkey + ".bias"] = _vec_t(bias)
+        elif fpath[0].startswith("upconv") and upsample_mode == "pixelshuffle":
+            i = int(fpath[0][-1])
+            sd.update(ps_conv_from_jax(params[f"pixelshuffle_block_{i}"]["conv_block_0"],
+                                       f"model.{2 + 3 * i}"))
         else:
-            n = node(fpath)
-            kernel, bias = n["kernel"], n["bias"]
-        sd[tkey + ".weight"] = t(_j2t_conv(np.asarray(kernel)))
-        sd[tkey + ".bias"] = t(bias)
+            sd.update(_conv_block_sd(node(fpath[:-1]), tkey))
+    return sd
+
+
+def _vec_t(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, dtype=np.float32).reshape(-1))
+
+
+def _conv_block_sd(node, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax ``conv_block`` (``Conv_0``), or a bare ``nn.Conv`` node, as
+    ``{prefix}.weight`` / ``{prefix}.bias``."""
+    conv = node.get("Conv_0", node)
+    return {prefix + ".weight": _conv_t(conv["kernel"]), prefix + ".bias": _vec_t(conv["bias"])}
+
+
+def ps_conv_from_jax(node, prefix: str, r: int = 2) -> Dict[str, torch.Tensor]:
+    """A JAX ``pixelshuffle_block``'s conv (``conv_block_0`` node): the
+    depth-to-space of ``dasr_tpu`` reads output channel (i r + j) C + c as
+    offset (i, j) of channel c, ``nn.PixelShuffle`` reads c r^2 + i r + j,
+    so the output channels are permuted (the inverse of
+    ``dasr_tpu.train.checkpoints.import_sftnet_params``'s ``conv_ps``)."""
+    sd = _conv_block_sd(node, prefix)
+    cout = sd[prefix + ".bias"].shape[0]
+    perm = torch.from_numpy(np.arange(cout).reshape(r, r, cout // (r * r)).transpose(2, 0, 1)
+                            .reshape(-1))
+    return {k: v[perm].contiguous() for k, v in sd.items()}
+
+
+def _rdb_sd(node, prefix: str) -> Dict[str, torch.Tensor]:
+    """A JAX ``RDB5C`` (``conv{k}_kernel`` / ``conv{k}_bias``) as the port's
+    ``{prefix}.conv{k + 1}.0``."""
+    sd = {}
+    for k in range(5):
+        sd[f"{prefix}.conv{k + 1}.0.weight"] = _conv_t(node[f"conv{k}_kernel"])
+        sd[f"{prefix}.conv{k + 1}.0.bias"] = _vec_t(node[f"conv{k}_bias"])
+    return sd
+
+
+def _rdbs_sd(node, prefix: str, names=("RDB1", "RDB2", "RDB3")) -> Dict[str, torch.Tensor]:
+    """A block's three ``RDB5C_j`` at ``{prefix}.{names[j]}``."""
+    sd = {}
+    for j, name in enumerate(names):
+        sd.update(_rdb_sd(node[f"RDB5C_{j}"], f"{prefix}{name}"))
+    return sd
+
+
+def _stack_sd(nodes, prefix: str) -> Dict[str, torch.Tensor]:
+    """Conv blocks of a port ``sequential`` of (conv, act) pairs."""
+    sd = {}
+    for i, node in enumerate(nodes):
+        sd.update(_conv_block_sd(node, f"{prefix}{2 * i}"))
+    return sd
+
+
+def _scalar(node, name: str, prefix: str) -> Dict[str, torch.Tensor]:
+    return {prefix + name: _vec_t(node[name])}
+
+
+_RDBS = tuple(f"RDBs.{j}" for j in range(3))
+
+
+def adaptive_block_state_dict_from_jax(kind: str, params_np: Dict[str, Any], prefix: str = "",
+                                       ada_nb: int = 4) -> Dict[str, torch.Tensor]:
+    """The JAX parameters of one DDM-conditioned or channel-attention block
+    (``kind``: its class name in ``dasr_tpu.nn.blocks`` /
+    ``dasr_tpu.nn.adaptive_blocks``) -> the port module's state dict, keys
+    under ``prefix``. ``ada_nb``: ``AdaptiveModule``'s chain length."""
+    p = params_np.get("params", params_np)
+    sd: Dict[str, torch.Tensor] = {}
+    if kind == "RRDB":
+        sd.update(_rdbs_sd(p, prefix))
+    elif kind == "RRDBResidualConv":
+        sd.update(_rdbs_sd(p, prefix))
+        sd.update(_stack_sd([p["conv_block_0"], p["conv_block_1"]], f"{prefix}res_conv."))
+    elif kind == "RRDBResidualConvConcat":
+        sd.update(_stack_sd([p["ada_conv_0"], p["ada_conv_1"]], f"{prefix}ada_conv."))
+        sd.update(_rdbs_sd(p, prefix))
+        sd.update(_stack_sd([p["res_conv_0"], p["res_conv_1"]], f"{prefix}res_conv."))
+    elif kind == "AffineModule":
+        sd.update(_stack_sd([p["conv_block_0"], p["conv_block_1"]], f"{prefix}ddm_conv1."))
+        for name in ("gamma1", "bias1"):
+            sd.update(_scalar(p, name, prefix))
+    elif kind == "RRDBAffine":
+        sd.update(_rdbs_sd(p, prefix, _RDBS))
+        for j in range(3):
+            sd.update(adaptive_block_state_dict_from_jax(
+                "AffineModule", p[f"AffineModule_{j}"], f"{prefix}affines.{j}."))
+    elif kind == "SEANModule":
+        cb = [p[f"conv_block_{i}"] for i in range(7)]
+        for name, nodes in (("rep_gamma", cb[0:2]),
+                            ("rep_beta_dormant", [p["rep_beta_dormant_0"],
+                                                  p["rep_beta_dormant_1"]]),
+                            ("ddm_conv", cb[2:3]), ("ddm_gamma", cb[3:5]), ("ddm_beta", cb[5:7])):
+            sd.update(_stack_sd(nodes, f"{prefix}{name}."))
+        for name in ("alpha_gamma", "alpha_beta"):
+            sd.update(_scalar(p, name, prefix))
+    elif kind == "RRDBSEAN":
+        sd.update(_rdbs_sd(p, prefix, _RDBS))
+        for i in range(3):
+            sd.update(adaptive_block_state_dict_from_jax(
+                "SEANModule", p[f"SEANModule_{i}"], f"{prefix}seans.{i}."))
+            sd.update(_conv_block_sd(p[f"conv_block_{i}"], f"{prefix}convs.{i}.0"))
+    elif kind == "RRDBAda":
+        sd.update(_scalar(p, "lda", prefix))
+        sd.update(_rdbs_sd(p, prefix, _RDBS))
+    elif kind == "AdaptiveModule":
+        for i in range(2 * ada_nb):
+            side = "real" if i < ada_nb else "fake"
+            sd.update(_rdbs_sd(p[f"RRDB_{i}"], f"{prefix}{side}.{i % ada_nb}."))
+    elif kind == "RRDBCatInput":
+        for i in range(3):
+            sd.update(_conv_block_sd(p[f"conv_block_{i}"], f"{prefix}merges.{i}.0"))
+        sd.update(_rdbs_sd(p, prefix, _RDBS))
+    elif kind == "RRDBWithFeatureOut":
+        sd.update(_rdbs_sd(p, prefix, _RDBS))
+        sd.update(_conv_block_sd(p["conv_block_0"], f"{prefix}tap.0"))
+    elif kind == "CALayer":
+        sd.update(_conv_block_sd(p["Conv_0"], f"{prefix}conv_du.0"))
+        sd.update(_conv_block_sd(p["Conv_1"], f"{prefix}conv_du.2"))
+    elif kind == "RCAB":
+        sd.update(_conv_block_sd(p["Conv_0"], f"{prefix}body.0"))
+        sd.update(_conv_block_sd(p["Conv_1"], f"{prefix}body.2"))
+        sd.update(adaptive_block_state_dict_from_jax("CALayer", p["CALayer_0"],
+                                                     f"{prefix}body.3."))
+    elif kind == "CARRDB":
+        sd.update(_rdbs_sd(p, prefix, _RDBS))
+        for i in range(2):
+            sd.update(adaptive_block_state_dict_from_jax("RCAB", p[f"RCAB_{i}"],
+                                                         f"{prefix}RCABs.{i}."))
+    else:
+        raise NotImplementedError(f"no carry-over for block [{kind}]")
+    return sd
+
+
+def conditioned_g_state_dict_from_jax(params_np: Dict[str, Any], nb: int, nb_ada: int,
+                                      block: str, upscale: int = 4,
+                                      upsample_mode: str = "upconv") -> Dict[str, torch.Tensor]:
+    """JAX ``RRDBNetResidualConv`` (``block`` 'RRDBResidualConv' or
+    'RRDBResidualConvConcat') or ``RRDBNetSEAN`` (``block`` 'RRDBSEAN')
+    parameters -> the port generator's state dict: ``fea_conv``,
+    ``ada_blocks``, ``trunk``, ``lr_conv`` and ``tail`` (its upsampler
+    convs permuted for ``nn.PixelShuffle`` in 'pixelshuffle' mode)."""
+    p = params_np.get("params", params_np)
+    sd = _conv_block_sd(p["conv_block_0"], "fea_conv.0")
+    for i in range(nb_ada):
+        sd.update(adaptive_block_state_dict_from_jax(block, p[f"{block}_{i}"],
+                                                     f"ada_blocks.{i}."))
+    for i in range(nb):
+        sd.update(_rdbs_sd(p[f"RRDB_{i}"], f"trunk.{i}."))
+    sd.update(_conv_block_sd(p["conv_block_1"], "lr_conv.0"))
+    n_up = 1 if upscale == 3 else int(math.log2(upscale))
+    for i in range(n_up):
+        if upsample_mode == "pixelshuffle":
+            sd.update(ps_conv_from_jax(p[f"pixelshuffle_block_{i}"]["conv_block_0"],
+                                       f"tail.{3 * i}"))
+        else:
+            sd.update(_conv_block_sd(p[f"upconv_{i}"]["conv_block_0"], f"tail.{3 * i + 1}"))
+    sd.update(_conv_block_sd(p["conv_block_2"], f"tail.{3 * n_up}"))
+    sd.update(_conv_block_sd(p["conv_block_3"], f"tail.{3 * n_up + 2}"))
     return sd
 
 
@@ -122,11 +290,6 @@ def nlayer_d_state_dict_from_jax(params_np: Dict[str, Any], n_layers: int) -> Di
         if "bias" in node:
             sd[tkey + ".bias"] = torch.from_numpy(np.array(node["bias"], dtype=np.float32))
     return sd
-
-
-def _conv_t(kernel) -> torch.Tensor:
-    """A flax HWIO kernel as a writable f32 OIHW tensor."""
-    return torch.from_numpy(np.array(_j2t_conv(np.asarray(kernel, np.float32))))
 
 
 def deresnet_state_dict_from_jax(params_np: Dict[str, Any], n_res_blocks: int,
@@ -202,8 +365,12 @@ def lpips_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.T
 
 
 def _nets(state):
+    """(label, NetState) of every network of a train state: G, D_target,
+    D_source, and the Adaptive trainer's patch D."""
     return [(label, net) for label, net in (("G", state.g), ("D_target", state.d_target),
-                                            ("D_source", state.d_source)) if net is not None]
+                                            ("D_source", state.d_source),
+                                            ("patchD", getattr(state, "patchd", None)))
+            if net is not None]
 
 
 def save_train_state(ckpt_dir: str, state, iter_step: int) -> str:
@@ -329,6 +496,16 @@ def save_dsn_tar(path: str, g: torch.nn.Module, d: torch.nn.Module, epoch: int =
 def load_dsn_tar(path: str) -> Dict[str, Any]:
     """A DSN ``.tar`` checkpoint's dict, tensors on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_patchd_tar(patchd: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a DSN ``.tar``'s discriminator (``models_d_state_dict``, or the
+    whole dict) into an FSD ``FSDiscriminator``, strict: the ``.tar`` of
+    either package's ``save_dsn_tar`` (the counterpart of
+    ``dasr_tpu.train.checkpoints.import_fsd_discriminator_params``)."""
+    ckpt = load_dsn_tar(path)
+    patchd.load_state_dict(ckpt.get("models_d_state_dict", ckpt), strict=True)
+    return patchd
 
 
 def save_reference_formats(out_dir: str, state, iter_step: int) -> str:

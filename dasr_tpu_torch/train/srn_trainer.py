@@ -182,24 +182,33 @@ class SRNTrainer:
         HR, HR_unpair, fake_w). Returns the metrics as 0-d f32 tensors. With
         ``do_g``/``do_d`` false the losses are still reported but that side
         is not updated."""
-        c, st = self.cfg, self.state
         var_l = torch.cat([batch["LR_fake"], batch["LR_real"]])
         var_h = torch.cat([batch["HR"], batch["HR_unpair"]])
-        b = batch["LR_fake"].shape[0]
         weights = bilinear_resize(batch["fake_w"], var_h.shape[-2], var_h.shape[-1])
+        return self._gan_step(self.state, var_l, var_h, batch["LR_fake"].shape[0], (),
+                              weights if self.cfg.multiweights else None, {}, do_g, do_d)
+
+    def _gan_step(self, st: GANTrainState, var_l, var_h, b: int, g_extra, weights,
+                  metrics: Dict[str, torch.Tensor], do_g: bool,
+                  do_d: bool) -> Dict[str, torch.Tensor]:
+        """The step after its batch is assembled: G on ``var_l`` (and
+        ``g_extra``), G's losses, the discriminators' losses, the updates,
+        ``st.step`` + 1. ``weights``: the per-pixel pixel-loss weights at HR
+        size, or None for the plain pixel loss; ``metrics``: those the caller
+        already took."""
+        c = self.cfg
         real_ll, real_hc = self._fs(var_h)
         hr_src, hr_ll_src = var_h[:b], real_ll[:b]
         hf_src_real, hf_tgt_real = real_hc[:b], real_hc[b:]
 
-        fake_h = st.g.net(var_l)
+        fake_h = st.g.net(var_l, *g_extra)
         fake_ll, fake_hc = self._fs(fake_h)
         sr_src, sr_ll_src = fake_h[:b], fake_ll[:b]
         hf_src_fake, hf_tgt_fake = fake_hc[:b], fake_hc[b:]
 
         total = torch.zeros((), device=self.device)
-        metrics = {}
         if c.pixel_weight > 0:
-            if c.multiweights:
+            if weights is not None:
                 # reference quirk: l_pix_w applied twice (DASR_model.py:214-218)
                 l_pix = c.pixel_weight * torch.mean(
                     weights.float() * (sr_src.float() - hr_src.float()).abs())

@@ -13,6 +13,7 @@ from dasr_tpu.nn.layers import conv_block as jconv_block
 from dasr_tpu_torch.nn import blocks
 from dasr_tpu_torch.nn.layers import conv_block
 from dasr_tpu_torch.ops.rdb import TOLERANCES
+from dasr_tpu_torch.train import checkpoints as ck
 
 ATOL, _ = TOLERANCES["jax_blocks"]
 WIDTHS = [(16, 8), (64, 32)]
@@ -94,10 +95,30 @@ def test_conv_block_matches_flax(rng, act):
 
 
 def test_pixelshuffle_block_matches_flax(rng):
+    """Through the carry-over, which puts the conv's output channels from
+    flax's depth-to-space order (i, j, c) in nn.PixelShuffle's (c, i, j)."""
     x = rng.random((1, 5, 6, 16), dtype=np.float32)
     _compare(jblocks.pixelshuffle_block(8, 2, act_type="relu"),
-             lambda p: _conv_sd(p["conv_block_0"], 0),
+             lambda p: ck.ps_conv_from_jax(jax.tree.map(np.asarray, p["conv_block_0"]), "0"),
              blocks.pixelshuffle_block(16, 8, 2, act_type="relu"), x)
+
+
+def test_pixelshuffle_block_is_the_reference_layer(rng):
+    """On reference-ordered weights (a reference .pth as it is) the block is
+    conv -> nn.PixelShuffle -> act, as the reference's (block.py:838-851):
+    input channel c r^2 + i r + j lands at offset (i, j) of channel c."""
+    m = blocks.pixelshuffle_block(16, 8, 2, act_type="relu")
+    sd = {"0.weight": torch.from_numpy(rng.normal(0, 0.1, (32, 16, 3, 3)).astype(np.float32)),
+          "0.bias": torch.from_numpy(rng.normal(0, 0.1, (32,)).astype(np.float32))}
+    m.load_state_dict(sd, strict=True)
+    x = torch.from_numpy(rng.random((2, 16, 5, 6), dtype=np.float32))
+    y = torch.nn.functional.conv2d(x, sd["0.weight"], sd["0.bias"], padding=1)
+    with torch.no_grad():
+        got = m(x)
+    torch.testing.assert_close(got, torch.relu(torch.nn.PixelShuffle(2)(y)), rtol=0, atol=0)
+    for c, i, j in ((0, 0, 1), (3, 1, 0), (7, 1, 1)):
+        torch.testing.assert_close(got[:, c, i::2, j::2], torch.relu(y[:, c * 4 + i * 2 + j]),
+                                   rtol=0, atol=0)
 
 
 def test_rdb5c_caches_kernel_weights_per_parameter_version():

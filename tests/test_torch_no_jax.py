@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of dasr_tpu_torch, serving a
 tiny corpus through its srn_test CLI, training two steps through its
-srn_train CLI, running the three stages through its auto_reproduce CLI
+srn_train CLI, two DASR Adaptive steps on the device bank through it, running the three stages through its auto_reproduce CLI
 (dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
 auto_test and add_corruptions CLIs on those runs' outputs load neither jax
 nor dasr_tpu.
@@ -48,6 +48,16 @@ from dasr_tpu_torch.cli import srn_train
 troot = os.path.join(root, "train")
 steps, last = srn_train.main(["-opt", train_config(troot, write_corpus(troot, n=2), niter=2),
                               "--device", "cpu"])
+assert steps == 2 and np.isfinite(last["loss/l_g_total"])
+aroot = os.path.join(root, "adaptive")
+acfg_path = train_config(aroot, write_corpus(aroot, n=2), niter=2)
+acfg = json.load(open(acfg_path))
+acfg.update(model="DASR_Adaptive_Model", name="tiny_adaptive")
+acfg["datasets"]["train"]["mode"] = "LRHR_unpair"
+acfg["network_G"].update(which_model_G="RRDB_Residual_conv", ada_nb=1)
+acfg["logger"]["save_ref_formats"] = False
+json.dump(acfg, open(acfg_path, "w"))
+steps, last = srn_train.main(["-opt", acfg_path, "--device", "cpu", "--device_bank"])
 assert steps == 2 and np.isfinite(last["loss/l_g_total"])
 from torch_dsn_corpus import auto_reproduce_args
 from dasr_tpu_torch.cli import auto_reproduce

@@ -146,7 +146,7 @@ def test_val_lpips_is_refused(corpus):
 
 def test_dasr_model_serves_and_other_models_are_refused(corpus):
     from dasr_tpu_torch.core.config import parse_srn_options
-    from dasr_tpu_torch.models.registry import DASRModel, create_model
+    from dasr_tpu_torch.models.registry import DASRAdaptiveModel, DASRModel, create_model
 
     opt = parse_srn_options(_config(corpus, "dasr", False, model="DASR_FS_ESRGAN_patchGAN"),
                             is_train=False)
@@ -160,6 +160,17 @@ def test_dasr_model_serves_and_other_models_are_refused(corpus):
         opt["model"] = name
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             create_model(opt)
+    # the DASR Adaptive model is ported (ROADMAP A.9's first item) with the
+    # generators it feeds a domain-distance map; no other model feeds one
+    net_g = opt["network_G"]
+    opt["network_G"] = dict(net_g, which_model_G="RRDB_Residual_conv", ada_nb=1)
+    assert isinstance(create_model(opt), DASRAdaptiveModel)
+    for name, which in (("DASR", "RRDB_Residual_conv"), ("sr", "RRDB_Residual_conv_concat"),
+                        ("DASR", "RRDB_SEAN"), ("DASR_Adaptive_Model", "RRDB_SEAN")):
+        opt["model"], opt["network_G"]["which_model_G"] = name, which
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+            create_model(opt)
+    opt["network_G"] = net_g
     opt["model"], opt["is_train"] = "sr", True
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         create_model(opt)

@@ -269,7 +269,8 @@ def _gate_case(root, case):
 
 @pytest.mark.parametrize("case,reason", [
     ("budget", "GiB > budget"), ("small_images", "smaller than the crop"),
-    ("not_dasr", "model [sr] has no banked path"), ("adaptive", "ROADMAP A.9"),
+    ("not_dasr", "model [sr] has no banked path"), ("adaptive", "dataset mode [LRHR_wavelet_unpair_fake_weights_EQ] unsupported for model "
+                  "[DASR_Adaptive_Model]"),
     ("update_inter", "G/D_update_inter != 1"), ("mode", "dataset mode"),
     ("count_mismatch", "3 fake LRs, 4 HRs and 3 DDMs are not paired"),
     ("fewer_than_a_batch", "3 train images hold no batch of 4"),
