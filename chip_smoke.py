@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases bank                      # the banked fast path
     python3 chip_smoke.py --phases tools                     # resume, val_batch, the tool CLIs
     python3 chip_smoke.py --phases adaptive                  # the DASR Adaptive model
+    python3 chip_smoke.py --phases paired                    # sr, srgan/srragan, De_Resnet
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -134,6 +135,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -170,6 +172,18 @@ ADAPTIVE_LR_SIZES = LR_SIZES + ((540, 600),)
 ADAPTIVE_CONFIG = os.path.join("dasr_tpu_torch", "configs", "train_DASR_Adaptive.json")
 ADAPTIVE_NB, ADAPTIVE_NB_ADA = 19, 4  # train_DASR_Adaptive.json's trunk
 ADAPTIVE_STEPS = 30
+# what the paired phase gives the kernel beyond those, under grad:
+# train_sr.json's 3 LR crops of 48x48 (HR 192), train_SRGAN.json's 8
+PAIRED_SHAPES = ((3, 48, 48), (8, 48, 48))
+PAIRED_STEPS = 12
+# run: (the port's config, its model, train options over the config's)
+PAIRED_RUNS = {
+    "sr": ("train_sr.json", "sr", {}),
+    "srragan": ("train_SRGAN.json", "srragan", {}),
+    "srgan": ("train_SRGAN.json", "srgan", {"D_update_ratio": 2, "D_init_iters": 2}),
+    "sr_resnet": ("train_SRResNet.json", "sr", {}),
+    "De_Resnet": ("train_De_Resnet.json", "De_Resnet", {}),
+}
 ADAPTIVE_BANK_K = 8
 ADAPTIVE_BANK_STEPS = 16
 TRAIN_STEPS = 30
@@ -296,7 +310,7 @@ def phase_kernel(gpu):
     checked = set()
     with torch.no_grad():
         for b, h, w in (KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES
-                        + ADAPTIVE_SHAPES):
+                        + ADAPTIVE_SHAPES + PAIRED_SHAPES):
             x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
             x = torch.from_numpy(x_np).to(dev)
             ks = [torch.from_numpy(k).to(dev) for k in ks_np]
@@ -714,7 +728,7 @@ def phase_grad(gpu):
     rng = np.random.default_rng(SEED + 1)
     report = {"grad_rel_err_f32": 0.0, "grad_rel_err_bf16": 0.0}
     checked = set()
-    for b, h, w in KERNEL_SHAPES + TRAIN_SHAPES + ADAPTIVE_SHAPES[:1]:
+    for b, h, w in KERNEL_SHAPES + TRAIN_SHAPES + ADAPTIVE_SHAPES[:1] + PAIRED_SHAPES:
         x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
         g_np = rng.normal(0, 1, (b, h, w, NC)).astype(np.float32)
         for dt, tol in ((torch.float32, "grad_f32"), (torch.bfloat16, "grad_bf16")):
@@ -844,11 +858,14 @@ def train_config(root, dirs, name, niter, nb=NB, bf16=True, print_freq=1, **extr
 
 
 def flat(ns, moment=False):
-    """One network's trainable params, or Adam's first moments of them."""
+    """One network's trainable params, or Adam's first moments of them (0
+    before its first step)."""
     import torch
 
-    return torch.cat([(ns.opt.state[p]["exp_avg"] if moment else p.detach()).flatten()
-                      for p in ns.params()])
+    if not moment:
+        return torch.cat([p.detach().flatten() for p in ns.params()])
+    return torch.cat([ns.opt.state[p]["exp_avg"].flatten() if p in ns.opt.state
+                      else torch.zeros_like(p).flatten() for p in ns.params()])
 
 
 def compare_three_steps(what, run, ref, loss_tol, update_tol, moment_tol):
@@ -2418,13 +2435,392 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
     return report
 
 
+def paired_config(root, dirs, name, run, niter, nb=None, bf16=True, print_freq=1):
+    """The port's copy of the run's shipped config (``PAIRED_RUNS``) on the
+    synthetic corpus, ``dataroot_LR`` null (the host bicubic), one
+    validation and one save at ``niter``."""
+    config, model, train = PAIRED_RUNS[run]
+    with open(os.path.join(ROOT, "dasr_tpu_torch", "configs", config)) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, model=model, bf16=bf16, use_tb_logger=False)
+    cfg["path"] = {"root": root}
+    cfg["datasets"]["train"].update(dataroot_HR=dirs["hr"], dataroot_LR=None, n_workers=6)
+    cfg["datasets"]["val"].update(dataroot_HR=dirs["val_hr"], dataroot_LR=dirs["val_lr"])
+    if nb is not None:
+        cfg["network_G"]["nb"] = nb
+    cfg["train"].update(niter=niter, val_freq=niter, **train)
+    cfg["logger"] = {"print_freq": print_freq, "save_checkpoint_freq": niter}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def paired_serve_config(root, name, config, chop, g_path, net_g=None):
+    """The port's copy of a shipped test config on the serve corpus (its
+    first test set), G from ``g_path``; ``net_g``: another network_G."""
+    with open(os.path.join(ROOT, "dasr_tpu_torch", "configs", config)) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, chop=chop)
+    cfg["datasets"] = {"test_1": {"name": "synth", "mode": "LRHR",
+                                  "dataroot_HR": os.path.join(root, "hr"),
+                                  "dataroot_LR": os.path.join(root, "lr")}}
+    cfg["path"] = {"root": root, "pretrain_model_G": g_path}
+    if net_g is not None:
+        cfg["network_G"] = net_g
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_paired(gpu, root, checked, checked_grad):
+    """The paired-data trainers ('sr' with RRDB_net and sr_resnet, 'srgan' /
+    'srragan', 'De_Resnet') at the full width of their shipped configs:
+    srn_train and srn_test, counted; test_x8; the srgan G gate; each step's
+    times; three f32 srragan steps, the kernel against the plain version."""
+    import contextlib
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    import dasr_tpu_torch.nn.blocks as blocks
+    from dasr_tpu_torch.cli import srn_test, srn_train
+    from dasr_tpu_torch.core.config import parse_srn_options
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.io import save_img
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+    report, launches, seen = {}, {}, set()
+
+    def lap(part):
+        laps.append(time.perf_counter())
+        report.setdefault("part_s", {})[part] = laps[-1] - laps[-2]
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    base = os.path.join(root, "paired")
+    dirs = {d: os.path.join(base, d) for d in ("hr", "val_hr", "val_lr")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(16):
+        save_img(rng.random((192, 192, 3), dtype=np.float32),
+                 os.path.join(dirs["hr"], f"{i:03d}.png"))
+    for i in range(2):
+        lr = rng.random((64, 64, 3), dtype=np.float32)
+        save_img(lr, os.path.join(dirs["val_lr"], f"v{i}.png"))
+        save_img(np.kron(lr, np.ones((4, 4, 1), np.float32)),
+                 os.path.join(dirs["val_hr"], f"v{i}.png"))
+    per_forward = 3 * NB * LAUNCHES_PER_RDB
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+    def counted(label, fn, forwards):
+        # one run of the main path: the count set to 0 just before it, read
+        # just after, and held against 345 launches per generator forward
+        fused_rdb.launches = 0
+        handle = register_module_forward_pre_hook(record)
+        tee = Tee()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            handle.remove()
+        n = fused_rdb.launches
+        print(f"paired {label}: fused_rdb launches {n}, expected {per_forward} x {forwards} = "
+              f"{per_forward * forwards}; {secs:.2f} s", flush=True)
+        if n != per_forward * forwards:
+            fail(f"paired {label}: {n} kernel launches, expected {per_forward * forwards}")
+        launches[label] = n
+        return out, secs, "".join(tee.parts)
+
+    # the main path, 1: srn_train of each model, one validation, one save
+    for run, (_, model_name, _) in PAIRED_RUNS.items():
+        cfg = paired_config(base, dirs, f"train_{run}", run, PAIRED_STEPS)
+        rrdb = json.load(open(cfg))["network_G"]["which_model_G"] == "RRDB_net"
+        (steps, _), secs, _ = counted(
+            f"train {run}", lambda: run_cli(srn_train.main, ["-opt", cfg, "--device", "cuda"]),
+            (PAIRED_STEPS + 2) * rrdb)  # one G forward a step and a validation image
+        with open(os.path.join(base, f"train_{run}", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r for r in recs if any(k.startswith("loss/") for k in r)]
+        val = [r for r in recs if "val/psnr" in r]
+        if (steps != PAIRED_STEPS or [r["step"] for r in losses] != list(range(1, steps + 1))
+                or not all(np.isfinite(v) for r in losses for k, v in r.items()
+                           if k.startswith("loss/"))):
+            fail(f"paired train {run}: {steps} steps, losses missing or not finite")
+        if len(val) != 1 or not all(np.isfinite(v) for k, v in val[0].items()
+                                    if k.startswith("val/")):
+            fail(f"paired train {run}: validation missing or not finite: {val}")
+        if not os.path.exists(os.path.join(base, f"train_{run}", "training_state",
+                                           f"{PAIRED_STEPS}.pt")):
+            fail(f"paired train {run}: the train state was not saved")
+        print(f"paired train {run} ({model_name}): {steps} steps in {secs:.2f} s through the "
+              f"CLI (host loader, host bicubic LR); losses step 1 -> {steps}: "
+              + ", ".join(f"{k.split('/')[-1]} {losses[0][k]:.4e} -> {losses[-1][k]:.4e}"
+                          for k in sorted(losses[0]) if k.startswith("loss/"))
+              + f"; validation {({k: v for k, v in val[0].items() if k.startswith('val/')})} "
+              f"[{gpu}]", flush=True)
+        report[f"train_s_{run}"] = secs
+    lap("train")
+
+    # the main path, 2: srn_test plain and chopped from the saves
+    serve_root = os.path.join(base, "serve")
+    os.makedirs(serve_root)
+    write_corpus(serve_root, rng)
+    n_img = len(LR_SIZES)
+
+    def pt(run):
+        return os.path.join(base, f"train_{run}", "training_state", f"{PAIRED_STEPS}.pt")
+
+    with open(os.path.join(ROOT, "dasr_tpu_torch", "configs", "train_SRGAN.json")) as f:
+        rrdb_g = json.load(f)["network_G"]
+    serves = [(f"{m}_{'chop' if chop else 'plain'}", config, chop, pt(run), net_g, True)
+              for m, config, run, net_g in (("sr", "test_sr.json", "sr", None),
+                                            ("srgan", "test_SRGAN.json", "srragan", rrdb_g))
+              for chop in (False, True)]
+    serves.append(("sr_resnet_plain", "test_SRResNet.json", False, pt("sr_resnet"), None, False))
+    for name, config, chop, g_path, net_g, rrdb in serves:
+        scfg = paired_serve_config(serve_root, name, config, chop, g_path, net_g)
+        avg, secs, _ = counted(f"serve {name}", lambda: run_cli(srn_test.main, [
+            "-opt", scfg, "--device", "cuda", "--device_metrics", "--metrics_pad_bucket",
+            "128"]), n_img * rrdb)
+        pngs = os.listdir(os.path.join(serve_root, "results", name, "synth"))
+        vals = avg.get("synth", {})
+        if len(pngs) != n_img or not vals or not all(np.isfinite(v) for v in vals.values()):
+            fail(f"paired serve {name}: {len(pngs)} PNGs, metrics {vals}")
+        print(f"paired serve {name}: {n_img} images ({LR_SIZES} LR) in {secs:.2f} s, "
+              f"{secs / n_img:.3f} s/image with device metrics (bucket 128) and PNG IO; {vals} "
+              f"[{gpu}]", flush=True)
+        report[f"serve_s_per_image_{name}"] = secs / n_img
+    report["launches_paired"] = sum(launches.values())
+    report["launches_by_run"] = dict(launches)
+    lap("serve")
+
+    shapes = sorted((*k[:3], str(k[3]), k[4]) for k in seen)
+    print(f"paired: kernel input shapes {shapes}", flush=True)
+    missing = {k[:4] for k in seen} - checked
+    missing |= {k[:4] for k in seen if k[4]} - checked_grad
+    if missing:
+        fail(f"paired: the runs gave the kernel shapes phases 2 and 4 did not check: {missing}")
+
+    # SRModel.test_x8 against the mean of its eight dihedral forwards
+    model = create_model(parse_srn_options(
+        paired_serve_config(serve_root, "x8", "test_sr.json", False, pt("sr")), is_train=False),
+        dev).init().load()
+    lr = np.random.default_rng(SEED).random((64, 48, 3), dtype=np.float32)
+    got = model.test_x8(lr)
+    outs = []
+    for k in range(8):
+        t = np.rot90(lr, k % 4)
+        t = t[:, ::-1] if k >= 4 else t
+        sr = model.test(np.ascontiguousarray(t))
+        sr = sr[:, ::-1] if k >= 4 else sr
+        outs.append(np.rot90(sr, -(k % 4)))
+    err = float(np.abs(got - np.mean(outs, axis=0)).max())
+    print(f"paired test_x8 (64x48 LR, bf16): max |test_x8 - mean of the eight dihedral "
+          f"forwards| {err:.3e} (limit 1e-5)", flush=True)
+    if not err <= 1e-5:
+        fail(f"paired test_x8: {err:.3e} off the mean of its eight forwards")
+    report["test_x8_max_abs_err"] = err
+    del model
+    lap("test_x8")
+
+    def build(cfg):
+        opt = parse_srn_options(cfg, is_train=True)
+        model = create_model(opt, dev)
+        model.init()
+        bs = int(opt["datasets"]["train"]["batch_size"])
+        loader = Loader(create_dataset(opt["datasets"]["train"]), batch_size=bs, num_workers=6,
+                        seed=0)
+        batches = []
+        while len(batches) < 4:
+            loader.set_epoch(len(batches))
+            batches += list(loader)[:4 - len(batches)]
+        return model, batches
+
+    # the srgan facade's G gate, D_update_ratio 2 and D_init_iters 2: G
+    # moves on the 1-based iterations 4, 6, ..., so not in the first three
+    model, batches = build(os.path.join(base, "train_srgan.json"))
+    moved = []
+    for b in batches:
+        before = flat(model.trainer.state.g).clone()
+        model.train_step(b)
+        moved.append(not torch.equal(flat(model.trainer.state.g), before))
+    print(f"paired srgan gate (D_update_ratio 2, D_init_iters 2): G moved at iterations "
+          f"1-4: {moved}", flush=True)
+    if moved != [False, False, False, True]:
+        fail(f"paired srgan gate: G moved at {moved}, expected only at iteration 4")
+    del model, batches
+    lap("gate")
+
+    # each model's step: two steps a call on host batches on the card, one
+    # traced; srgan's step is srragan's with one D forward less and is not
+    # timed apart
+    steps = {}
+    for run in ("sr", "srragan", "sr_resnet", "De_Resnet"):
+        model, batches = build(os.path.join(base, f"train_{run}.json"))
+        tr = model.trainer
+        dev_batches = [model._to_device(b) for b in batches[:2]]
+        torch.cuda.empty_cache()
+        steps[run] = time_arms(
+            f"paired {run} step", {run: lambda: [tr.train_step(b) for b in dev_batches]}, 2,
+            gpu, rounds=1, profiled={run: (lambda: tr.train_step(dev_batches[0]), 1)})[run]
+        del model, tr, batches, dev_batches
+    report["step"] = steps
+    lap("step_times")
+
+    # three f32 srragan steps at nb 2, the kernel against the plain version,
+    # cuDNN off (see phase_grad). A GAN with train_SRGAN.json's D (twelve
+    # BatchNorm conv blocks) is chaotic at the rounding level, so both
+    # versions take each of four steps from one state, each held to the
+    # three-step limits: the losses, Adam's first moments over every element
+    # (at step 1 they are 0.1 x the gradient itself), and the update over
+    # every element but those of gradient noise. Adam scales an element's
+    # step by its own gradient's size, so an element whose gradient the two
+    # versions put apart by as much as the gradient itself (f32 noise, e.g.
+    # D's conv biases that BatchNorm cancels, of exact gradient 0) and whose
+    # updates point opposite ways moves about 2 lr apart, most of all at
+    # step 1, before the moments hold a shared history. Each step prints
+    # those elements' count and share of the update difference, and the
+    # update difference with them in; the free-running trajectories and a
+    # control of the plain version on LR inputs one f32 ulp apart are
+    # printed beside.
+    atol, rtol = TOLERANCES["train_loss_f32"]
+    _, utol = TOLERANCES["train_update_f32"]
+    _, mtol = TOLERANCES["train_moment_f32"]
+    cfg32 = paired_config(base, dirs, "f32_srragan", "srragan", 4, nb=2, bf16=False)
+
+    def snapshot(model):
+        st = model.trainer.state
+        return copy.deepcopy({"step": st.step, **{
+            label: (ns.net.state_dict(), ns.opt.state_dict(), ns.sched.state_dict())
+            for label, ns in (("G", st.g), ("D_target", st.d_target))}})
+
+    def restore(model, snap):
+        st = model.trainer.state
+        st.step = snap["step"]
+        for label, ns in (("G", st.g), ("D_target", st.d_target)):
+            net_sd, opt_sd, sched_sd = copy.deepcopy(snap[label])
+            ns.net.load_state_dict(net_sd)
+            ns.opt.load_state_dict(opt_sd)
+            ns.sched.load_state_dict(sched_sd)
+
+    def nets_of(model):
+        st = model.trainer.state
+        return {"G": st.g, "D_target": st.d_target}
+
+    def run(model, batches, plain):
+        before = fused_rdb.launches
+        if plain:
+            blocks.fused_rdb = fused_rdb_reference
+        try:
+            out = [model.train_step(b) for b in batches]
+        finally:
+            blocks.fused_rdb = fused_rdb
+        if (fused_rdb.launches - before) != (0 if plain else 2 * 3 * LAUNCHES_PER_RDB
+                                              * len(batches)):
+            fail(f"paired f32 ({'plain' if plain else 'kernel'}): "
+                 f"{fused_rdb.launches - before} kernel launches")
+        return out
+
+    steps32 = []
+    with torch.backends.cudnn.flags(enabled=False), contextlib.redirect_stdout(Tee()):
+        model, batches = build(cfg32)
+        start = snapshot(model)
+        for i, b in enumerate(batches):
+            snap = snapshot(model)
+            nets = nets_of(model)
+            init = {name: flat(ns) for name, ns in nets.items()}
+            m0 = {name: flat(ns, True) for name, ns in nets.items()}
+            beta1 = {name: ns.opt.param_groups[0]["betas"][0] for name, ns in nets.items()}
+            ref = (run(model, [b], True), init,
+                   {name: (flat(ns), flat(ns, True)) for name, ns in nets.items()})
+            restore(model, snap)
+            got = (run(model, [b], False), init,
+                   {name: (flat(ns), flat(ns, True)) for name, ns in nets.items()})
+            steps32.append((got, ref, m0, beta1))
+        kernel_path = [t for (traj, _, _), _, _, _ in steps32 for t in traj]
+        free = {}
+        for name, perturb in (("plain", False), ("plain, LR one ulp up", True)):
+            restore(model, start)
+            bs = [dict(b, LR=np.nextafter(b["LR"], np.float32(2))) if perturb else b
+                  for b in batches]
+            free[name] = run(model, bs, True)
+    worst, perr, noise_report = 0.0, 0.0, []
+    for i, (got, ref, m0, beta1) in enumerate(steps32):
+        (traj, init, nets), nets_r = got, ref[2]
+        held, notes, step_report = {}, [], {}
+        for name in nets_r:
+            (p, m), (pr, mr) = nets[name], nets_r[name]
+            # this step's gradients, from the shared moments before it
+            g = (m - beta1[name] * m0[name]) / (1 - beta1[name])
+            gr = (mr - beta1[name] * m0[name]) / (1 - beta1[name])
+            noise = ((g - gr).abs() >= gr.abs()) & ((p - init[name]) * (pr - init[name]) < 0)
+            d2 = (p - pr).square()
+            share = (d2[noise].sum() / d2.sum()).item()
+            upd_all = ((p - pr).norm() / (pr - init[name]).norm()).item()
+            notes.append(f"{name} {int(noise.sum())} of {noise.numel()} elements, "
+                         f"{share:.3f} of the squared update difference, update "
+                         f"{upd_all:.3e} with them")
+            step_report[name] = {"noise_elements": int(noise.sum()), "noise_share": share,
+                                 "update_rel_err_all": upd_all}
+            held[name] = (torch.where(noise, pr, p), m)
+        w, parts, bad, err = compare_three_steps(f"paired f32 srragan step {i + 1}",
+                                                 (traj, init, held), ref,
+                                                 (atol, rtol), utol, mtol)
+        print(f"paired f32 srragan nb 2 (train_SRGAN.json's widths, batch 8, HR 192), step "
+              f"{i + 1} from one state, kernel vs plain version on the card, cuDNN off: "
+              f"losses within {w:.3f} of their limit (atol {atol}, rtol {rtol}); "
+              f"|dtheta_kernel - dtheta_plain| / |dtheta_plain| but at gradient noise, and "
+              f"the same of Adam's first moments (limits {utol}, {mtol}): {'; '.join(parts)}; "
+              f"at gradient noise with updates of opposite sign: {'; '.join(notes)}",
+              flush=True)
+        worst, perr = max(worst, w), max(perr, err)
+        noise_report.append(step_report)
+        if bad:
+            fail(f"paired f32 step {i + 1}: the kernel's update or moments of {bad} are off "
+                 f"the plain version's")
+    report["f32_gradient_noise_by_step"] = noise_report
+
+    def apart(traj):
+        return max(abs(a[k] - b[k]) / (atol + rtol * abs(b[k]))
+                   for a, b in zip(traj, free["plain"]) for k in b if k.startswith("loss/"))
+
+    print(f"paired f32 srragan, free-running 4 steps, the largest loss difference from the "
+          f"plain version's as a share of the loss limit: kernel {apart(kernel_path):.3f}, "
+          f"plain on LR one ulp up {apart(free['plain, LR one ulp up']):.3f} (information)",
+          flush=True)
+    report["f32_free_running_loss_share"] = {"kernel": apart(kernel_path),
+                                             "plain_lr_one_ulp": apart(
+                                                 free["plain, LR one ulp up"])}
+    del model, batches
+    report["f32_param_max_abs_err"] = perr
+    report["f32_worst_loss_share"] = worst
+    lap("f32")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"paired: the phase took {report['phase_s']:.2f} s [{gpu}]", flush=True)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive",
+                            "adaptive,paired",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools,adaptive")
+                         "pipeline,bank,tools,adaptive,paired")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2453,7 +2849,7 @@ def main(argv=None):
     }
     if "serve" in phases:
         phases.add("kernel")  # serve checks its shapes against phase 2's
-    if phases & {"train", "pipeline", "bank", "tools", "adaptive"}:
+    if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired"}:
         phases |= {"kernel", "grad"}  # and these against phases 2 and 4
     if "adaptive" in phases:
         phases.add("dsn")  # its patch D is stage 1's discriminator
@@ -2498,10 +2894,16 @@ def main(argv=None):
             entry["launches_adaptive"] = report.pop("launches_adaptive")
             print(f"adaptive (DASR_Adaptive_Model, train, bank, serve): {json.dumps(report)}",
                   flush=True)
+        if "paired" in phases:
+            report = phase_paired(gpu, root, checked, checked_grad)
+            entry["launches_paired"] = report.pop("launches_paired")
+            print(f"paired (sr, srgan / srragan, De_Resnet: train, serve): {json.dumps(report)}",
+                  flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
-                            for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive"))
+                            for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive",
+                                      "paired"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

@@ -14,6 +14,12 @@ host f64 protocol); the chop and ``pad_bucket`` forwards keep the host
 metrics unless ``--metrics_pad_bucket N`` pads each pair to a multiple of
 N for the masked metrics (exact; LPIPS per shape).
 
+The models: 'sr' (``RRDB_net`` or ``sr_resnet``), 'srgan' / 'srragan',
+'DASR', 'DASR_Adaptive_Model' and 'De_Resnet'. 'De_Resnet' degrades the
+image it is given: with an HR image in the set it takes the HR image and
+is held against the LR one (its ``val_keys``), else it takes the LR image
+and reports no metrics.
+
 Not ported yet, and refused rather than skipped: ``--mesh`` and
 ``--spatial_shard`` (ROADMAP A.11).
 """
@@ -94,11 +100,13 @@ def main(argv=None):
                 + (f"; LPIPS: {m['lpips']:.6f}" if "lpips" in m else "")
             )
 
+        src, ref = model.val_keys
         inflight = None
         for i in range(len(test_set)):
             data = test_set[i]
-            sr_dev = model.test_async(data["LR"])
-            done = measure(sr_dev, data["HR"]) if "HR" in data else None
+            paired = src in data and ref in data
+            sr_dev = model.test_async(data[src if paired else "LR"])
+            done = measure(sr_dev, data[ref]) if paired else None
             prev, inflight = inflight, (i, data, sr_dev, done)
             if prev is not None:
                 finish(*prev)

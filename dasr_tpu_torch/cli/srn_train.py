@@ -33,9 +33,12 @@ The JAX package's fast path, with its semantics:
 * ``val_batch`` K > 1: consecutive same-shape val images share one forward,
   as in the JAX CLI.
 
-'DASR_Adaptive_Model' trains through the same loop; as the JAX CLI has no
-path for its reference formats, a ``.state`` ``resume_state`` and
-``save_ref_formats`` are refused.
+'DASR_Adaptive_Model' trains through the same loop, and so do the paired
+trainers 'sr', 'srgan' / 'srragan' and 'De_Resnet' on the host loader one
+step a call (``--steps_per_call`` and ``--device_bank`` fall back, with the
+JAX CLI's lines); 'De_Resnet' validates G(HR) against the LR image. As the
+JAX CLI has no path for these models' reference formats, a ``.state``
+``resume_state`` and ``save_ref_formats`` are refused for them.
 """
 
 from __future__ import annotations
@@ -88,17 +91,18 @@ def main(argv=None):
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
     opt = parse_srn_options(args.opt, is_train=True)
-    if opt.get("model") == "DASR_Adaptive_Model":
+    name = opt.get("model")
+    if name in _NO_REFERENCE_FORMATS:
         # as the JAX CLI, which resumes a reference .state only for a model
         # with resume_reference_state and saves the reference formats only
         # for one with save_reference_formats
         if (opt["path"].get("resume_state") or "").endswith(".state"):
-            raise NotImplementedError("resume_state: a reference .state is not a "
-                                      "DASR_Adaptive_Model checkpoint; resume from the port's "
-                                      "{iter}.pt (ROADMAP A.9)")
+            raise NotImplementedError(f"resume_state: a reference .state is not a {name} "
+                                      "checkpoint; resume from the port's {iter}.pt "
+                                      "(ROADMAP A.9)")
         if (opt.get("logger") or {}).get("save_ref_formats"):
-            raise NotImplementedError("logger.save_ref_formats: DASR_Adaptive_Model has no "
-                                      "reference formats; its train state saves as {iter}.pt "
+            raise NotImplementedError(f"logger.save_ref_formats: {name} has no reference "
+                                      "formats; its train state saves as {iter}.pt "
                                       "(ROADMAP A.9)")
     opt = check_resume(opt)
     rstate = opt["path"].get("resume_state")
@@ -209,8 +213,8 @@ def main(argv=None):
 
     k_steps = max(1, args.steps_per_call)
     if k_steps > 1 and not model.supports_multi_step:
-        logger.info("steps_per_call > 1 needs G_update_inter == D_update_inter == 1; "
-                    "one step a window")
+        logger.info("steps_per_call > 1 requires a multi-step-capable model with "
+                    "G/D_update_inter == 1; falling back to per-step dispatch")
         k_steps = 1
     windowed = k_steps > 1 or bool(bank_dirs)
 
@@ -307,6 +311,10 @@ def main(argv=None):
     finally:
         writer.close()
     return current_step, last
+
+
+# the models whose train state saves only as the port's {iter}.pt
+_NO_REFERENCE_FORMATS = ("DASR_Adaptive_Model", "sr", "srgan", "srragan", "De_Resnet")
 
 
 def _bank_gate(opt, dataset_opt, budget_gb):
@@ -412,7 +420,10 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
     chunk i read back after chunk i + 1 is issued; metrics stay per image.
     As in the JAX CLI it takes precedence over ``val_device_metrics``: the
     metrics run on the host f64 path, or on the bucketed device path where
-    ``val_metrics_pad_bucket`` is set too."""
+    ``val_metrics_pad_bucket`` is set too.
+
+    G's input and the image its output is held against are the model's
+    ``val_keys`` (LR and HR; 'De_Resnet': HR and LR)."""
     from dasr_tpu_torch.data.io import save_img
     from dasr_tpu_torch.eval.evaluate import average, sr_metrics_on
 
@@ -432,15 +443,16 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
                         "metrics run on the host f64 path for this validation")
         device_metrics = device_metrics and bucket > 0
     measure = sr_metrics_on(opt, lpips_fn, device_metrics, bucket)
+    src, ref = model.val_keys
     results = []
 
     def issue(chunk):
         nonlocal inflight
         if batched:
-            sr_dev = model.test_batch_async([d["LR"] for d in chunk])
+            sr_dev = model.test_batch_async([d[src] for d in chunk])
         else:
-            sr_dev = model.test_async(chunk[0]["LR"])[None]
-        finishes = [measure(sr_dev[j], d["HR"]) for j, d in enumerate(chunk)]
+            sr_dev = model.test_async(chunk[0][src])[None]
+        finishes = [measure(sr_dev[j], d[ref]) for j, d in enumerate(chunk)]
         prev, inflight = inflight, (chunk, sr_dev, finishes)
         if prev is not None:
             drain(*prev)
@@ -454,7 +466,7 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
     inflight, chunk = None, []
     for i in range(n):
         data = val_set[i]
-        if chunk and (len(chunk) == per_chunk or chunk[0]["LR"].shape != data["LR"].shape):
+        if chunk and (len(chunk) == per_chunk or chunk[0][src].shape != data[src].shape):
             issue(chunk)
             chunk = []
         chunk.append(data)

@@ -1,22 +1,25 @@
 """Model registry — the facades of the serving and training paths.
 
 Counterpart of ``dasr_tpu.models.registry``: ``create_model(opt)`` keyed
-like the reference (codes/SRN/models/__init__.py:5-26) and ``define_G``
-(codes/SRN/models/networks.py:83-147). Ported so far: inference of 'sr'
-(``SRModel``) and 'DASR' (``DASRModel``) with ``RRDB_net``, and the DASR
-trainer (``DASRModel`` with ``is_train``): host batches one step or a
-window at a time, uint8 batches cast on the device, and windows sampled
-from device-resident banks (``setup_device_bank``,
-``train_banked_window_async``), resumed from the port's own ``{iter}.pt``
-(``resume``) or a reference ``{iter}.state`` (``resume_reference_state``);
-and 'DASR_Adaptive_Model' (``DASRAdaptiveModel``), serving and training
-its DDM-conditioned generator. Any other model, trainer, or model and
-generator pair raises
+like the reference (codes/SRN/models/__init__.py:5-26), ``define_G``
+(codes/SRN/models/networks.py:83-147), ``define_D`` / ``define_pairD``
+(:151-227) and ``define_patchD``. Ported: 'DASR' (``DASRModel``),
+serving and training on host batches one step or a window at a time,
+uint8 batches cast on the device, and windows sampled from device-resident banks
+(``setup_device_bank``, ``train_banked_window_async``), resumed from the
+port's own ``{iter}.pt`` (``resume``) or a reference ``{iter}.state``
+(``resume_reference_state``); 'DASR_Adaptive_Model'
+(``DASRAdaptiveModel``), serving and training its DDM-conditioned
+generator; and the paired-data trainers 'sr' (``SRModel``, with
+``test_x8``), 'srgan' / 'srragan' (``SRGANModel``) and 'De_Resnet'
+(``DegradationModel``), serving and training on host batches one step a
+call. Any other model, trainer, or model and generator pair raises
 ``NotImplementedError`` naming its ROADMAP queue item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 from typing import Dict, Optional
@@ -27,20 +30,36 @@ import torch
 from dasr_tpu_torch.data import device_bank
 from dasr_tpu_torch.losses.lpips import default_lpips
 from dasr_tpu_torch.nn.layers import init_lecun_
-from dasr_tpu_torch.nn.discriminators import FSDiscriminator
-from dasr_tpu_torch.nn.generators import RRDBNet, RRDBNetResidualConv, RRDBNetSEAN
+from dasr_tpu_torch.nn.discriminators import (
+    DiscriminatorBasic,
+    DiscriminatorVGG,
+    DiscriminatorVGG128SN,
+    FSDiscriminator,
+    NLayerDiscriminator,
+    make_vgg_discriminator,
+)
+from dasr_tpu_torch.nn.generators import (
+    DeResnetSRN,
+    RRDBNet,
+    RRDBNetResidualConv,
+    RRDBNetSEAN,
+    SRResNet,
+)
 from dasr_tpu_torch.ops.tiled import forward_chop, pad_reflect, tiled_apply
 from dasr_tpu_torch.train import checkpoints
 from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
+from dasr_tpu_torch.train.degradation_trainer import PixelConfig, PixelTrainer
+from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 
 logger = logging.getLogger("base")
 
-_TRAINERS = ("srgan", "srragan", "De_Resnet", "De_patch_wavelet_GAN")
-_GENERATORS = (
-    "sr_resnet", "De_Resnet", "De_RRDB", "De_Resnet_bilinear", "De_Resnet2xd", "DSGAN",
-    "sft_arch",
-)
+_TRAINERS = ("De_patch_wavelet_GAN",)
+_GENERATORS = ("DSGAN", "sft_arch")
+# De_Resnet family: the variant, and whether the config's act_type holds
+# (networks.py:106-127 give De_RRDB and the bilinear / x2 variants 'relu')
+_DE_RESNETS = {"De_Resnet": ("strided", True), "De_RRDB": ("strided", False),
+               "De_Resnet_bilinear": ("bilinear", False), "De_Resnet2xd": ("x2", False)}
 
 
 def compute_dtype(opt: Dict) -> torch.dtype:
@@ -66,11 +85,58 @@ def define_G(opt: Dict) -> torch.nn.Module:
     if which in ("RRDB_Residual_conv", "RRDB_Residual_conv_concat"):
         return RRDBNetResidualConv(**widths, nb_ada=net.get("ada_nb", 1) or 1,
                                    concat=which != "RRDB_Residual_conv")
+    if which == "sr_resnet":
+        return SRResNet(in_nc=widths["in_nc"], out_nc=widths["out_nc"], nf=widths["nf"],
+                        nb=net.get("nb", 16), upscale=widths["upscale"],
+                        norm_type=net.get("norm_type"), mode=net.get("mode", "NAC"),
+                        dtype=widths["dtype"])
+    if which in _DE_RESNETS:
+        variant, own_act = _DE_RESNETS[which]
+        return DeResnetSRN(in_nc=widths["in_nc"], out_nc=widths["out_nc"], nf=widths["nf"],
+                           nb=net.get("nb", 8) or 8, downscale=widths["upscale"],
+                           norm_type=net.get("norm_type"),
+                           act_type=net.get("act_type") if own_act else "relu",
+                           mode=net.get("mode", "NAC") or "NAC", variant=variant,
+                           dtype=widths["dtype"])
     if which in _GENERATORS:
         raise NotImplementedError(
             f"Generator model [{which}] is not ported yet (ROADMAP A.9)"
         )
     raise NotImplementedError(f"Generator model [{which}] not recognized")
+
+
+def define_D(opt: Dict) -> torch.nn.Module:
+    """The discriminator of ``network_D.which_model_D`` (networks.py:151-194;
+    default ``discriminator_vgg_128``)."""
+    net = opt.get("network_D") or {}
+    return _build_d(net.get("which_model_D", "discriminator_vgg_128"), net)
+
+
+def define_pairD(opt: Dict) -> torch.nn.Module:
+    """The paired-domain discriminator (networks.py:196-227):
+    ``which_model_pairD``, else ``which_model_D``."""
+    net = opt.get("network_D") or {}
+    return _build_d(net.get("which_model_pairD", net.get("which_model_D")), net)
+
+
+def _build_d(which: str, net: Dict) -> torch.nn.Module:
+    in_nc, nf = net.get("in_nc", 3), net.get("nf", 64)
+    if which == "discriminator_vgg_128":
+        return DiscriminatorVGG(input_size=128, in_ch=in_nc, nf=nf)
+    if which == "discriminator_vgg_128_SN":
+        return DiscriminatorVGG128SN()
+    if which == "discriminator_patch":
+        return NLayerDiscriminator(in_ch=in_nc, ndf=nf, n_layers=net.get("n_layers", 3) or 3,
+                                   norm_layer="Instance", stride=2, use_bias_middle=False)
+    if which == "DSGAN":
+        return DiscriminatorBasic(in_ch=in_nc)
+    if which == "dis_acd":
+        raise NotImplementedError(f"Discriminator model [{which}] is not ported yet "
+                                  "(ROADMAP A.9)")
+    return make_vgg_discriminator(which, in_nc=in_nc, nf=nf,
+                                  norm_type=net.get("norm_type", "batch"),
+                                  act_type=net.get("act_type", "leakyrelu"),
+                                  mode=net.get("mode", "CNA"))
 
 
 def define_patchD(opt: Dict) -> FSDiscriminator:
@@ -92,7 +158,9 @@ def define_patchD(opt: Dict) -> FSDiscriminator:
 
 class _InferenceModel:
     """G-only inference facade (the ``_InferenceMixin`` logic of dasr_tpu),
-    honouring the reference's chop flag.
+    honouring the reference's chop flag, and the train-facade methods the
+    trainers share (``self.trainer``, set by a model built with
+    ``is_train``).
 
     ``chop`` semantics per trainer: SRModel chops whenever the flag is set
     (codes/SRN/models/SR_model.py:88-100); the DASR trainer only above
@@ -102,39 +170,70 @@ class _InferenceModel:
     reflect-pads inputs up to multiples of N and crops after.
 
     ``g_types``: the generators the model feeds; ``define_G`` builds the
-    DDM-conditioned ones too, which only ``DASRAdaptiveModel`` feeds a map."""
+    DDM-conditioned ones too, which only ``DASRAdaptiveModel`` feeds a map.
+    ``_batch_keys``: the images of a host batch; ``val_keys``: G's input and
+    the image its output is held against in validation and ``srn_test``. A
+    model without K-step windows has ``supports_multi_step`` false:
+    ``srn_train`` then runs one step a call."""
 
     chop_threshold: int = 0
     g_types: tuple = (RRDBNet,)
+    _batch_keys: tuple = ("LR", "HR")
+    val_keys: tuple = ("LR", "HR")
+    supports_multi_step = False
 
     def __init__(self, opt: Dict, device: torch.device):
         self.opt = opt
         self.device = torch.device(device)
         self.g = define_G(opt)
+        self.trainer = None
         if not isinstance(self.g, self.g_types):
             raise NotImplementedError(
                 f"Model [{opt.get('model')}] with generator "
                 f"[{opt['network_G']['which_model_G']}] is not ported yet (ROADMAP A.9)")
 
-    def init(self, seed: int = 0):
-        """Seeded random weights in the JAX init's law, then move to the device."""
-        self.g.init_weights(torch.Generator().manual_seed(seed))
+    def init(self, seed: Optional[int] = None):
+        """Seeded weights (``train.manual_seed`` by default with a trainer,
+        else 0) on the device; with a trainer, also its other networks and
+        optimizers."""
+        if self.trainer is not None:
+            self.trainer.init_state(seed)
+            return self
+        self.g.init_weights(torch.Generator().manual_seed(seed or 0))
         self.g.to(self.device, memory_format=torch.channels_last).eval()
         return self
 
     def load(self):
+        """G from ``pretrain_model_G``: a reference-named ``.pth`` of the
+        port's generator, or the port's ``{iter}.pt`` train state."""
         path = (self.opt.get("path") or {}).get("pretrain_model_G")
         if path:
-            if not path.endswith(".pth"):
+            if path.endswith(".pt"):
+                saved = torch.load(path, map_location="cpu", weights_only=True)
+                self.g.load_state_dict(saved["G"]["net"])
+            elif path.endswith(".pth"):
+                checkpoints.load_pth(self.g, path)
+            else:
                 raise NotImplementedError(
                     f"pretrain_model_G {path!r}: dasr_tpu_torch loads reference "
-                    "*_G.pth files; orbax checkpoints are JAX-only"
+                    "*_G.pth files and its own {iter}.pt; orbax checkpoints are JAX-only"
                 )
-            checkpoints.load_pth(self.g, path)
         return self
 
     def _apply_g(self, x):
         return self.g(x)
+
+    @contextlib.contextmanager
+    def _g_in_eval_mode(self):
+        """G in eval mode for the block, then back in its own mode: a
+        BatchNorm G serves and validates on its running statistics and
+        leaves them, as the reference's ``test`` runs ``netG.eval()``."""
+        was_training = self.g.training
+        self.g.eval()
+        try:
+            yield
+        finally:
+            self.g.train(was_training)
 
     def test(self, lr_img: np.ndarray) -> np.ndarray:
         """One LR image (HWC, float [0, 1] or uint8) -> SR image (HWC float32)."""
@@ -155,13 +254,14 @@ class _InferenceModel:
             bh = math.ceil(h0 / bucket) * bucket
             bw = math.ceil(w0 / bucket) * bucket
             x = pad_reflect(x, 0, bh - h0, 0, bw - w0)
-        if self.opt.get("chop") and h0 * w0 >= self.chop_threshold:
-            if self.opt.get("chop_parity"):
-                out = forward_chop(x, scale, self._apply_g, min_size=320000)
+        with self._g_in_eval_mode():
+            if self.opt.get("chop") and h0 * w0 >= self.chop_threshold:
+                if self.opt.get("chop_parity"):
+                    out = forward_chop(x, scale, self._apply_g, min_size=320000)
+                else:
+                    out = tiled_apply(x, self._apply_g, scale=scale, tile=128, halo=16)
             else:
-                out = tiled_apply(x, self._apply_g, scale=scale, tile=128, halo=16)
-        else:
-            out = self._apply_g(x)
+                out = self._apply_g(x)
         out = out[0, :, : scale * h0, : scale * w0]
         return out.permute(1, 2, 0).float()
 
@@ -175,16 +275,178 @@ class _InferenceModel:
         x = x.to(self.device)
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
-        return self._apply_g(x).permute(0, 2, 3, 1).float()
+        with self._g_in_eval_mode():
+            return self._apply_g(x).permute(0, 2, 3, 1).float()
 
-    def train_step(self, batch):
-        raise NotImplementedError(self._train_todo)
+    def _trainer(self):
+        if self.trainer is None or self.trainer.state is None:
+            raise RuntimeError(f"train_step needs a [{self.opt.get('model')}] model created "
+                               "with is_train and init()")
+        return self.trainer
+
+    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A host batch (NHWC arrays or tensors, as the Loader gives them) as
+        NCHW device tensors; uint8 images (``transfer_uint8``) are cast to
+        f32 / 255 on the device."""
+        dev = {}
+        for k in self._batch_keys:
+            v = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
+            if v.dtype == torch.uint8 and k != "fake_w":
+                v = v.float() / 255.0
+            elif v.dtype != torch.float32:
+                raise ValueError(f"train_step: {k} must be float32 in [0, 1] or uint8 images, "
+                                 f"got {v.dtype}")
+            dev[k] = v.permute(0, 3, 1, 2)
+        return dev
+
+    def train_step(self, batch: Dict) -> Dict[str, float]:
+        """One step on a host batch; the metrics as floats."""
+        return self.metrics_to_host(self._trainer().train_step(self._to_device(batch)))
+
+    @staticmethod
+    def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Device metrics (0-d, or (K,) of a window: their mean) as floats,
+        in one sync."""
+        values = torch.stack([v.float().mean() for v in metrics.values()]).tolist()
+        return dict(zip(metrics, values))
+
+    @property
+    def step(self) -> int:
+        return self._trainer().state.step
+
+    def save(self, ckpt_dir: str, iter_step: int) -> str:
+        return checkpoints.save_train_state(ckpt_dir, self._trainer().state, iter_step)
+
+    def resume(self, path: str) -> int:
+        """Load a ``save`` file (``{iter}.pt``, or the latest in a directory)
+        into the train state; returns its iteration."""
+        return checkpoints.load_train_state(path, self._trainer().state)
+
+
+def pixel_config(opt: Dict) -> PixelConfig:
+    """PixelConfig from the options ('sr', 'De_Resnet'), with the JAX
+    package's defaults."""
+    train = opt.get("train") or {}
+    return PixelConfig(lr_g=train.get("lr_G", 1e-4), beta1_g=train.get("beta1_G", 0.9),
+                       lr_steps=tuple(int(m) for m in (train.get("lr_steps") or ())),
+                       lr_gamma=train.get("lr_gamma", 0.5),
+                       pixel_criterion=train.get("pixel_criterion", "l1"),
+                       pixel_weight=train.get("pixel_weight", 1.0),
+                       seed=int(train.get("manual_seed", 0) or 0))
 
 
 class SRModel(_InferenceModel):
-    """'sr' (reference: codes/SRN/models/SR_model.py): G-only inference."""
+    """'sr' (reference: codes/SRN/models/SR_model.py): ``RRDB_net`` or
+    ``sr_resnet`` served, with chop and the geometric self-ensemble
+    ``test_x8``; with ``is_train``, trained on the pixel loss
+    (``PixelTrainer``, LR -> HR) one step a call. ``pretrain_model_G``
+    loads by the generator's reference names, so a reference ``sr_resnet``
+    ``.pth`` loads too; ``dasr_tpu`` imports every ``.pth`` as an RRDB
+    (``registry.py:311-313``, ROADMAP C.2)."""
 
-    _train_todo = "the 'sr' trainer is not ported yet (ROADMAP A.9)"
+    g_types = (RRDBNet, SRResNet)
+
+    def __init__(self, opt: Dict, device: torch.device):
+        super().__init__(opt, device)
+        if opt.get("is_train"):
+            self.trainer = self.make_trainer()
+
+    def make_trainer(self):
+        return PixelTrainer(pixel_config(self.opt), self.g, self.device, source="LR",
+                            target="HR")
+
+    @torch.no_grad()
+    def test_x8(self, lr_img: np.ndarray) -> np.ndarray:
+        """The mean of the eight dihedral forwards (SR_model.py:102-140): the
+        LR image flipped and transposed on the host, each SR image turned
+        back and summed on the device."""
+        total = None
+        for rot in range(2):
+            for fh in range(2):
+                for fv in range(2):
+                    t = lr_img
+                    if fv:
+                        t = t[::-1, :, :]
+                    if fh:
+                        t = t[:, ::-1, :]
+                    if rot:
+                        t = t.transpose(1, 0, 2)
+                    sr = self.test_async(np.ascontiguousarray(t))
+                    if rot:
+                        sr = sr.transpose(0, 1)
+                    if fh:
+                        sr = sr.flip(1)
+                    if fv:
+                        sr = sr.flip(0)
+                    total = sr if total is None else total + sr
+        return (total / 8).cpu().numpy()
+
+
+class SRGANModel(SRModel):
+    """'srgan' / 'srragan' (reference: codes/SRN/models/SRGAN_model.py,
+    SRRaGAN_model.py): G from ``define_G`` (``RRDB_net`` or ``sr_resnet``),
+    D from ``define_D`` (``network_D.which_model_D``), the VGG19-54 feature
+    net seeded; one step a call, D every step and G where
+    ``SRGANTrainer.g_update_due`` holds for the 1-based iteration. Two
+    deviations from ``dasr_tpu`` (ROADMAP C.2): its ``SRGANModel`` trains a
+    ``DiscriminatorVGG(input_size=HR_size)`` whatever ``which_model_D``
+    names (``srgan_trainer.py:64-66``), and its gate counts iterations from
+    0, so G skips the first step the reference updates it in."""
+
+    def __init__(self, opt: Dict, device: torch.device, ragan: bool = False):
+        self.ragan = ragan
+        super().__init__(opt, device)
+
+    def make_trainer(self) -> SRGANTrainer:
+        train = self.opt.get("train") or {}
+        cfg = SRGANConfig(
+            lr_g=train.get("lr_G", 1e-4), lr_d=train.get("lr_D", 1e-4),
+            beta1_g=train.get("beta1_G", 0.9), beta1_d=train.get("beta1_D", 0.9),
+            lr_steps=tuple(int(m) for m in (train.get("lr_steps") or ())),
+            lr_gamma=train.get("lr_gamma", 0.5),
+            pixel_criterion=train.get("pixel_criterion", "l1"),
+            pixel_weight=train.get("pixel_weight", 1e-2) or 0.0,
+            feature_criterion=train.get("feature_criterion", "l1"),
+            feature_weight=train.get("feature_weight", 1.0) or 0.0,
+            gan_type=train.get("gan_type", "vanilla"),
+            gan_weight=train.get("gan_weight", 5e-3),
+            ragan=self.ragan or bool(train.get("ragan", False)),
+            d_update_ratio=train.get("D_update_ratio", 1) or 1,
+            d_init_iters=train.get("D_init_iters", 0) or 0,
+            seed=int(train.get("manual_seed", 0) or 0),
+            dtype=compute_dtype(self.opt),
+        )
+        return SRGANTrainer(cfg, self.g, define_D(self.opt), self.device)
+
+    def train_step(self, batch: Dict) -> Dict[str, float]:
+        tr = self._trainer()
+        return self.metrics_to_host(tr.train_step(
+            self._to_device(batch), do_g=tr.g_update_due(tr.state.step + 1)))
+
+
+class DegradationModel(_InferenceModel):
+    """'De_Resnet' (reference: codes/SRN/models/Degradation_Resnet.py): a
+    ``DeResnetSRN`` from ``define_G``, trained HR -> LR on the pixel loss
+    (``PixelTrainer``) one step a call. ``test`` degrades the whole image it
+    is given: ``chop`` and ``pad_bucket``, forwards of the x4 SR models,
+    are refused. Validation feeds G the HR image and holds the
+    result against the LR one (``val_keys``), where ``dasr_tpu``'s CLI feeds
+    G the LR image and fails on the shapes. ``pretrain_model_G`` is loaded,
+    as the reference loads it; ``dasr_tpu``'s ``DegradationModel.load``
+    ignores it (``registry.py:777-778``, ROADMAP C.2)."""
+
+    g_types = (DeResnetSRN,)
+    val_keys = ("HR", "LR")
+
+    def __init__(self, opt: Dict, device: torch.device):
+        for key in ("chop", "pad_bucket"):
+            if opt.get(key):
+                raise ValueError(f"'{key}' is for the x4 SR models; model "
+                                 f"[{opt.get('model')}] degrades the whole image")
+        super().__init__(opt, device)
+        if opt.get("is_train"):
+            self.trainer = PixelTrainer(pixel_config(opt), self.g, self.device, source="HR",
+                                        target="LR")
 
 
 def srn_config(opt: Dict) -> SRNConfig:
@@ -233,7 +495,6 @@ class DASRModel(_InferenceModel):
 
     def __init__(self, opt: Dict, device: torch.device):
         super().__init__(opt, device)
-        self.trainer: Optional[SRNTrainer] = None
         if opt.get("is_train"):
             self.trainer = self.make_trainer()
 
@@ -246,14 +507,6 @@ class DASRModel(_InferenceModel):
     def make_trainer(self) -> SRNTrainer:
         cfg = srn_config(self.opt)
         return SRNTrainer(cfg, self.device, g_model=self.g, lpips=self._lpips(cfg))
-
-    def init(self, seed: Optional[int] = None):
-        """Seeded weights (``train.manual_seed`` by default) on the device;
-        with a trainer, also the discriminators and optimizers."""
-        if self.trainer is None:
-            return super().init(seed or 0)
-        self.trainer.init_state(seed)
-        return self
 
     def load(self):
         """The ``pretrain_model_*`` ``.pth`` files (``check_resume`` points
@@ -292,26 +545,6 @@ class DASRModel(_InferenceModel):
         st.step = int(saved.get("iter", 0))
         return st.step
 
-    def _trainer(self) -> SRNTrainer:
-        if self.trainer is None or self.trainer.state is None:
-            raise RuntimeError("train_step needs a DASR model created with is_train and init()")
-        return self.trainer
-
-    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """A host batch (NHWC arrays or tensors, as the Loader gives them) as
-        NCHW device tensors; uint8 images (``transfer_uint8``) are cast to
-        f32 / 255 on the device."""
-        dev = {}
-        for k in self._batch_keys:
-            v = torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
-            if v.dtype == torch.uint8 and k != "fake_w":
-                v = v.float() / 255.0
-            elif v.dtype != torch.float32:
-                raise ValueError(f"train_step: {k} must be float32 in [0, 1] or uint8 images, "
-                                 f"got {v.dtype}")
-            dev[k] = v.permute(0, 3, 1, 2)
-        return dev
-
     def train_step(self, batch: Dict) -> Dict[str, float]:
         """One step on a host batch, with the reference's G/D update cadence
         (DASR_model.py; ``G_update_inter``/``D_update_inter``). Returns the
@@ -341,13 +574,6 @@ class DASRModel(_InferenceModel):
         steps = [tr.train_step(self._to_device(b)) for b in batches]
         return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
-    @staticmethod
-    def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """Device metrics (0-d, or (K,) of a window: their mean) as floats,
-        in one sync."""
-        values = torch.stack([v.float().mean() for v in metrics.values()]).tolist()
-        return dict(zip(metrics, values))
-
     def setup_device_bank(self, fake_h, hr_h, real_h, ddm_h, hr_size: int,
                           use_flip: bool = True, use_rot: bool = True):
         """Upload the stage-3 banks (``device_bank.ImageBank``s on the host;
@@ -369,18 +595,6 @@ class DASRModel(_InferenceModel):
             idx = idx.pin_memory()
         idx = idx.to(self.device, non_blocking=True)
         return self._trainer().train_banked_step(self._banks, idx, seed, *self._bank_args)
-
-    @property
-    def step(self) -> int:
-        return self._trainer().state.step
-
-    def save(self, ckpt_dir: str, iter_step: int) -> str:
-        return checkpoints.save_train_state(ckpt_dir, self._trainer().state, iter_step)
-
-    def resume(self, path: str) -> int:
-        """Load a ``save`` file (``{iter}.pt``, or the latest in a directory)
-        into the train state; returns its iteration."""
-        return checkpoints.load_train_state(path, self._trainer().state)
 
     def save_reference_formats(self, out_dir: str, iter_step: int) -> str:
         return checkpoints.save_reference_formats(out_dir, self._trainer().state, iter_step)
@@ -474,14 +688,7 @@ class DASRAdaptiveModel(DASRModel):
         the port's ``{iter}.pt`` train state), the patch D from its DSN
         ``.tar`` (``patchd_tar_path``); with no ``.tar`` the patch D keeps
         its fresh init, as in ``dasr_tpu``, and one line says so."""
-        paths = self.opt.get("path") or {}
-        g_path = paths.get("pretrain_model_G")
-        if g_path:
-            if g_path.endswith(".pt"):
-                saved = torch.load(g_path, map_location="cpu", weights_only=True)
-                self.g.load_state_dict(saved["G"]["net"])
-            else:
-                checkpoints.load_pth(self.g, g_path)
+        _InferenceModel.load(self)
         tar = patchd_tar_path(self.opt)
         if tar:
             if not tar.endswith(".tar"):
@@ -506,9 +713,11 @@ def create_model(opt: Dict, device: torch.device = torch.device("cpu")):
     if model == "DASR_Adaptive_Model":
         return DASRAdaptiveModel(opt, device)
     if model == "sr":
-        if opt.get("is_train"):
-            raise NotImplementedError(SRModel._train_todo)
         return SRModel(opt, device)
+    if model in ("srgan", "srragan"):
+        return SRGANModel(opt, device, ragan=model == "srragan")
+    if model == "De_Resnet":
+        return DegradationModel(opt, device)
     if model in _TRAINERS:
         raise NotImplementedError(f"Model [{model}] is not ported yet (ROADMAP A.9)")
     raise NotImplementedError(f"Model [{model}] not recognized.")

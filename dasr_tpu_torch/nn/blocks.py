@@ -11,6 +11,8 @@ Counterpart of ``dasr_tpu.nn.blocks``:
     module tree carries the reference's parameter names.
   * ``ResidualBlock``      — the DSN generators' conv-PReLU-conv + skip
                              (codes/DSN/model.py:213-224)
+  * ``ResNetBlock``        — the SRN's two-conv-block residual block of
+                             SRResNet and De_Resnet (block.py:221-251)
 
 ``RDB5C`` runs ``ops.rdb.fused_rdb`` (the hand-written kernel on the card,
 its plain version on the CPU; under grad mode through its autograd
@@ -128,6 +130,26 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         return x + self.conv2(self.prelu(self.conv1(x)))
+
+
+class ResNetBlock(nn.Module):
+    """x + res(x), ``res`` the reference's flattened sequential of
+    two 3x3 conv blocks (block.py:221-251): the first with the norm and the
+    activation, the second with the norm, and with the activation only in
+    NAC mode (CNA drops it). ``dasr_tpu``'s ``SRResNet`` drops it in NAC
+    mode too (``dasr_tpu/nn/generators.py:340-347``); the port follows the
+    reference, as ``dasr_tpu``'s own ``ResNetBlock`` does (ROADMAP C.2)."""
+
+    def __init__(self, nf: int = 64, norm_type: Optional[str] = None,
+                 act_type: Optional[str] = "relu", mode: str = "NAC"):
+        super().__init__()
+        self.res = sequential(
+            conv_block(nf, nf, 3, norm_type=norm_type, act_type=act_type, mode=mode),
+            conv_block(nf, nf, 3, norm_type=norm_type,
+                       act_type=None if mode == "CNA" else act_type, mode=mode))
+
+    def forward(self, x):
+        return x + self.res(x)
 
 
 class RRDB(nn.Module):

@@ -1,8 +1,12 @@
 """Discriminators. Counterpart of ``dasr_tpu.nn.discriminators``: the
 pix2pix PatchGAN ``NLayerDiscriminator`` that the DASR step trains on the
 Haar high bands, and the DSN stage's ``DiscriminatorBasic`` (FSD) and
-``FSDiscriminator`` (high-pass front end + body + sigmoid).
-``DiscriminatorVGG`` waits for the other trainers (ROADMAP A.9).
+``FSDiscriminator`` (high-pass front end + body + sigmoid); and the VGG
+discriminators of the paired GAN trainers: ``DiscriminatorVGG`` (the
+reference's Discriminator_VGG_128 at any input size),
+``make_vgg_discriminator``'s stacks (Discriminator_VGG_96/192/48 and the
+patch variants) and ``DiscriminatorVGG128SN``. Their BatchNorm and
+spectral-norm layers keep flax's running state (``nn/layers.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +17,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dasr_tpu_torch.nn.layers import Conv2d
+from dasr_tpu_torch.nn.blocks import sequential
+from dasr_tpu_torch.nn.layers import (
+    BatchNorm2d,
+    Conv2d,
+    Linear,
+    SNConv2d,
+    SNLinear,
+    conv_block,
+    stats_updates,
+)
 from dasr_tpu_torch.ops.dwt import haar_bands
 from dasr_tpu_torch.ops.filters import filter_high
 
@@ -143,3 +156,139 @@ class FSDiscriminator(nn.Module):
         if y is not None:
             out = out - self._body(y).mean(0, keepdim=True)
         return out if self.wgan else torch.sigmoid(out)
+
+
+def _lrelu(x):
+    return F.leaky_relu(x, 0.2)
+
+
+class DiscriminatorVGG(nn.Module):
+    """VGG-style global D (Discriminator_VGG_128, architecture.py:442-495):
+    ``conv0_0`` (3x3, bias) and ``conv0_1`` (4x4 stride 2, ``bn0_1``), then
+    pairs ``conv{i}_0`` (3x3) / ``conv{i}_1`` (4x4 stride 2), each with its
+    BatchNorm, until the map is 4x4, channels doubling to 8 nf; ``linear1``
+    (to 100) on the NCHW flatten, ``linear2`` (to 1). ``input_size`` 128 is
+    the reference's layer for layer, and its ``.pth`` loads as it is; other
+    sizes repeat the pair, as ``dasr_tpu``'s module does."""
+
+    def __init__(self, input_size: int = 128, in_ch: int = 3, nf: int = 64):
+        super().__init__()
+        size, ch, chans = input_size // 2, nf, [nf]
+        while size > 4:
+            ch = min(ch * 2, nf * 8)
+            chans.append(ch)
+            size //= 2
+        self.n_stages = len(chans)
+        prev = in_ch
+        for i, ch in enumerate(chans):
+            setattr(self, f"conv{i}_0", Conv2d(prev, ch, 3, 1, 1, bias=i == 0))
+            if i:
+                setattr(self, f"bn{i}_0", BatchNorm2d(ch))
+            setattr(self, f"conv{i}_1", Conv2d(ch, ch, 4, 2, 1, bias=False))
+            setattr(self, f"bn{i}_1", BatchNorm2d(ch))
+            prev = ch
+        self.linear1 = Linear(prev * size * size, 100)
+        self.linear2 = Linear(100, 1)
+
+    def forward(self, x):
+        x = _lrelu(self.conv0_0(x))
+        x = _lrelu(self.bn0_1(self.conv0_1(x)))
+        for i in range(1, self.n_stages):
+            x = _lrelu(getattr(self, f"bn{i}_0")(getattr(self, f"conv{i}_0")(x)))
+            x = _lrelu(getattr(self, f"bn{i}_1")(getattr(self, f"conv{i}_1")(x)))
+        return self.linear2(_lrelu(self.linear1(x.flatten(1))))
+
+
+# stage specs per reference variant: (ch_mult, kernel, stride, use_norm)
+_VGG_STAGES_96 = (
+    (1, 3, 1, False), (1, 4, 2, True), (2, 3, 1, True), (2, 4, 2, True),
+    (4, 3, 1, True), (4, 4, 2, True), (8, 3, 1, True), (8, 4, 2, True),
+    (8, 3, 1, True), (8, 4, 2, True),
+)
+_VGG_STAGES_192 = _VGG_STAGES_96 + ((8, 3, 1, True), (8, 4, 2, True))
+_VGG_STAGES_48 = (
+    (1, 3, 1, False), (1, 4, 1, True), (2, 3, 1, True), (2, 4, 1, True),
+    (4, 3, 1, True), (4, 4, 1, True), (8, 3, 1, True), (8, 4, 2, True),
+    (8, 3, 1, True), (8, 4, 2, True), (8, 3, 1, True), (8, 4, 2, True),
+)
+_VGG_STAGES_96_PATCH = _VGG_STAGES_96 + ((8, 3, 1, True),)
+# name: (stages, the input size the head is sized for, or None: no head)
+_VGG_VARIANTS = {
+    "discriminator_vgg_96": (_VGG_STAGES_96, 96),
+    "discriminator_vgg_192": (_VGG_STAGES_192, 192),
+    "discriminator_vgg_192_wavelet": (_VGG_STAGES_192, 192),
+    "discriminator_vgg_48": (_VGG_STAGES_48, 48),
+    "discriminator_vgg_96_patch": (_VGG_STAGES_96_PATCH, None),
+    "discriminator_vgg_patch": (_VGG_STAGES_96_PATCH, None),
+}
+
+
+class DiscriminatorVGGStack(nn.Module):
+    """The conv-block VGG discriminators (architecture.py:544-830):
+    ``features``, the reference's flattened sequential of ``conv_block``s
+    (convs with biases, the norm on all but the first, CNA or NAC), then,
+    with a head, ``classifier`` = Linear(8 nf x k x k, 100), LeakyReLU 0.2,
+    Linear(100, 1) on the NCHW flatten (k: ``input_size`` over the stride
+    product). Without a head the features are the output."""
+
+    def __init__(self, stages, in_nc: int = 3, nf: int = 64, norm_type: Optional[str] = "batch",
+                 act_type: str = "leakyrelu", mode: str = "CNA",
+                 input_size: Optional[int] = None):
+        super().__init__()
+        blocks, prev, size = [], in_nc, input_size
+        for mult, k, s, use_norm in stages:
+            blocks.append(conv_block(prev, nf * mult, k, stride=s,
+                                     norm_type=norm_type if use_norm else None,
+                                     act_type=act_type, mode=mode))
+            prev = nf * mult
+            if size is not None:
+                size = (size + 2 * ((k - 1) // 2) - k) // s + 1
+        self.features = sequential(*blocks)
+        self.classifier = None
+        if input_size is not None:
+            self.classifier = nn.Sequential(Linear(prev * size * size, 100), nn.LeakyReLU(0.2),
+                                            Linear(100, 1))
+
+    def forward(self, x):
+        x = self.features(x)
+        return x if self.classifier is None else self.classifier(x.flatten(1))
+
+
+def make_vgg_discriminator(which: str, in_nc: int = 3, nf: int = 64,
+                           norm_type: Optional[str] = "batch", act_type: str = "leakyrelu",
+                           mode: str = "CNA") -> DiscriminatorVGGStack:
+    """The reference's conv-block VGG D zoo by name (networks.py:151-194)."""
+    if which not in _VGG_VARIANTS:
+        raise NotImplementedError(f"Discriminator model [{which}] not recognized")
+    stages, size = _VGG_VARIANTS[which]
+    return DiscriminatorVGGStack(stages, in_nc=in_nc, nf=nf, norm_type=norm_type,
+                                 act_type=act_type, mode=mode, input_size=size)
+
+
+class DiscriminatorVGG128SN(nn.Module):
+    """Discriminator_VGG_128_SN (architecture.py:499-541): ten spectral-norm
+    convs ``conv0..conv9`` (3x3 stride 1 and 4x4 stride 2 in turns, padding
+    1, 64 to 512 channels), LeakyReLU 0.2, no norm, then ``linear0`` (512 x
+    4 x 4 to 100) and ``linear1`` (to 1), spectral-normed, on the NCHW
+    flatten. ``update_stats`` as flax's: True stores each layer's ``u`` and
+    ``sigma``; None leaves the layers' own setting (``stats_updates``)."""
+
+    _CHANS = (64, 64, 128, 128, 256, 256, 512, 512, 512, 512)
+
+    def __init__(self):
+        super().__init__()
+        prev = 3
+        for i, ch in enumerate(self._CHANS):
+            k, s = (3, 1) if i % 2 == 0 else (4, 2)
+            setattr(self, f"conv{i}", SNConv2d(prev, ch, k, s, 1))
+            prev = ch
+        self.linear0 = SNLinear(512 * 4 * 4, 100)
+        self.linear1 = SNLinear(100, 1)
+
+    def forward(self, x, update_stats: Optional[bool] = None):
+        if update_stats is not None:
+            with stats_updates(self, update_stats):
+                return self.forward(x)
+        for i in range(len(self._CHANS)):
+            x = _lrelu(getattr(self, f"conv{i}")(x))
+        return self.linear1(_lrelu(self.linear0(x.flatten(1))))

@@ -1,8 +1,9 @@
-"""Generators. Counterpart of ``dasr_tpu.nn.generators``; so far the x4
-ESRGAN generator ``RRDBNet`` that DASR serves and trains, its
+"""Generators. Counterpart of ``dasr_tpu.nn.generators``: the x4 ESRGAN
+generator ``RRDBNet`` that DASR, 'sr' and 'srgan' serve and train, its
 DDM-conditioned variants ``RRDBNetResidualConv`` (the Adaptive model's) and
-``RRDBNetSEAN``, and the DSN stage's degradation generators ``DeResnet``
-and ``DSGANGenerator``."""
+``RRDBNetSEAN``, ``SRResNet`` ('sr' and 'srgan'), the SRN's degradation
+nets ``DeResnetSRN`` ('De_Resnet'), and the DSN stage's ``DeResnet`` and
+``DSGANGenerator``."""
 
 from __future__ import annotations
 
@@ -12,12 +13,14 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from dasr_tpu_torch.nn.adaptive_blocks import RRDBSEAN
 from dasr_tpu_torch.nn.blocks import (
     RDB5C,
     RRDB,
     ResidualBlock,
+    ResNetBlock,
     RRDBResidualConv,
     RRDBResidualConvConcat,
     ShortcutBlock,
@@ -102,6 +105,81 @@ def _tail(nf: int, out_nc: int, upscale: int, act_type: str, upsample_mode: str 
         raise NotImplementedError(f"upsample mode [{upsample_mode}] is not found")
     return sequential(*up, conv_block(nf, nf, 3, act_type=act_type),
                       conv_block(nf, out_nc, 3, act_type=None))
+
+
+class SRResNet(nn.Module):
+    """SRResNet (architecture.py:18-49, as networks.py builds it: act 'relu',
+    the pixelshuffle upsampler): ``model.0`` stem conv,
+    ``model.1.sub.{i}.res`` the ``ResNetBlock`` trunk, ``model.1.sub.{nb}``
+    the trunk conv (norm, no act), the long skip, the upsampler and the two
+    HR convs, the reference's module tree, so a reference ``.pth`` loads as
+    it is. Activations run in ``dtype``; parameters stay f32."""
+
+    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 16,
+                 upscale: int = 4, norm_type: Optional[str] = "batch", mode: str = "NAC",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        fea_conv = conv_block(in_nc, nf, 3, act_type=None)
+        trunk = [ResNetBlock(nf, norm_type, "relu", mode) for _ in range(nb)]
+        lr_conv = conv_block(nf, nf, 3, norm_type=norm_type, act_type=None, mode=mode)
+        self.model = sequential(fea_conv, ShortcutBlock(sequential(*trunk, lr_conv)),
+                                _tail(nf, out_nc, upscale, "relu", "pixelshuffle"))
+        self.dtype = dtype
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """The JAX init's law: lecun-normal convs, zero biases."""
+        return init_lecun_(self, generator)
+
+    def forward(self, x):
+        return self.model(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
+
+
+class DeResnetSRN(nn.Module):
+    """The SRN's ``arch.De_Resnet`` family, HR -> LR, no output sigmoid
+    (architecture.py:51-171): ``model.0`` stem conv, ``model.1.sub`` the
+    ``ResNetBlock`` trunk and its conv with the long skip, then by
+    ``variant``: 'strided' log2(``downscale``) stride-2 conv blocks with the
+    activation (De_Resnet), 'x2' one of them (De_Resnetdx2), 'bilinear' a
+    bilinear x1/4 resize without antialiasing (De_Resnet_bilinear), and two
+    conv blocks (the norm, no act), under ``model`` or, for 'bilinear', under
+    ``Afterconv``: the layout ``dasr_tpu``'s ``import_deresnet_srn_params``
+    reads a reference ``.pth`` from."""
+
+    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 8,
+                 downscale: int = 4, norm_type: Optional[str] = "batch",
+                 act_type: Optional[str] = "prelu", mode: str = "NAC",
+                 variant: str = "strided", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        n_down = {"strided": int(math.log2(downscale)), "x2": 1, "bilinear": 0}.get(variant)
+        if n_down is None:
+            raise NotImplementedError(f"De_Resnet variant [{variant}] not recognized")
+        trunk = [ResNetBlock(nf, norm_type, act_type, mode) for _ in range(nb)]
+        head = [conv_block(in_nc, nf, 3, act_type=None),
+                ShortcutBlock(sequential(*trunk, conv_block(nf, nf, 3, norm_type=norm_type,
+                                                            act_type=None, mode=mode)))]
+        down = [conv_block(nf, nf, 3, stride=2, act_type=act_type) for _ in range(n_down)]
+        after = [conv_block(nf, nf, 3, norm_type=norm_type, act_type=None, mode=mode),
+                 conv_block(nf, out_nc, 3, norm_type=norm_type, act_type=None, mode=mode)]
+        self.bilinear = variant == "bilinear"
+        if self.bilinear:
+            self.model, self.Afterconv = sequential(*head), sequential(*after)
+        else:
+            self.model = sequential(*head, *down, *after)
+        self.dtype = dtype
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """The JAX init's law: lecun-normal convs, zero biases, PReLU 0.2."""
+        return init_lecun_(self, generator)
+
+    def forward(self, x):
+        """x (B, in_nc, H, W) -> (B, out_nc, H / 4, W / 4) ('x2': H / 2) in
+        ``dtype``."""
+        h = self.model(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
+        if not self.bilinear:
+            return h
+        h = F.interpolate(h.float(), size=(h.shape[-2] // 4, h.shape[-1] // 4), mode="bilinear",
+                          align_corners=False, antialias=False).to(h.dtype)
+        return self.Afterconv(h)
 
 
 class _ConditionedRRDBNet(nn.Module):

@@ -122,6 +122,12 @@ def _conv_block_sd(node, prefix: str) -> Dict[str, torch.Tensor]:
     return {prefix + ".weight": _conv_t(conv["kernel"]), prefix + ".bias": _vec_t(conv["bias"])}
 
 
+def _ps_perm(cout: int, r: int = 2) -> np.ndarray:
+    """Output-channel order that takes a ``dasr_tpu`` depth-to-space conv to
+    ``nn.PixelShuffle``'s (see ``ps_conv_from_jax``)."""
+    return np.arange(cout).reshape(r, r, cout // (r * r)).transpose(2, 0, 1).reshape(-1)
+
+
 def ps_conv_from_jax(node, prefix: str, r: int = 2) -> Dict[str, torch.Tensor]:
     """A JAX ``pixelshuffle_block``'s conv (``conv_block_0`` node): the
     depth-to-space of ``dasr_tpu`` reads output channel (i r + j) C + c as
@@ -129,9 +135,7 @@ def ps_conv_from_jax(node, prefix: str, r: int = 2) -> Dict[str, torch.Tensor]:
     so the output channels are permuted (the inverse of
     ``dasr_tpu.train.checkpoints.import_sftnet_params``'s ``conv_ps``)."""
     sd = _conv_block_sd(node, prefix)
-    cout = sd[prefix + ".bias"].shape[0]
-    perm = torch.from_numpy(np.arange(cout).reshape(r, r, cout // (r * r)).transpose(2, 0, 1)
-                            .reshape(-1))
+    perm = torch.from_numpy(_ps_perm(sd[prefix + ".bias"].shape[0], r))
     return {k: v[perm].contiguous() for k, v in sd.items()}
 
 
@@ -347,6 +351,164 @@ def fsd_state_dict_from_jax(variables_np: Dict[str, Any], d_arch: str = "FSD",
                 sd[f"net.net.{i}.{name}"] = torch.from_numpy(np.array(v, np.float32))
             sd[f"net.net.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def _zip_into(net: torch.nn.Module, convs, bns=(), prelus=(), linears=(),
+              sns=()) -> Dict[str, torch.Tensor]:
+    """``net``'s state dict from flax nodes, paired with the port's layers
+    type by type in registration order: ``convs`` ((node, permute for
+    ``nn.PixelShuffle``) for each ``Conv2d``), ``bns`` ((params, stats) for
+    each ``BatchNorm2d``), ``prelus`` (nodes), ``linears`` ((node, (C, H, W)
+    of an NHWC-flattened input, or None) for each ``Linear``) and ``sns``
+    ((u, sigma) for each spectral-norm layer). Fails unless every layer and
+    node pairs up."""
+    from dasr_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Linear, PReLU, _SpectralNorm
+
+    queues = {k: list(v) for k, v in (("conv", convs), ("bn", bns), ("prelu", prelus),
+                                       ("linear", linears), ("sn", sns))}
+
+    def pop(kind, name):
+        if not queues[kind]:
+            raise ValueError(f"no flax {kind} node left for {name}")
+        return queues[kind].pop(0)
+
+    sd: Dict[str, torch.Tensor] = {}
+    for name, m in net.named_modules():
+        if isinstance(m, Conv2d):
+            node, ps = pop("conv", name)
+            w, b = _conv_t(node["kernel"]), node.get("bias")
+            b = None if b is None else _vec_t(b)
+            if ps:
+                perm = torch.from_numpy(_ps_perm(w.shape[0]))
+                w, b = w[perm].contiguous(), b[perm].contiguous()
+            sd[f"{name}.weight"] = w
+            if b is not None:
+                sd[f"{name}.bias"] = b
+        elif isinstance(m, Linear):
+            node, chw = pop("linear", name)
+            wt = np.asarray(node["kernel"], np.float32).T
+            if chw is not None:
+                c, h, w = chw
+                wt = wt.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(wt.shape[0], -1)
+            sd[f"{name}.weight"] = torch.from_numpy(np.array(wt, np.float32))
+            sd[f"{name}.bias"] = _vec_t(node["bias"])
+        elif isinstance(m, BatchNorm2d):
+            p, st = pop("bn", name)
+            for key, v in (("weight", p["scale"]), ("bias", p["bias"]),
+                           ("running_mean", st["mean"]), ("running_var", st["var"])):
+                sd[f"{name}.{key}"] = _vec_t(v)
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        elif isinstance(m, PReLU):
+            sd[f"{name}.weight"] = _vec_t(pop("prelu", name)["slope"])
+        if isinstance(m, _SpectralNorm):
+            u, sigma = pop("sn", name)
+            sd[f"{name}.u"] = torch.from_numpy(np.array(u, np.float32).reshape(1, -1))
+            sd[f"{name}.sigma"] = torch.tensor(float(np.asarray(sigma)))
+    left = {k: len(v) for k, v in queues.items() if v}
+    if left:
+        raise ValueError(f"flax nodes left over after {type(net).__name__}'s layers: {left}")
+    return sd
+
+
+def _indexed(tree: Dict[str, Any], prefix: str):
+    """``tree``'s ``{prefix}{i}`` nodes in the order of ``i``."""
+    keys = [k for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit()]
+    return [tree[k] for k in sorted(keys, key=lambda k: int(k[len(prefix):]))]
+
+
+def _conv_block_nodes(blocks, stats_blocks, ps=()):
+    """(convs, bns, prelus) of flax ``conv_block`` nodes in order; the
+    blocks whose index is in ``ps`` are pixelshuffle convs."""
+    convs, bns, prelus = [], [], []
+    for i, (node, st) in enumerate(zip(blocks, stats_blocks)):
+        convs.append((node["Conv_0"], i in ps))
+        if "BatchNorm_0" in node:
+            bns.append((node["BatchNorm_0"], st["BatchNorm_0"]))
+        if "PReLU_0" in node:
+            prelus.append(node["PReLU_0"])
+    return convs, bns, prelus
+
+
+def state_dict_from_jax(net: torch.nn.Module,
+                        variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax variables (``params`` and ``batch_stats``, numpy) of the
+    ``dasr_tpu`` counterpart of ``net`` -> ``net``'s state dict, for the
+    networks of the paired trainers only: ``ResNetBlock``, ``SRResNet`` (its
+    pixelshuffle convs permuted, as ``ps_conv_from_jax`` does), ``DeResnetSRN``,
+    ``DiscriminatorVGG`` and ``make_vgg_discriminator``'s stacks (their
+    BatchNorm statistics; the first linear's input features permuted from
+    flax's NHWC flatten to the reference's NCHW one, ``vgg128_d_key_map``'s
+    ``linear_chw``), ``DiscriminatorVGG128SN`` (each layer's ``u`` and
+    ``sigma``) and ``VGG19Feature54``. The networks of the earlier trainers
+    keep their own carry-overs (``rrdbnet_state_dict_from_jax`` and the
+    rest), which name each flax node; any other network raises. Merging the
+    two ways is ROADMAP A.13."""
+    from dasr_tpu_torch.nn.discriminators import (
+        DiscriminatorVGG,
+        DiscriminatorVGG128SN,
+        DiscriminatorVGGStack,
+    )
+    from dasr_tpu_torch.nn.blocks import ResNetBlock
+    from dasr_tpu_torch.nn.generators import DeResnetSRN, SRResNet
+    from dasr_tpu_torch.nn.vgg import VGG19Feature54
+
+    p = variables_np.get("params", variables_np)
+    st = variables_np.get("batch_stats", {})
+
+    def _get(tree, path):
+        for k in path.split("/"):
+            tree = tree.get(k, {})
+        return tree
+
+    if isinstance(net, SRResNet):
+        n_res = sum(isinstance(m, ResNetBlock) for m in net.model[1].sub)
+        ups = sorted(k for k in p if k.startswith("pixelshuffle_block_"))
+        names = ([f"conv_block_{i}" for i in range(2 * n_res + 2)]
+                 + [f"{u}/conv_block_0" for u in ups]
+                 + [f"conv_block_{2 * n_res + 2}", f"conv_block_{2 * n_res + 3}"])
+        ps = {2 * n_res + 2 + i for i in range(len(ups))}
+        nodes = [_get(p, n) for n in names]
+        return _zip_into(net, *_conv_block_nodes(nodes, [_get(st, n) for n in names], ps))
+    if isinstance(net, ResNetBlock):
+        names = ["conv_block_0", "conv_block_1"]
+        nodes = [_get(p, n) for n in names]
+        return _zip_into(net, *_conv_block_nodes(nodes, [_get(st, n) for n in names]))
+    if isinstance(net, DeResnetSRN):
+        n_res = len(_indexed(p, "ResNetBlock_"))
+        names = ["conv_block_0"]
+        for i in range(n_res):
+            names += [f"ResNetBlock_{i}/conv_block_0", f"ResNetBlock_{i}/conv_block_1"]
+        names += [f"conv_block_{i}" for i in range(1, len(_indexed(p, "conv_block_")))]
+        nodes = [_get(p, n) for n in names]
+        return _zip_into(net, *_conv_block_nodes(nodes, [_get(st, n) for n in names]))
+    if isinstance(net, DiscriminatorVGG):
+        convs = [(n, False) for n in _indexed(p, "Conv_")]
+        bns = list(zip(_indexed(p, "BatchNorm_"), _indexed(st, "BatchNorm_")))
+        c = net.linear1.in_features
+        ch = convs[-1][0]["kernel"].shape[-1]
+        hw = int(round(math.sqrt(c // ch)))
+        return _zip_into(net, convs, bns,
+                         linears=[(p["Dense_0"], (ch, hw, hw)), (p["Dense_1"], None)])
+    if isinstance(net, DiscriminatorVGGStack):
+        names = [f"conv_block_{i}" for i in range(len(_indexed(p, "conv_block_")))]
+        nodes = [_get(p, n) for n in names]
+        convs, bns, prelus = _conv_block_nodes(nodes, [_get(st, n) for n in names])
+        linears = []
+        if net.classifier is not None:
+            ch = convs[-1][0]["kernel"].shape[-1]
+            hw = int(round(math.sqrt(net.classifier[0].in_features // ch)))
+            linears = [(p["Dense_0"], (ch, hw, hw)), (p["Dense_1"], None)]
+        return _zip_into(net, convs, bns, prelus, linears)
+    if isinstance(net, DiscriminatorVGG128SN):
+        n_conv = len(net._CHANS)
+        sn = [_indexed(st, "SpectralNorm_")[i] for i in range(n_conv + 2)]
+        layer = [f"conv{i}" for i in range(n_conv)] + ["linear0", "linear1"]
+        sns = [(s[f"{n}/kernel/u"], s[f"{n}/kernel/sigma"]) for s, n in zip(sn, layer)]
+        return _zip_into(net, [(p[n], False) for n in layer[:n_conv]],
+                         linears=[(p["linear0"], (512, 4, 4)), (p["linear1"], None)], sns=sns)
+    if isinstance(net, VGG19Feature54):
+        return _zip_into(net, [(n, False) for n in _indexed(p["stack"], "conv")])
+    raise NotImplementedError(f"no carry-over from JAX for [{type(net).__name__}]")
 
 
 def lpips_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of dasr_tpu_torch, serving a
 tiny corpus through its srn_test CLI, training two steps through its
-srn_train CLI, two DASR Adaptive steps on the device bank through it, running the three stages through its auto_reproduce CLI
+srn_train CLI, two DASR Adaptive steps on the device bank through it, two
+'srragan' steps and one 'De_Resnet' step through it, running the three
+stages through its auto_reproduce CLI
 (dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
 auto_test and add_corruptions CLIs on those runs' outputs load neither jax
 nor dasr_tpu.
@@ -59,6 +61,23 @@ acfg["logger"]["save_ref_formats"] = False
 json.dump(acfg, open(acfg_path, "w"))
 steps, last = srn_train.main(["-opt", acfg_path, "--device", "cpu", "--device_bank"])
 assert steps == 2 and np.isfinite(last["loss/l_g_total"])
+pdirs = write_corpus(os.path.join(root, "paired"), n=2)
+for model, niter, net_g, hr_size in (
+        ("srragan", 2, {"which_model_G": "RRDB_net", "nf": 8, "nb": 1, "gc": 4}, 48),
+        ("De_Resnet", 1, {"which_model_G": "De_Resnet", "nf": 8, "nb": 1, "norm_type": None,
+                          "mode": "CNA"}, 32)):
+    pcfg = {"name": f"tiny_{model}", "model": model, "scale": 4, "bf16": False,
+            "datasets": {"train": {"name": "p", "mode": "LRHR", "dataroot_HR": pdirs["hr"],
+                                   "dataroot_LR": pdirs["fake"], "n_workers": 1,
+                                   "batch_size": 2, "HR_size": hr_size}},
+            "path": {"root": os.path.join(root, "paired")}, "network_G": net_g,
+            "network_D": {"which_model_D": "discriminator_vgg_48", "nf": 8},
+            "train": {"niter": niter, "manual_seed": 0},
+            "logger": {"print_freq": 1, "save_checkpoint_freq": niter}}
+    ppath = os.path.join(root, f"{model}.json")
+    json.dump(pcfg, open(ppath, "w"))
+    steps, last = srn_train.main(["-opt", ppath, "--device", "cpu"])
+    assert steps == niter and all(np.isfinite(v) for v in last.values()), (model, last)
 from torch_dsn_corpus import auto_reproduce_args
 from dasr_tpu_torch.cli import auto_reproduce
 argv, dirs = auto_reproduce_args(os.path.join(root, "ar"))

@@ -146,7 +146,14 @@ def test_val_lpips_is_refused(corpus):
 
 def test_dasr_model_serves_and_other_models_are_refused(corpus):
     from dasr_tpu_torch.core.config import parse_srn_options
-    from dasr_tpu_torch.models.registry import DASRAdaptiveModel, DASRModel, create_model
+    from dasr_tpu_torch.models.registry import (
+        DASRAdaptiveModel,
+        DASRModel,
+        DegradationModel,
+        SRGANModel,
+        SRModel,
+        create_model,
+    )
 
     opt = parse_srn_options(_config(corpus, "dasr", False, model="DASR_FS_ESRGAN_patchGAN"),
                             is_train=False)
@@ -156,24 +163,39 @@ def test_dasr_model_serves_and_other_models_are_refused(corpus):
     assert sr.shape == (24, 20, 3) and np.isfinite(sr).all()
     with pytest.raises(RuntimeError, match="is_train"):
         model.train_step({})
-    for name in ("srgan", "De_Resnet", "DASR_Adaptive_Model"):
+    # the paired-data trainers are ported (ROADMAP A.9, items 1-3): 'srgan'
+    # serves the RRDB_net, 'De_Resnet' its De_Resnet family, and 'sr' trains
+    opt["model"] = "srgan"
+    assert isinstance(create_model(opt), SRGANModel)
+    opt["model"] = "De_Resnet"
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        create_model(opt)  # an RRDB_net is not a degradation net
+    net_g = opt["network_G"]
+    opt["network_G"] = {"which_model_G": "De_Resnet", "nf": 8, "nb": 1, "norm_type": None}
+    assert isinstance(create_model(opt), DegradationModel)
+    for name in ("De_patch_wavelet_GAN", "DASR_Adaptive_Model"):
         opt["model"] = name
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             create_model(opt)
     # the DASR Adaptive model is ported (ROADMAP A.9's first item) with the
     # generators it feeds a domain-distance map; no other model feeds one
-    net_g = opt["network_G"]
     opt["network_G"] = dict(net_g, which_model_G="RRDB_Residual_conv", ada_nb=1)
+    opt["model"] = "DASR_Adaptive_Model"
     assert isinstance(create_model(opt), DASRAdaptiveModel)
     for name, which in (("DASR", "RRDB_Residual_conv"), ("sr", "RRDB_Residual_conv_concat"),
-                        ("DASR", "RRDB_SEAN"), ("DASR_Adaptive_Model", "RRDB_SEAN")):
+                        ("srragan", "RRDB_Residual_conv"), ("DASR", "RRDB_SEAN"),
+                        ("DASR_Adaptive_Model", "RRDB_SEAN")):
         opt["model"], opt["network_G"]["which_model_G"] = name, which
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             create_model(opt)
     opt["network_G"] = net_g
     opt["model"], opt["is_train"] = "sr", True
+    assert isinstance(create_model(opt), SRModel) and create_model(opt).trainer is not None
+    opt["network_D"] = {"which_model_D": "dis_acd"}
+    opt["model"] = "srragan"
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         create_model(opt)
     # the DASR trainer is ported (ROADMAP A.4): training builds its discriminator
     opt["model"] = "DASR"
+    opt["network_D"] = {}
     assert create_model(opt).trainer is not None
