@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases tools                     # resume, val_batch, the tool CLIs
     python3 chip_smoke.py --phases adaptive                  # the DASR Adaptive model
     python3 chip_smoke.py --phases paired                    # sr, srgan/srragan, De_Resnet
+    python3 chip_smoke.py --phases depatch,sft               # De_patch_wavelet_GAN, SFT-GAN
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -125,6 +126,28 @@ CPU or to a plain version):
             the patch D trained) and banked windows against train_step on
             the same draws, within the three-step limits. It needs phases 2,
             4 and 6.
+12. paired - the paired-data trainers ('sr' with RRDB_net and sr_resnet,
+            'srgan' / 'srragan', 'De_Resnet') at the full width of the port's
+            copies of their shipped configs: srn_train and srn_test, counted;
+            test_x8; the srgan G gate; each step's times; three f32 srragan
+            steps, the kernel against the plain version. It needs phases 2
+            and 4.
+13. depatch - 'De_patch_wavelet_GAN' at the full width of the port's copy of
+            train_De_patch_wavelet_GAN.json (De_Resnet nf 64 nb 22, FSD on the
+            9 Haar high bands, LPIPS alex seeded, batch 3, HR 512, bf16) on a
+            seeded corpus (600x600 HR images, 160x160 real-LR references):
+            srn_train for DEPATCH_STEPS steps with one validation and one save,
+            and srn_test with save_RealorFake from that save (maps finite, (1,
+            1, LR/2, LR/2)), each run counted (no RDB: 0 kernel launches); the
+            step's ms/step, host ms, busy ms, idle share, device events and
+            peak memory; at f32, nb 2: three steps on the card against the CPU
+            (the three-step limits), a run resumed from its 2.pt against the
+            straight run (2e-5), the card's realness maps against the CPU's
+            (1e-5); s/image of the dump.
+14. sft     - sftgan_test on the card with a seeded reference-format .pth (16
+            blocks, 8-channel segmentation maps) over four images, counted (0
+            launches); the PNGs against the CPU CLI's (one grey level), each
+            f32 output against the CPU's (1e-4); ms/image of the forward.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -135,6 +158,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -2814,13 +2838,359 @@ def phase_paired(gpu, root, checked, checked_grad):
     return report
 
 
+DEPATCH_CONFIG = os.path.join("dasr_tpu_torch", "configs", "train_De_patch_wavelet_GAN.json")
+DEPATCH_TEST_CONFIG = os.path.join("dasr_tpu_torch", "configs", "test_De_patch_wavelet_GAN.json")
+DEPATCH_STEPS = 12
+# the depatch phase's corpus: HR images, the real-LR references, and the
+# realness-map test set (LR (h, w), its HR 4x)
+DEPATCH_HR_SIZE, DEPATCH_REF_SIZE = (600, 600), (160, 160)
+DEPATCH_TEST_LR = ((64, 64), (64, 80), (48, 64))
+SFT_IMAGES = ((512, 512), (512, 512), (384, 512), (520, 516))  # HR (h, w), modcropped to 8
+SFT_ATOL = 1e-4
+
+
+def depatch_config(root, dirs, name, niter, nb=None, bf16=True, batch=None, hr_size=None,
+                   save_freq=None, resume=None):
+    """The port's copy of train_De_patch_wavelet_GAN.json on the synthetic
+    corpus (``dataroot_LR`` null: the host bicubic of the HR crop), one
+    validation and one save at ``niter`` unless ``save_freq``."""
+    with open(os.path.join(ROOT, DEPATCH_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, bf16=bf16, use_tb_logger=False)
+    cfg["path"] = {"root": root, "resume_state": resume}
+    cfg["datasets"]["train"].update(dataroot_HR=dirs["hr"], dataroot_LR=None,
+                                    dataroot_Trans_refer=dirs["ref"], n_workers=6)
+    if batch is not None:
+        cfg["datasets"]["train"].update(batch_size=batch, HR_size=hr_size)
+    cfg["datasets"]["val"].update(dataroot_HR=dirs["test_hr"], dataroot_LR=dirs["test_lr"])
+    if nb is not None:
+        cfg["network_G"]["nb"] = nb
+    cfg["train"].update(niter=niter, val_freq=niter)
+    cfg["logger"] = {"print_freq": 1, "save_checkpoint_freq": save_freq or niter}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def depatch_test_config(root, dirs, name, pt, bf16=True):
+    """The port's test_De_patch_wavelet_GAN.json (save_RealorFake) on the
+    test set, G and D from the train state ``pt``."""
+    with open(os.path.join(ROOT, DEPATCH_TEST_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, bf16=bf16)
+    cfg["datasets"]["test_1"].update(dataroot_HR=dirs["test_hr"], dataroot_LR=dirs["test_lr"])
+    cfg["path"] = {"root": root, "pretrain_model_G": pt}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def no_rdb_launch(label, fn):
+    """One run of a main path that has no RDB: the kernel's count set to 0
+    just before it and read just after; fails unless it stayed 0. Returns
+    (fn's result, wall s)."""
+    import torch
+
+    from dasr_tpu_torch.ops.rdb import fused_rdb
+
+    fused_rdb.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if fused_rdb.launches:
+        fail(f"{label}: fused_rdb launched {fused_rdb.launches} times on a path without RDBs")
+    print(f"{label}: fused_rdb launches 0 (the path has no RDB); {secs:.2f} s", flush=True)
+    return out, secs
+
+
+def phase_depatch(gpu, root):
+    """'De_patch_wavelet_GAN' at the full width of the port's copy of
+    train_De_patch_wavelet_GAN.json: srn_train (one validation, one save)
+    and srn_test with save_RealorFake, counted; the step's times; at f32,
+    nb 2: three steps on the card against the CPU, a run resumed from its
+    {iter}.pt against the straight one, and the card's realness maps
+    against the CPU's."""
+    import torch
+
+    from dasr_tpu_torch.cli import srn_test, srn_train
+    from dasr_tpu_torch.core.config import parse_srn_options
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.io import save_img
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.models.registry import create_model
+
+    t_phase = time.perf_counter()
+    report = {}
+    rng = np.random.default_rng(SEED)
+    base = os.path.join(root, "depatch")
+    dirs = {d: os.path.join(base, d) for d in ("hr", "ref", "test_hr", "test_lr")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(12):
+        save_img(rng.random((*DEPATCH_HR_SIZE, 3), dtype=np.float32),
+                 os.path.join(dirs["hr"], f"{i:03d}.png"))
+    for i in range(8):
+        save_img(rng.random((*DEPATCH_REF_SIZE, 3), dtype=np.float32),
+                 os.path.join(dirs["ref"], f"r{i}.png"))
+    for i, (h, w) in enumerate(DEPATCH_TEST_LR):
+        hr = rng.random((4 * h, 4 * w, 3), dtype=np.float32)
+        save_img(hr, os.path.join(dirs["test_hr"], f"t{i}.png"))
+        save_img(hr.reshape(h, 4, w, 4, 3).mean((1, 3)), os.path.join(dirs["test_lr"], f"t{i}.png"))
+
+    # the main path, 1: srn_train at full width, one validation, one save
+    cfg = depatch_config(base, dirs, "train", DEPATCH_STEPS)
+    (steps, _), secs = no_rdb_launch("depatch train", lambda: run_cli(
+        srn_train.main, ["-opt", cfg, "--device", "cuda"]))
+    with open(os.path.join(base, "train", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r for r in recs if any(k.startswith("loss/") for k in r)]
+    val = [r for r in recs if "val/psnr" in r]
+    if (steps != DEPATCH_STEPS or [r["step"] for r in losses] != list(range(1, steps + 1))
+            or not all(np.isfinite(v) for r in losses for k, v in r.items()
+                       if k.startswith("loss/"))):
+        fail(f"depatch train: {steps} steps, losses missing or not finite")
+    if len(val) != 1 or not all(np.isfinite(v) for k, v in val[0].items() if k.startswith("val/")):
+        fail(f"depatch train: validation missing or not finite: {val}")
+    pt = os.path.join(base, "train", "training_state", f"{DEPATCH_STEPS}.pt")
+    if not os.path.exists(pt):
+        fail("depatch train: the train state was not saved")
+    print(f"depatch train (De_Resnet nf 64 nb 22, FSD on 9 Haar bands, LPIPS alex seeded, batch "
+          f"3, HR 512, bf16): {steps} steps in {secs:.2f} s through the CLI (host loader, host "
+          f"bicubic LR); losses step 1 -> {steps}: "
+          + ", ".join(f"{k.split('/')[-1]} {losses[0][k]:.4e} -> {losses[-1][k]:.4e}"
+                      for k in sorted(losses[0]) if k.startswith("loss/"))
+          + f"; validation G(HR) vs LR "
+          f"{({k: v for k, v in val[0].items() if k.startswith('val/')})} [{gpu}]", flush=True)
+    report["train_s"] = secs
+
+    # the main path, 2: srn_test with save_RealorFake from that save
+    tcfg = depatch_test_config(base, dirs, "serve", pt)
+    avg, secs = no_rdb_launch("depatch serve", lambda: run_cli(
+        srn_test.main, ["-opt", tcfg, "--device", "cuda"]))
+    out = os.path.join(base, "results", "serve", "val_RealSR")
+    for i, (h, w) in enumerate(DEPATCH_TEST_LR):
+        rmap = np.load(os.path.join(out, f"t{i}_ddm.npy"))
+        if rmap.shape != (1, 1, h // 2, w // 2) or not np.isfinite(rmap).all():
+            fail(f"depatch serve: t{i}_ddm.npy {rmap.shape}, finite {np.isfinite(rmap).all()}")
+    n_img = len(DEPATCH_TEST_LR)
+    print(f"depatch serve (srn_test, save_RealorFake, bf16): {n_img} images (LR "
+          f"{DEPATCH_TEST_LR}, G(HR) held against LR) in {secs:.2f} s, {secs / n_img:.3f} "
+          f"s/image with the realness maps, host metrics and PNG/NPY IO; "
+          f"{avg.get('val_RealSR')} [{gpu}]", flush=True)
+    report["serve_s_per_image"] = secs / n_img
+
+    def build(cfg_path, dev):
+        opt = parse_srn_options(cfg_path, is_train=True)
+        model = create_model(opt, dev)
+        model.init()
+        bs = int(opt["datasets"]["train"]["batch_size"])
+        loader = Loader(create_dataset(opt["datasets"]["train"]), batch_size=bs, num_workers=6,
+                        seed=0)
+        return model, list(loader)[:3]
+
+    # the step's times: two steps a call on host batches, one traced
+    model, batches = build(cfg, torch.device("cuda"))
+    tr = model.trainer
+    dev_batches = [model._to_device(b) for b in batches[:2]]
+    torch.cuda.empty_cache()
+    report["step"] = time_arms(
+        "depatch step (nf 64 nb 22, batch 3, HR 512, bf16)",
+        {"depatch": lambda: [tr.train_step(b) for b in dev_batches]}, 2, gpu, rounds=2,
+        profiled={"depatch": (lambda: tr.train_step(dev_batches[0]), 1)})["depatch"]
+    del model, tr, batches, dev_batches
+    torch.cuda.empty_cache()
+
+    # three f32 steps at nb 2 (batch 2, HR 128), the card against the CPU,
+    # from the same seeded init and host batches
+    cfg32 = depatch_config(base, dirs, "f32", 3, nb=2, bf16=False, batch=2, hr_size=128)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        model, batches = build(cfg32, torch.device(name))
+        st = model.trainer.state
+        nets = {"G": st.g, "D": st.d_target}
+        init = {k: torch.cat([p.detach().flatten().cpu() for p in ns.params()])
+                for k, ns in nets.items()}
+        traj = [model.train_step(b) for b in batches]
+        after = {k: (torch.cat([p.detach().flatten().cpu() for p in ns.params()]),
+                     torch.cat([ns.opt.state[p]["exp_avg"].flatten().cpu() for p in ns.params()]))
+                 for k, ns in nets.items()}
+        runs[name] = (traj, init, after)
+    lim = DSN_F32_LIMITS
+    worst, parts, bad, _ = compare_three_steps("depatch f32", runs["cuda"], runs["cpu"],
+                                               lim["loss"], lim["update"], lim["moment"])
+    print(f"depatch f32 nb 2 (batch 2, HR 128), 3 steps, the card vs the CPU: losses within "
+          f"{worst:.3f} of their limit (atol {lim['loss'][0]}, rtol {lim['loss'][1]}); "
+          f"|dtheta_card - dtheta_cpu| / |dtheta_cpu| and the same of Adam's first moments "
+          f"(limits {lim['update']}, {lim['moment']}): {'; '.join(parts)}", flush=True)
+    if bad:
+        fail(f"depatch f32: the card's updates or moments of {bad} are off the CPU's")
+    report["f32_worst_loss_share"] = worst
+
+    # a run resumed from 2.pt against the straight run to 4 (f32, nb 2,
+    # cuDNN deterministic): the saved 4.pt's weights and Adam moments
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True), \
+            contextlib.redirect_stdout(Tee()):
+        for name, resume in (("straight", None), ("resumed", os.path.join(
+                base, "straight", "training_state", "2.pt"))):
+            c = depatch_config(base, dirs, name, 4, nb=2, bf16=False, batch=2, hr_size=128,
+                               save_freq=2, resume=resume)
+            if run_cli(srn_train.main, ["-opt", c, "--device", "cuda"])[0] != 4:
+                fail(f"depatch resume: the {name} run did not end at step 4")
+    saved = {name: torch.load(os.path.join(base, name, "training_state", "4.pt"),
+                              weights_only=True) for name in ("straight", "resumed")}
+    diff = 0.0
+    for label in ("G", "D_target"):
+        a, b = saved["straight"][label], saved["resumed"][label]
+        for k, v in a["net"].items():
+            diff = max(diff, (b["net"][k].float() - v.float()).abs().max().item())
+        for idx, s in a["opt"]["state"].items():
+            diff = max(diff, (b["opt"]["state"][idx]["exp_avg"] - s["exp_avg"]).abs().max().item())
+    print(f"depatch resume (f32 nb 2, batch 2, HR 128): 4.pt of the run resumed from 2.pt vs "
+          f"the straight run, G and D weights and Adam first moments: max |diff| {diff:.3e} "
+          f"(limit 2e-5)", flush=True)
+    if not diff <= 2e-5:
+        fail(f"depatch resume: the resumed run's 4.pt is {diff:.3e} off the straight run's")
+    report["resume_max_abs_diff"] = diff
+
+    # the realness maps at f32 on the card against the CPU's, from the
+    # full-width save
+    maps = {}
+    for name in ("cuda", "cpu"):
+        c = depatch_test_config(base, dirs, f"maps_{name}", pt, bf16=False)
+        with contextlib.redirect_stdout(Tee()):
+            # run_cli holds a card run to TF32 off; the CPU has none
+            (run_cli if name == "cuda" else lambda main, argv: main(argv))(
+                srn_test.main, ["-opt", c, "--device", name])
+        maps[name] = [np.load(os.path.join(base, "results", f"maps_{name}", "val_RealSR",
+                                           f"t{i}_ddm.npy")) for i in range(n_img)]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(maps["cuda"], maps["cpu"]))
+    print(f"depatch realness maps, f32, full width: the card vs the CPU max |err| {err:.3e} "
+          "(limit 1e-5)", flush=True)
+    if not err <= 1e-5:
+        fail(f"depatch realness maps: the card's are {err:.3e} off the CPU's")
+    report["map_max_abs_err"] = err
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"depatch: the phase took {report['phase_s']:.2f} s [{gpu}]", flush=True)
+    return report
+
+
+def sft_reference_pth(path, rng, n_blocks=16):
+    """A seeded reference-format SFT_Net state dict (sft_arch.py:40-75
+    names), weights of variance 1 / fan_in."""
+    import torch
+
+    sd = {}
+
+    def conv(name, cin, cout, k):
+        sd[name + ".weight"] = torch.from_numpy(
+            rng.normal(0, 1 / np.sqrt(cin * k * k), (cout, cin, k, k)).astype(np.float32))
+        sd[name + ".bias"] = torch.from_numpy(rng.normal(0, 0.01, (cout,)).astype(np.float32))
+
+    def sft_layer(prefix):
+        for kind in ("scale", "shift"):
+            conv(f"{prefix}.SFT_{kind}_conv0", 32, 32, 1)
+            conv(f"{prefix}.SFT_{kind}_conv1", 32, 64, 1)
+
+    conv("conv0", 3, 64, 3)
+    for i in range(n_blocks):
+        sft_layer(f"sft_branch.{i}.sft0")
+        conv(f"sft_branch.{i}.conv0", 64, 64, 3)
+        sft_layer(f"sft_branch.{i}.sft1")
+        conv(f"sft_branch.{i}.conv1", 64, 64, 3)
+    sft_layer(f"sft_branch.{n_blocks}")
+    conv(f"sft_branch.{n_blocks + 1}", 64, 64, 3)
+    for name, cin, cout in (("HR_branch.0", 64, 256), ("HR_branch.3", 64, 256),
+                            ("HR_branch.6", 64, 64), ("HR_branch.8", 64, 3)):
+        conv(name, cin, cout, 3)
+    conv("CondNet.0", 8, 128, 4)
+    for j in (2, 4, 6):
+        conv(f"CondNet.{j}", 128, 128, 1)
+    conv("CondNet.8", 128, 32, 1)
+    torch.save(sd, path)
+    return path
+
+
+def phase_sft(gpu, root):
+    """sftgan_test on the card with a seeded reference-format .pth (16
+    blocks, 8-channel segmentation maps) over four images, counted; each
+    image's output against the CPU's at f32; ms/image of the forward."""
+    import torch
+
+    from dasr_tpu_torch.cli import sftgan_test
+    from dasr_tpu_torch.data.io import list_images, read_img, save_img
+    from dasr_tpu_torch.ops.metrics import modcrop
+    from dasr_tpu_torch.ops.resize import imresize_np
+
+    t_phase = time.perf_counter()
+    report = {}
+    rng = np.random.default_rng(SEED)
+    base = os.path.join(root, "sft")
+    img_dir, seg_dir = os.path.join(base, "img"), os.path.join(base, "seg")
+    os.makedirs(img_dir)
+    os.makedirs(seg_dir)
+    for i, (h, w) in enumerate(SFT_IMAGES):
+        save_img(rng.random((h, w, 3), dtype=np.float32), os.path.join(img_dir, f"s{i}.png"))
+        seg = rng.random((8, h - h % 8, w - w % 8), dtype=np.float32)
+        seg /= seg.sum(0, keepdims=True)  # probability maps
+        if i % 2:
+            np.save(os.path.join(seg_dir, f"s{i}_bic.npy"), seg)
+        else:
+            torch.save(torch.from_numpy(seg), os.path.join(seg_dir, f"s{i}_bic.pth"))
+    pth = sft_reference_pth(os.path.join(base, "SFTGAN_seeded.pth"), rng)
+    argv = ["--model", pth, "--img_dir", img_dir, "--seg_dir", seg_dir]
+
+    # the main path: sftgan_test on the card
+    written, secs = no_rdb_launch("sft serve", lambda: run_cli(
+        sftgan_test.main, argv + ["--out", os.path.join(base, "out_cuda"), "--device", "cuda"]))
+    if len(written) != len(SFT_IMAGES):
+        fail(f"sft serve: {len(written)} of {len(SFT_IMAGES)} images written")
+    with contextlib.redirect_stdout(Tee()):
+        sftgan_test.main(argv + ["--out", os.path.join(base, "out_cpu"), "--device", "cpu"])
+    png = max(float(np.abs(read_img(p) - read_img(p.replace("out_cuda", "out_cpu"))).max())
+              for p in written)
+    print(f"sft serve (SFTNet 16 blocks, seeded reference-format .pth, f32): "
+          f"{len(written)} images (HR {SFT_IMAGES}) in {secs:.2f} s, "
+          f"{secs / len(written):.3f} s/image with PNG IO; PNGs vs the CPU CLI's: max "
+          f"{png * 255:.0f} grey levels [{gpu}]", flush=True)
+    if png > 1 / 255 + 1e-6:
+        fail(f"sft serve: the card's PNGs are {png * 255:.1f} grey levels off the CPU's")
+
+    # each image's f32 output on the card against the CPU's, and the
+    # forward's ms/image
+    nets = {d: sftgan_test.load_sftnet(pth).to(d).eval() for d in ("cuda", "cpu")}
+    err, ms = 0.0, []
+    for path in list_images(img_dir):
+        base_name = os.path.splitext(os.path.basename(path))[0]
+        lr = imresize_np(modcrop(read_img(path), 8), 0.25)
+        x = torch.from_numpy(np.ascontiguousarray(lr)).permute(2, 0, 1)[None]
+        seg = torch.from_numpy(sftgan_test.load_seg(seg_dir, base_name))[None]
+        with torch.no_grad():
+            out = {d: nets[d](x.to(d), seg.to(d)).float().cpu() for d in nets}
+            xc, sc = x.cuda(), seg.cuda()
+            ms.append(cuda_ms(lambda: nets["cuda"](xc, sc), warmup=2, iters=10))
+        err = max(err, (out["cuda"] - out["cpu"]).abs().max().item())
+    print(f"sft forward, f32: the card vs the CPU max |err| {err:.3e} (limit {SFT_ATOL}); "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms/image (CUDA events, LR "
+          f"{[((h - h % 8) // 4, (w - w % 8) // 4) for h, w in SFT_IMAGES]}) [{gpu}]",
+          flush=True)
+    if not err <= SFT_ATOL:
+        fail(f"sft forward: the card's output is {err:.3e} off the CPU's")
+    report.update(serve_s_per_image=secs / len(written), max_abs_err=err, ms_per_image=ms)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"sft: the phase took {report['phase_s']:.2f} s [{gpu}]", flush=True)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive,paired",
+                            "adaptive,paired,depatch,sft",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools,adaptive,paired")
+                         "pipeline,bank,tools,adaptive,paired,depatch,sft")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2899,11 +3269,21 @@ def main(argv=None):
             entry["launches_paired"] = report.pop("launches_paired")
             print(f"paired (sr, srgan / srragan, De_Resnet: train, serve): {json.dumps(report)}",
                   flush=True)
+        # the DePatch and SFT paths run no RDB: their runs count 0 launches
+        if "depatch" in phases:
+            report = phase_depatch(gpu, root)
+            entry["launches_depatch"] = 0
+            print(f"depatch (De_patch_wavelet_GAN: train, resume, serve with save_RealorFake): "
+                  f"{json.dumps(report)}", flush=True)
+        if "sft" in phases:
+            report = phase_sft(gpu, root)
+            entry["launches_sft"] = 0
+            print(f"sft (sftgan_test): {json.dumps(report)}", flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
                             for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive",
-                                      "paired"))
+                                      "paired", "depatch", "sft"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

@@ -15,10 +15,13 @@ metrics unless ``--metrics_pad_bucket N`` pads each pair to a multiple of
 N for the masked metrics (exact; LPIPS per shape).
 
 The models: 'sr' (``RRDB_net`` or ``sr_resnet``), 'srgan' / 'srragan',
-'DASR', 'DASR_Adaptive_Model' and 'De_Resnet'. 'De_Resnet' degrades the
-image it is given: with an HR image in the set it takes the HR image and
-is held against the LR one (its ``val_keys``), else it takes the LR image
-and reports no metrics.
+'DASR', 'DASR_Adaptive_Model', 'De_Resnet' and 'De_patch_wavelet_GAN'. The
+last two degrade the image they are given: with an HR image in the set they
+take the HR image and are held against the LR one (their ``val_keys``),
+else they take the LR image and report no metrics. With
+``save_RealorFake: true`` a model with a realness map ('De_patch_wavelet_GAN')
+also writes ``<base>_ddm.npy``, (1, 1, h / 2, w / 2), its D's map of the LR
+image (codes/SRN/test.py:44-46, 77-79).
 
 Not ported yet, and refused rather than skipped: ``--mesh`` and
 ``--spatial_shard`` (ROADMAP A.11).
@@ -72,6 +75,10 @@ def main(argv=None):
     model.load()
     lpips_fn = make_lpips(device) if opt.get("val_lpips") else None
     measure = sr_metrics_on(opt, lpips_fn, args.device_metrics, args.metrics_pad_bucket)
+    realness = opt.get("save_RealorFake") and getattr(model, "realness_map", None)
+    if opt.get("save_RealorFake") and not realness:
+        logger.info(f"save_RealorFake: model [{opt.get('model')}] has no realness map; "
+                    "no _ddm.npy is written")
 
     averages = {}
     for _, dataset_opt in sorted((opt.get("datasets") or {}).items()):
@@ -87,6 +94,9 @@ def main(argv=None):
             sr = sr_dev.cpu().numpy()
             base = os.path.splitext(os.path.basename(data["LR_path"]))[0]
             save_img(sr, os.path.join(dataset_dir, base + ".png"))
+            if realness and "LR" in data:
+                np.save(os.path.join(dataset_dir, base + "_ddm.npy"),
+                        realness(data["LR"])[None, None])
             if done is None:
                 logger.info(f"{i + 1:3d} - {base}")
                 return

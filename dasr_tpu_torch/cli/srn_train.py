@@ -34,9 +34,11 @@ The JAX package's fast path, with its semantics:
   as in the JAX CLI.
 
 'DASR_Adaptive_Model' trains through the same loop, and so do the paired
-trainers 'sr', 'srgan' / 'srragan' and 'De_Resnet' on the host loader one
-step a call (``--steps_per_call`` and ``--device_bank`` fall back, with the
-JAX CLI's lines); 'De_Resnet' validates G(HR) against the LR image. As the
+trainers 'sr', 'srgan' / 'srragan' and 'De_Resnet', and the DePatch wavelet
+GAN 'De_patch_wavelet_GAN' (dataset mode 'LRHR_Trans_Wavelet_GAN'), on the
+host loader one step a call (``--steps_per_call`` and ``--device_bank`` fall
+back, with the JAX CLI's lines); 'De_Resnet' and 'De_patch_wavelet_GAN'
+validate G(HR) against the LR image. As the
 JAX CLI has no path for these models' reference formats, a ``.state``
 ``resume_state`` and ``save_ref_formats`` are refused for them.
 """
@@ -99,11 +101,11 @@ def main(argv=None):
         if (opt["path"].get("resume_state") or "").endswith(".state"):
             raise NotImplementedError(f"resume_state: a reference .state is not a {name} "
                                       "checkpoint; resume from the port's {iter}.pt "
-                                      "(ROADMAP A.9)")
+                                      "(dasr_tpu has no reference format for this model)")
         if (opt.get("logger") or {}).get("save_ref_formats"):
             raise NotImplementedError(f"logger.save_ref_formats: {name} has no reference "
                                       "formats; its train state saves as {iter}.pt "
-                                      "(ROADMAP A.9)")
+                                      "(dasr_tpu has no reference format for this model)")
     opt = check_resume(opt)
     rstate = opt["path"].get("resume_state")
     device = resolve_device(args.device)
@@ -314,7 +316,8 @@ def main(argv=None):
 
 
 # the models whose train state saves only as the port's {iter}.pt
-_NO_REFERENCE_FORMATS = ("DASR_Adaptive_Model", "sr", "srgan", "srragan", "De_Resnet")
+_NO_REFERENCE_FORMATS = ("DASR_Adaptive_Model", "sr", "srgan", "srragan", "De_Resnet",
+                         "De_patch_wavelet_GAN")
 
 
 def _bank_gate(opt, dataset_opt, budget_gb):

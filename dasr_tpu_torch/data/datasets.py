@@ -13,17 +13,24 @@ dicts of RGB float32 HWC numpy arrays in [0, 1]:
     the per-real-LR DDMs (LRHR_wavelet_unpairEq_dataset.py)
   * ``UnpairDataset`` — 'LRHR_unpair', the DASR Adaptive mode: the DASR
     mode without weights (LRHR_unpair_dataset.py:50-155)
+  * ``MixUnpairedDataset`` — 'LRHR_wavelet_unpair': each index a pseudo
+    pair (fake LR + DDM) or a real LR with all-ones weights
+    (LRHR_wavelet_unpairMix_dataset.py:49-120)
+  * ``TransWaveletDataset`` — 'LRHR_Trans_Wavelet_GAN', the DePatch
+    wavelet GAN's mode: an aligned HR / LR pair and a real-LR reference
   * ``DSNTrainDataset`` — the DSN feed: a clean HR crop, its MATLAB-bicubic
     LR, and a crop of a noisy LR image (codes/DSN/data_loader.py:12-59)
   * ``DSNValDataset``   — the DSN validation feed (data_loader.py:157-190)
 
 Copied from ``dasr_tpu.data.datasets``: the same draws from the same
 per-item ``np.random.Generator``, so the port's batches are the JAX
-package's. The other unpaired modes wait for their trainers (ROADMAP A.9).
+package's, but for ``TransWaveletDataset``, which ``dasr_tpu`` cannot build
+from the shipped DePatch config (its docstring says how it differs).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -230,6 +237,106 @@ class UnpairDataset(DASRUnpairedDataset):
         super().__init__(opt)
 
 
+class MixUnpairedDataset:
+    """'LRHR_wavelet_unpair' (Mix): each index is either a pseudo-pair
+    (fake LR + DDM, name-prefixed) or a real LR with all-ones weights
+    (reference: codes/SRN/data/LRHR_wavelet_unpairMix_dataset.py:49-120)."""
+
+    def __init__(self, opt: Dict):
+        self.opt = opt
+        self.scale = opt.get("scale", 4)
+        self.hr_size = opt.get("HR_size", 128)
+        self.prefix = opt.get("prefix", "fake")
+        self.paths_hr = list_images(opt["dataroot_HR"])
+        self.paths_lr = list_images(opt["dataroot_LR"])
+        self.paths_w = (
+            list_images(opt["dataroot_weights"])
+            if opt.get("dataroot_weights")
+            else None
+        )
+
+    def __len__(self):
+        return len(self.paths_lr)
+
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng(index)
+        lr_path = self.paths_lr[index]
+        lr = read_img(lr_path)
+        is_fake = self.prefix in os.path.basename(lr_path)
+        if is_fake and self.paths_w is not None:
+            hr = read_img(self.paths_hr[index % len(self.paths_hr)])
+            w = load_ddm(self.paths_w[index % len(self.paths_w)])
+            w = resize_linear(w, hr.shape[1], hr.shape[0])
+        else:
+            hr = read_img(self.paths_hr[int(rng.integers(len(self.paths_hr)))])
+            w = np.ones(hr.shape[:2] + (1,), np.float32)
+        lr_size = self.hr_size // self.scale
+        lr_c, (t, l) = _rand_crop(lr, lr_size, rng)
+        if is_fake:
+            hr = hr[
+                t * self.scale : t * self.scale + self.hr_size,
+                l * self.scale : l * self.scale + self.hr_size,
+                :,
+            ]
+            w = w[
+                t * self.scale : t * self.scale + self.hr_size,
+                l * self.scale : l * self.scale + self.hr_size,
+                :,
+            ]
+        else:
+            hr, (th, tl) = _rand_crop(hr, self.hr_size, rng)
+            w = w[th : th + self.hr_size, tl : tl + self.hr_size, :]
+        lr_c, hr, w = _augment(
+            [lr_c, hr, w], rng, self.opt.get("use_flip", True), self.opt.get("use_rot", True)
+        )
+        return {"LR": lr_c, "HR": hr, "weights": w, "is_fake": np.float32(is_fake),
+                "LR_path": lr_path}
+
+
+class TransWaveletDataset(PairedDataset):
+    """'LRHR_Trans_Wavelet_GAN', the DePatch wavelet GAN's mode: an ``HR``
+    crop of ``HR_size`` and its ``LR``, and ``ref``, a random
+    ``HR_size // scale`` crop of a random image of ``dataroot_Trans_refer``
+    (the shipped key; ``dataroot_ref`` too), the real-LR domain the
+    trainer's D holds G(HR) against. Where ``dataroot_LR`` names LR images,
+    ``HR`` and ``LR`` are the aligned crops of the 'LRHR' mode; where it is
+    null, ``LR`` is the MATLAB bicubic of the ``HR`` crop (after its flips,
+    with which the bicubic commutes), not a crop of the whole image's.
+
+    ``dasr_tpu``'s mode differs and cannot feed its own trainer from the
+    shipped config (ROADMAP C.2): it is the DASR mode plus a reference, so
+    it reads ``dataroot_fake_LR`` / ``dataroot_real_LR``, which the shipped
+    ``train_De_patch_wavelet_GAN.json`` does not name (a KeyError), reads
+    the references from ``dataroot_ref`` only, gives no ``LR``, which its
+    trainer reads, and crops ``ref`` at ``HR_size``, where the trainer
+    takes it as an LR image."""
+
+    def __init__(self, opt: Dict):
+        super().__init__(opt)
+        ref_dir = opt.get("dataroot_Trans_refer") or opt.get("dataroot_ref")
+        if not ref_dir:
+            raise ValueError("LRHR_Trans_Wavelet_GAN needs the reference LR images "
+                             "(dataroot_Trans_refer)")
+        self.paths_ref = list_images(ref_dir)
+
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng(index)
+        if self.phase == "train" and self.paths_lr is None:
+            hr, _ = _rand_crop(read_img(self.paths_hr[index]), self.hr_size, rng)
+            (hr,) = _augment([hr], rng, self.opt.get("use_flip", True),
+                             self.opt.get("use_rot", True))
+            item = {"LR": imresize_np(hr, 1.0 / self.scale), "HR": hr,
+                    "LR_path": self.paths_hr[index], "HR_path": self.paths_hr[index]}
+        else:
+            item = super().__getitem__(index, rng)
+        i_ref = int(rng.integers(len(self.paths_ref)))
+        ref = read_img(self.paths_ref[i_ref])
+        if self.phase == "train":
+            ref, _ = _rand_crop(ref, self.hr_size // self.scale, rng)
+        item.update(ref=np.ascontiguousarray(ref), ref_path=self.paths_ref[i_ref])
+        return item
+
+
 class DSNTrainDataset:
     """DSN unpaired trainer feed (codes/DSN/data_loader.py:12-59).
 
@@ -307,6 +414,8 @@ _REGISTRY = {
     "LRHR_wavelet_unpair_fake_weights_EQ": DASRUnpairedDataset,
     "LRHR_wavelet_unpair_fake_real_w_EQ": DASRUnpairedEqDataset,
     "LRHR_unpair": UnpairDataset,
+    "LRHR_wavelet_unpair": MixUnpairedDataset,
+    "LRHR_Trans_Wavelet_GAN": TransWaveletDataset,
 }
 
 
@@ -314,8 +423,5 @@ def create_dataset(opt: Dict):
     """Dataset registry (reference: codes/SRN/data/__init__.py:6-27)."""
     mode = opt["mode"]
     if mode not in _REGISTRY:
-        raise NotImplementedError(
-            f"Dataset [{mode}] is not ported yet: dasr_tpu_torch has the modes "
-            f"{sorted(_REGISTRY)}; the others come with their trainers (ROADMAP A.9)"
-        )
+        raise NotImplementedError(f"Dataset [{mode}] is not recognized.")
     return _REGISTRY[mode](opt)

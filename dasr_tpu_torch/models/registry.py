@@ -13,8 +13,12 @@ port's own ``{iter}.pt`` (``resume``) or a reference ``{iter}.state``
 generator; and the paired-data trainers 'sr' (``SRModel``, with
 ``test_x8``), 'srgan' / 'srragan' (``SRGANModel``) and 'De_Resnet'
 (``DegradationModel``), serving and training on host batches one step a
-call. Any other model, trainer, or model and generator pair raises
-``NotImplementedError`` naming its ROADMAP queue item.
+call; and 'De_patch_wavelet_GAN' (``DePatchModel``), the wavelet GAN of
+the De_Resnet family, with its realness map. ``define_G`` also builds
+'DSGAN' and 'sft_arch', ``define_D`` 'dis_acd'; no model trains or serves
+them (``dsn_test`` runs the DSGAN generator, ``sftgan_test`` SFTNet).
+Any other model, or a generator the model does not feed, raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,26 +44,40 @@ from dasr_tpu_torch.nn.discriminators import (
 )
 from dasr_tpu_torch.nn.generators import (
     DeResnetSRN,
+    DSGANGenerator,
     RRDBNet,
     RRDBNetResidualConv,
     RRDBNetSEAN,
     SRResNet,
 )
+from dasr_tpu_torch.nn.sft import ACDVGGBN96, SFTNet
 from dasr_tpu_torch.ops.tiled import forward_chop, pad_reflect, tiled_apply
 from dasr_tpu_torch.train import checkpoints
 from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
 from dasr_tpu_torch.train.degradation_trainer import PixelConfig, PixelTrainer
+from dasr_tpu_torch.train.depatch_trainer import (
+    DePatchConfig,
+    DePatchTrainer,
+    make_d,
+    realness_map,
+)
 from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 
 logger = logging.getLogger("base")
 
-_TRAINERS = ("De_patch_wavelet_GAN",)
-_GENERATORS = ("DSGAN", "sft_arch")
 # De_Resnet family: the variant, and whether the config's act_type holds
 # (networks.py:106-127 give De_RRDB and the bilinear / x2 variants 'relu')
 _DE_RESNETS = {"De_Resnet": ("strided", True), "De_RRDB": ("strided", False),
                "De_Resnet_bilinear": ("bilinear", False), "De_Resnet2xd": ("x2", False)}
+
+
+# the generators no model feeds, and what runs them
+_RUNNERS = {
+    DSGANGenerator: "a 1:1 generator no SRN trainer feeds; dsn_test runs it "
+                    "(--generator DSGAN)",
+    SFTNet: "it takes segmentation maps, which no SRN dataset gives; sftgan_test runs it",
+}
 
 
 def compute_dtype(opt: Dict) -> torch.dtype:
@@ -98,10 +116,10 @@ def define_G(opt: Dict) -> torch.nn.Module:
                            act_type=net.get("act_type") if own_act else "relu",
                            mode=net.get("mode", "NAC") or "NAC", variant=variant,
                            dtype=widths["dtype"])
-    if which in _GENERATORS:
-        raise NotImplementedError(
-            f"Generator model [{which}] is not ported yet (ROADMAP A.9)"
-        )
+    if which == "DSGAN":
+        return DSGANGenerator(dtype=widths["dtype"])
+    if which == "sft_arch":
+        return SFTNet(dtype=widths["dtype"])
     raise NotImplementedError(f"Generator model [{which}] not recognized")
 
 
@@ -131,8 +149,7 @@ def _build_d(which: str, net: Dict) -> torch.nn.Module:
     if which == "DSGAN":
         return DiscriminatorBasic(in_ch=in_nc)
     if which == "dis_acd":
-        raise NotImplementedError(f"Discriminator model [{which}] is not ported yet "
-                                  "(ROADMAP A.9)")
+        return ACDVGGBN96()
     return make_vgg_discriminator(which, in_nc=in_nc, nf=nf,
                                   norm_type=net.get("norm_type", "batch"),
                                   act_type=net.get("act_type", "leakyrelu"),
@@ -188,9 +205,11 @@ class _InferenceModel:
         self.g = define_G(opt)
         self.trainer = None
         if not isinstance(self.g, self.g_types):
+            which = opt["network_G"]["which_model_G"]
+            runner = _RUNNERS.get(type(self.g))
             raise NotImplementedError(
-                f"Model [{opt.get('model')}] with generator "
-                f"[{opt['network_G']['which_model_G']}] is not ported yet (ROADMAP A.9)")
+                f"Model [{opt.get('model')}] does not take generator [{which}]"
+                + (f": {runner}" if runner else ""))
 
     def init(self, seed: Optional[int] = None):
         """Seeded weights (``train.manual_seed`` by default with a trainer,
@@ -416,7 +435,12 @@ class SRGANModel(SRModel):
             seed=int(train.get("manual_seed", 0) or 0),
             dtype=compute_dtype(self.opt),
         )
-        return SRGANTrainer(cfg, self.g, define_D(self.opt), self.device)
+        d = define_D(self.opt)
+        if isinstance(d, ACDVGGBN96):
+            raise NotImplementedError(
+                f"Model [{self.opt.get('model')}] with discriminator [dis_acd]: ACDVGGBN96 "
+                "gives two heads (GAN and class), and the SRGAN step trains a one-headed D")
+        return SRGANTrainer(cfg, self.g, d, self.device)
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
         tr = self._trainer()
@@ -445,8 +469,110 @@ class DegradationModel(_InferenceModel):
                                  f"[{opt.get('model')}] degrades the whole image")
         super().__init__(opt, device)
         if opt.get("is_train"):
-            self.trainer = PixelTrainer(pixel_config(opt), self.g, self.device, source="HR",
-                                        target="LR")
+            self.trainer = self.make_trainer()
+
+    def make_trainer(self):
+        return PixelTrainer(pixel_config(self.opt), self.g, self.device, source="HR",
+                            target="LR")
+
+
+def depatch_config(opt: Dict) -> DePatchConfig:
+    """DePatchConfig from the options, with ``dasr_tpu``'s keys and defaults
+    (its ``DePatchModel``, ``registry.py:919-944``): a ``gan_weight`` of 0
+    trains at 0.005, and D is always ``FSDiscriminator('FSD')`` with
+    InstanceNorm (see ``DePatchModel``)."""
+    train = opt.get("train") or {}
+    return DePatchConfig(
+        lr_g=train.get("lr_G", 1e-4), lr_d=train.get("lr_D", 1e-4),
+        beta1_g=train.get("beta1_G", 0.9), beta1_d=train.get("beta1_D", 0.9),
+        lr_steps=tuple(int(m) for m in (train.get("lr_steps") or (100000,))),
+        lr_gamma=train.get("lr_gamma", 0.5),
+        norm=bool(train.get("norm", True)),
+        pixel_criterion=train.get("pixel_criterion", "l1"),
+        pixel_weight=train.get("pixel_weight", 1.0) or 0.0,
+        feature_weight=train.get("feature_weight", 1.0) or 0.0,
+        gan_weight=train.get("gan_weight", 0.005) or 0.005,
+        seed=int(train.get("manual_seed", 0) or 0),
+        dtype=compute_dtype(opt),
+    )
+
+
+class DePatchModel(DegradationModel):
+    """'De_patch_wavelet_GAN' (reference: codes/SRN/models/
+    DePatchGAN_wavelet_model.py): a De_Resnet-family G from ``define_G``,
+    trained HR -> LR by ``DePatchTrainer`` against a patch D on the Haar
+    high bands of real LR images (``ref``), one step a call; served and
+    validated as 'De_Resnet' (G(HR) against the LR image). ``realness_map``
+    gives D's receptive-field map of an LR image (``srn_test``'s
+    ``save_RealorFake``).
+
+    ``pretrain_model_G`` loads G (a ``.pth`` of the port's generator, or the
+    port's ``{iter}.pt``, which also gives D); ``pretrain_model_D`` a
+    ``.pth`` of the port's D. The train state saves to and resumes from the
+    port's ``{iter}.pt``. ``dasr_tpu``'s model has no ``resume`` and loads
+    neither file (ROADMAP C.2). As in ``dasr_tpu``, the config's
+    ``network_D``, ``ragan``, ``gan_type`` and ``feature_criterion`` are not
+    read (LPIPS is the feature loss whenever ``feature_weight`` > 0), and one
+    line at construction names those the config sets."""
+
+    _batch_keys = ("HR", "LR", "ref")
+
+    def __init__(self, opt: Dict, device: torch.device):
+        self.cfg = depatch_config(opt)
+        self.d = make_d(self.cfg)
+        train = opt.get("train") or {}
+        unread = [f"{key} ({why})" for key, value, why in (
+            ("network_D", opt.get("network_D"),
+             "D is FSDiscriminator('FSD', InstanceNorm) on the 9 Haar high bands"),
+            ("train.ragan", train.get("ragan"), "the DSN losses"),
+            ("train.gan_type", train.get("gan_type"), "the DSN losses"),
+            ("train.feature_criterion", train.get("feature_criterion"),
+             "LPIPS whenever feature_weight > 0")) if value is not None]
+        if train.get("gan_weight") == 0:
+            unread.append("train.gan_weight 0 (trains at 0.005)")
+        if unread:
+            print(f"De_patch_wavelet_GAN: not read, as in dasr_tpu: {'; '.join(unread)}",
+                  flush=True)
+        super().__init__(opt, device)
+
+    def make_trainer(self) -> DePatchTrainer:
+        lpips = None
+        if self.cfg.feature_weight > 0:
+            lpips = default_lpips("alex", seed=self.cfg.seed, dtype=self.cfg.dtype,
+                                  backbone_path=(self.opt.get("path") or {}).get("lpips_backbone"))
+        return DePatchTrainer(self.cfg, self.g, self.d, self.device, lpips=lpips)
+
+    def init(self, seed: Optional[int] = None):
+        """Seeded weights on the device, D's too; with a trainer, also the
+        optimizers."""
+        if self.trainer is not None:
+            self.trainer.init_state(seed)
+            return self
+        seed = seed or 0
+        super().init(seed)
+        init_lecun_(self.d, torch.Generator().manual_seed(seed + 1))
+        self.d.to(self.device, memory_format=torch.channels_last).eval()
+        return self
+
+    def load(self):
+        super().load()
+        paths = self.opt.get("path") or {}
+        g_path = paths.get("pretrain_model_G") or ""
+        if g_path.endswith(".pt"):
+            saved = torch.load(g_path, map_location="cpu", weights_only=True)
+            self.d.load_state_dict(saved["D_target"]["net"])
+        if paths.get("pretrain_model_D"):
+            checkpoints.load_pth(self.d, paths["pretrain_model_D"])
+        return self
+
+    def realness_map(self, lr_img: np.ndarray) -> np.ndarray:
+        """D's receptive-field map of one LR image (HWC, float [0, 1] or
+        uint8): (h / 2, w / 2) f32 (JAX's ``DePatchModel.realness_map``)."""
+        x = torch.from_numpy(np.ascontiguousarray(lr_img))[None].permute(0, 3, 1, 2)
+        x = x.to(self.device)
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        return realness_map(self.d, x, self.cfg.norm)[0].cpu().numpy()
 
 
 def srn_config(opt: Dict) -> SRNConfig:
@@ -718,6 +844,6 @@ def create_model(opt: Dict, device: torch.device = torch.device("cpu")):
         return SRGANModel(opt, device, ragan=model == "srragan")
     if model == "De_Resnet":
         return DegradationModel(opt, device)
-    if model in _TRAINERS:
-        raise NotImplementedError(f"Model [{model}] is not ported yet (ROADMAP A.9)")
+    if model == "De_patch_wavelet_GAN":
+        return DePatchModel(opt, device)
     raise NotImplementedError(f"Model [{model}] not recognized.")

@@ -116,19 +116,20 @@ class FSDiscriminator(nn.Module):
     (``DiscriminatorBasic``), ``nld_s1`` / ``nld_s2`` (``NLayerDiscriminator``
     with two layers, stride 1 or 2). With ``y`` the output is relativistic:
     ``net(x) - mean(net(y), 0)``. The body runs in ``dtype``; the front end
-    in its input's."""
+    in its input's. ``in_ch``: the body's input channels where the caller
+    filters (flax infers them; 9 for the Haar high bands, 3 by default)."""
 
     def __init__(self, d_arch: str = "FSD", filter_type: Optional[str] = "gau",
                  kernel_size: int = 5, recursions: int = 1, stride: int = 1, cs: str = "cat",
                  norm_layer: str = "Instance", wgan: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_ch: Optional[int] = None):
         super().__init__()
         self.filter_type = (filter_type or "").lower()
         if self.filter_type not in ("", "gau", "avg_pool", "wavelet"):
             raise NotImplementedError(f"Frequency Separation type [{filter_type}] not recognized")
         self.kernel_size, self.recursions, self.stride, self.cs = kernel_size, recursions, stride, cs
         self.wgan, self.dtype = wgan, dtype
-        n_in = 9 if self.filter_type == "wavelet" and cs == "cat" else 3
+        n_in = in_ch or (9 if self.filter_type == "wavelet" and cs == "cat" else 3)
         arch = d_arch.lower()
         if arch == "fsd":
             self.net = DiscriminatorBasic(in_ch=n_in, norm_layer=norm_layer)

@@ -326,43 +326,18 @@ def deresnet_state_dict_from_jax(params_np: Dict[str, Any], n_res_blocks: int,
     return sd
 
 
-def fsd_state_dict_from_jax(variables_np: Dict[str, Any], d_arch: str = "FSD",
-                            norm_layer: str = "Instance") -> Dict[str, torch.Tensor]:
-    """JAX ``FSDiscriminator`` variables -> the port's state dict: the FSD
-    body's convs at ``net.net.{0,2,5,8}`` (BatchNorm at 3 and 6, with its
-    running statistics), or an NLayer body at ``net.model.*`` (the port's
-    side of ``export_fsd_state_dict``)."""
-    params = variables_np["params"]
-    if d_arch.lower() != "fsd":
-        sd = nlayer_d_state_dict_from_jax(params["NLayerDiscriminator_0"], n_layers=2)
-        return {f"net.{k}": v for k, v in sd.items()}
-    body = params["DiscriminatorBasic_0"]
-    sd: Dict[str, torch.Tensor] = {}
-    for j, i in enumerate((0, 2, 5, 8)):
-        node = body[f"Conv_{j}"]
-        sd[f"net.net.{i}.weight"] = _conv_t(node["kernel"])
-        sd[f"net.net.{i}.bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
-    if norm_layer.lower() == "batch":
-        stats = variables_np["batch_stats"]["DiscriminatorBasic_0"]
-        for j, i in enumerate((3, 6)):
-            bn, st = body[f"BatchNorm_{j}"], stats[f"BatchNorm_{j}"]
-            for name, v in (("weight", bn["scale"]), ("bias", bn["bias"]),
-                            ("running_mean", st["mean"]), ("running_var", st["var"])):
-                sd[f"net.net.{i}.{name}"] = torch.from_numpy(np.array(v, np.float32))
-            sd[f"net.net.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-    return sd
-
-
 def _zip_into(net: torch.nn.Module, convs, bns=(), prelus=(), linears=(),
               sns=()) -> Dict[str, torch.Tensor]:
     """``net``'s state dict from flax nodes, paired with the port's layers
-    type by type in registration order: ``convs`` ((node, permute for
-    ``nn.PixelShuffle``) for each ``Conv2d``), ``bns`` ((params, stats) for
-    each ``BatchNorm2d``), ``prelus`` (nodes), ``linears`` ((node, (C, H, W)
-    of an NHWC-flattened input, or None) for each ``Linear``) and ``sns``
-    ((u, sigma) for each spectral-norm layer). Fails unless every layer and
-    node pairs up."""
-    from dasr_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Linear, PReLU, _SpectralNorm
+    type by type in registration order: ``convs`` ((node, ps) for each
+    ``Conv2d`` or ``ConvTranspose2d``; ps True, or the factor r, permutes
+    the output channels for an ``nn.PixelShuffle(r)`` after it; a transposed
+    conv's kernel is flipped, as lax.conv_transpose does not flip it),
+    ``bns`` ((params, stats) for each ``BatchNorm2d``), ``prelus`` (nodes),
+    ``linears`` ((node, (C, H, W) of an NHWC-flattened input, or None) for
+    each ``Linear``) and ``sns`` ((u, sigma) for each spectral-norm layer).
+    Fails unless every layer and node pairs up."""
+    from dasr_tpu_torch.nn.layers import Conv2d, Linear, PReLU, _SpectralNorm
 
     queues = {k: list(v) for k, v in (("conv", convs), ("bn", bns), ("prelu", prelus),
                                        ("linear", linears), ("sn", sns))}
@@ -379,11 +354,16 @@ def _zip_into(net: torch.nn.Module, convs, bns=(), prelus=(), linears=(),
             w, b = _conv_t(node["kernel"]), node.get("bias")
             b = None if b is None else _vec_t(b)
             if ps:
-                perm = torch.from_numpy(_ps_perm(w.shape[0]))
+                perm = torch.from_numpy(_ps_perm(w.shape[0], 2 if ps is True else ps))
                 w, b = w[perm].contiguous(), b[perm].contiguous()
             sd[f"{name}.weight"] = w
             if b is not None:
                 sd[f"{name}.bias"] = b
+        elif isinstance(m, torch.nn.ConvTranspose2d):
+            node, _ = pop("conv", name)
+            k = np.asarray(node["kernel"], np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+            sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+            sd[f"{name}.bias"] = _vec_t(node["bias"])
         elif isinstance(m, Linear):
             node, chw = pop("linear", name)
             wt = np.asarray(node["kernel"], np.float32).T
@@ -392,7 +372,7 @@ def _zip_into(net: torch.nn.Module, convs, bns=(), prelus=(), linears=(),
                 wt = wt.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(wt.shape[0], -1)
             sd[f"{name}.weight"] = torch.from_numpy(np.array(wt, np.float32))
             sd[f"{name}.bias"] = _vec_t(node["bias"])
-        elif isinstance(m, BatchNorm2d):
+        elif isinstance(m, torch.nn.BatchNorm2d):
             p, st = pop("bn", name)
             for key, v in (("weight", p["scale"]), ("bias", p["bias"]),
                            ("running_mean", st["mean"]), ("running_var", st["var"])):
@@ -432,24 +412,31 @@ def _conv_block_nodes(blocks, stats_blocks, ps=()):
 def state_dict_from_jax(net: torch.nn.Module,
                         variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The flax variables (``params`` and ``batch_stats``, numpy) of the
-    ``dasr_tpu`` counterpart of ``net`` -> ``net``'s state dict, for the
-    networks of the paired trainers only: ``ResNetBlock``, ``SRResNet`` (its
-    pixelshuffle convs permuted, as ``ps_conv_from_jax`` does), ``DeResnetSRN``,
-    ``DiscriminatorVGG`` and ``make_vgg_discriminator``'s stacks (their
-    BatchNorm statistics; the first linear's input features permuted from
-    flax's NHWC flatten to the reference's NCHW one, ``vgg128_d_key_map``'s
-    ``linear_chw``), ``DiscriminatorVGG128SN`` (each layer's ``u`` and
-    ``sigma``) and ``VGG19Feature54``. The networks of the earlier trainers
-    keep their own carry-overs (``rrdbnet_state_dict_from_jax`` and the
-    rest), which name each flax node; any other network raises. Merging the
-    two ways is ROADMAP A.13."""
+    ``dasr_tpu`` counterpart of ``net`` -> ``net``'s state dict: flax's
+    nodes paired with the port's layers type by type in the module's order
+    (``_zip_into``). ``ResNetBlock``, ``SRResNet`` and SFTNet (their
+    pixelshuffle convs permuted, as ``ps_conv_from_jax`` does),
+    ``DeResnetSRN``, ``FSDiscriminator`` and its bodies ``DiscriminatorBasic``
+    and ``NLayerDiscriminator``, ``DiscriminatorVGG``,
+    ``make_vgg_discriminator``'s stacks and ``ACDVGGBN96`` (their BatchNorm
+    statistics; the first linear's input features permuted from flax's
+    NHWC flatten to the reference's NCHW one), ``DiscriminatorVGG128SN``
+    (each layer's ``u`` and ``sigma``), ``VGG19Feature54`` and the
+    ``misc_nets`` zoo (``ResnetGenerator``'s transposed convs flipped). The
+    older networks keep their own carry-overs (``rrdbnet_state_dict_from_jax``
+    and the rest, ROADMAP A.13); any other network raises."""
+    from dasr_tpu_torch.nn import misc_nets
     from dasr_tpu_torch.nn.discriminators import (
+        DiscriminatorBasic,
         DiscriminatorVGG,
         DiscriminatorVGG128SN,
         DiscriminatorVGGStack,
+        FSDiscriminator,
+        NLayerDiscriminator,
     )
     from dasr_tpu_torch.nn.blocks import ResNetBlock
     from dasr_tpu_torch.nn.generators import DeResnetSRN, SRResNet
+    from dasr_tpu_torch.nn.sft import ACDVGGBN96, SFTNet
     from dasr_tpu_torch.nn.vgg import VGG19Feature54
 
     p = variables_np.get("params", variables_np)
@@ -508,6 +495,42 @@ def state_dict_from_jax(net: torch.nn.Module,
                          linears=[(p["linear0"], (512, 4, 4)), (p["linear1"], None)], sns=sns)
     if isinstance(net, VGG19Feature54):
         return _zip_into(net, [(n, False) for n in _indexed(p["stack"], "conv")])
+    convs = [(n, False) for n in _indexed(p, "Conv_")]
+    bns = list(zip(_indexed(p, "BatchNorm_"), _indexed(st, "BatchNorm_")))
+    if isinstance(net, FSDiscriminator):
+        body = ("DiscriminatorBasic_0" if isinstance(net.net, DiscriminatorBasic)
+                else "NLayerDiscriminator_0")
+        sd = state_dict_from_jax(net.net, {"params": p[body], "batch_stats": st.get(body, {})})
+        return {f"net.{k}": v for k, v in sd.items()}
+    if isinstance(net, (DiscriminatorBasic, NLayerDiscriminator, misc_nets.ResNet101Features,
+                        misc_nets.EDSRResBlock, misc_nets.ResidualBlockNoBN, misc_nets.MINCNet)):
+        return _zip_into(net, convs, bns)
+    if isinstance(net, misc_nets.Upsampler):
+        r = next(m.upscale_factor for m in net if isinstance(m, torch.nn.PixelShuffle))
+        return _zip_into(net, [(n, r) for n, _ in convs])
+    if isinstance(net, misc_nets.ResnetGenerator):
+        ups = [(n, False) for n in _indexed(p, "ConvTranspose_")]
+        return _zip_into(net, convs[:-1] + ups + convs[-1:])
+    if isinstance(net, ACDVGGBN96):
+        ch = convs[-1][0]["kernel"].shape[-1]
+        hw = int(round(math.sqrt(net.gan[0].in_features // ch)))
+        # flax names each head's outer Dense first: Dense_0 / Dense_2 are the
+        # gan / cls outputs, Dense_1 / Dense_3 their hidden layers
+        return _zip_into(net, convs, bns, linears=[
+            (p["Dense_1"], (ch, hw, hw)), (p["Dense_0"], None),
+            (p["Dense_3"], (ch, hw, hw)), (p["Dense_2"], None)])
+    if isinstance(net, SFTNet):
+        def sft(node):
+            return [(node[k], False) for k in ("scale_conv0", "scale_conv1", "shift_conv0",
+                                               "shift_conv1")]
+
+        nodes = [(p["conv0"], False)]
+        for i in range(len(net.sft_branch) - 2):
+            b = p[f"block{i}"]
+            nodes += sft(b["sft0"]) + [(b["conv0"], False)] + sft(b["sft1"]) + [(b["conv1"], False)]
+        nodes += sft(p["sft_tail"]) + [(p["conv_tail"], False), (p["up0"], True), (p["up1"], True),
+                                       (p["hr_conv"], False), (p["out_conv"], False)]
+        return _zip_into(net, nodes + [(p[f"cond{i}"], False) for i in range(5)])
     raise NotImplementedError(f"no carry-over from JAX for [{type(net).__name__}]")
 
 

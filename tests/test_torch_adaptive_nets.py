@@ -89,7 +89,8 @@ def test_define_g_matches_jax(rng, which, block):
 @pytest.mark.parametrize("net", [{}, {"FS_type": "avg_pool", "kernel_size": 11}])
 def test_define_patchd_matches_jax(rng, net):
     opt = _opt("RRDB_net", **net)
-    _check(jreg.define_patchD(opt), registry.define_patchD(opt), ck.fsd_state_dict_from_jax,
+    tnet = registry.define_patchD(opt)
+    _check(jreg.define_patchD(opt), tnet, lambda v: ck.state_dict_from_jax(tnet, v),
            _inputs(rng)[:1])
     with pytest.raises(NotImplementedError, match="not recognized"):
         registry.define_patchD(_opt("RRDB_net", which_patchD="nld_s1"))

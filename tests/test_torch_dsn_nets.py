@@ -70,7 +70,7 @@ def test_fs_discriminator_matches_jax(rng, arch, filter_type, wgan):
     kw = dict(d_arch=arch, filter_type=filter_type, norm_layer="Instance", wgan=wgan)
     jd, d = JFSD(**kw), FSDiscriminator(**kw)
     variables = _np(jd.init(jax.random.key(2), jnp.asarray(x)))
-    d.load_state_dict(ck.fsd_state_dict_from_jax(variables, arch), strict=True)
+    d.load_state_dict(ck.state_dict_from_jax(d, variables), strict=True)
     for other in (None, y):
         want = np.asarray(jd.apply(variables, jnp.asarray(x),
                                    None if other is None else jnp.asarray(other)))
@@ -91,7 +91,7 @@ def test_fsd_batch_norm_in_eval_matches_jax(rng):
         stats[name]["mean"] = rng.normal(0, 0.1, stats[name]["mean"].shape).astype(np.float32)
         stats[name]["var"] = rng.uniform(0.5, 2, stats[name]["var"].shape).astype(np.float32)
     d = FSDiscriminator(d_arch="FSD", filter_type="avg_pool", norm_layer="Batch").eval()
-    d.load_state_dict(ck.fsd_state_dict_from_jax(variables, "FSD", "Batch"), strict=True)
+    d.load_state_dict(ck.state_dict_from_jax(d, variables), strict=True)
     with torch.no_grad():
         got = _nhwc(d(_nchw(x)))
     np.testing.assert_allclose(got, np.asarray(jd.apply(variables, jnp.asarray(x))), atol=ATOL,
@@ -128,7 +128,7 @@ def test_dsn_losses_and_gradient_penalty_match_jax(rng):
     jd = JFSD(d_arch="FSD", filter_type="avg_pool", wgan=True)
     variables = _np(jd.init(jax.random.key(4), jnp.asarray(x_real)))
     d = FSDiscriminator(d_arch="FSD", filter_type="avg_pool", wgan=True)
-    d.load_state_dict(ck.fsd_state_dict_from_jax(variables, "FSD"))
+    d.load_state_dict(ck.state_dict_from_jax(d, variables))
     key = jax.random.key(5)
     alpha = np.array(jax.random.uniform(key, (3, 1, 1, 1)))
     want = jgan.gradient_penalty(lambda v: jd.apply(variables, v), jnp.asarray(x_real),

@@ -18,6 +18,7 @@ from dasr_tpu.nn.generators import DeResnet as JDeResnet
 from dasr_tpu.train import checkpoints as jck
 from dasr_tpu_torch.cli import dsn_test
 from dasr_tpu_torch.data.io import read_img_u8
+from dasr_tpu_torch.nn.discriminators import FSDiscriminator
 from dasr_tpu_torch.train import checkpoints as ck
 from torch_dsn_corpus import write_dsn_corpus
 
@@ -47,7 +48,9 @@ def case(tmp_path_factory):
     ckpt_dir = root / "checkpoints"
     ckpt_dir.mkdir()
     torch.save({"step": 3, "G": {"net": ck.deresnet_state_dict_from_jax(gv, NB, 4)},
-                "D_target": {"net": ck.fsd_state_dict_from_jax(dv)}}, ckpt_dir / "3.pt")
+                "D_target": {"net": ck.state_dict_from_jax(
+                    FSDiscriminator(d_arch="FSD", filter_type="avg_pool"), dv)}},
+               ckpt_dir / "3.pt")
     return root, dirs["target"], tar, str(ckpt_dir)
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of dasr_tpu_torch, serving a
 tiny corpus through its srn_test CLI, training two steps through its
 srn_train CLI, two DASR Adaptive steps on the device bank through it, two
-'srragan' steps and one 'De_Resnet' step through it, running the three
+'srragan' steps and one 'De_Resnet' step through it, one
+'De_patch_wavelet_GAN' step and one SFTNet forward, running the three
 stages through its auto_reproduce CLI
 (dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
 auto_test and add_corruptions CLIs on those runs' outputs load neither jax
@@ -98,6 +99,20 @@ assert list(sweep) == ["2"] and np.isfinite(sweep["2"]["s"]["psnr"])
 add_corruptions.main(["--input_dir", os.path.join(root, "hr"), "--output_dir",
                       os.path.join(root, "noisy")])
 assert os.listdir(os.path.join(root, "noisy")) == ["a.png"]
+from dasr_tpu_torch.models.registry import create_model
+from dasr_tpu_torch.nn.sft import SFTNet
+dcfg = json.load(open(os.path.join("dasr_tpu_torch", "configs", "train_De_patch_wavelet_GAN.json")))
+dcfg.update(bf16=False, is_train=True, network_G={"which_model_G": "De_Resnet", "nf": 8, "nb": 1,
+                                                  "norm_type": None, "mode": "CNA"})
+rng = np.random.default_rng(0)
+m = create_model(dcfg).init().train_step(
+    {"HR": rng.random((1, 128, 128, 3), dtype=np.float32),
+     "LR": rng.random((1, 32, 32, 3), dtype=np.float32),
+     "ref": rng.random((1, 32, 32, 3), dtype=np.float32)})
+assert len(m) == 7 and all(np.isfinite(v) for v in m.values()), m
+sft = SFTNet(n_blocks=1).init_weights(torch.Generator().manual_seed(0))
+with torch.no_grad():
+    assert sft(torch.rand(1, 3, 8, 8), torch.rand(1, 8, 32, 32)).shape == (1, 3, 32, 32)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """

@@ -157,7 +157,7 @@ def test_trains_validates_and_resumes(corpus, caplog, key, with_lr):
 def test_fallbacks_and_refusals(corpus, caplog, key):
     """One step a call: ``--steps_per_call 2`` and ``--device_bank`` fall back
     with the JAX CLI's lines; a reference ``.state`` resume and
-    ``save_ref_formats`` are refused (ROADMAP A.9)."""
+    ``save_ref_formats`` are refused (dasr_tpu has none)."""
     path = _train_config(corpus, f"fallback_{key}", key, True, niter=2)
     with caplog.at_level("INFO", logger="base"):
         steps, _, out = _run(path, "--steps_per_call", "2", "--device_bank")
@@ -174,7 +174,7 @@ def test_fallbacks_and_refusals(corpus, caplog, key):
         c = json.loads(json.dumps(cfg))
         edit(c)
         open(path, "w").write(json.dumps(c))
-        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP A.9"):
+        with pytest.raises(NotImplementedError, match=f"{match}.*no reference format"):
             _run(path)
 
 

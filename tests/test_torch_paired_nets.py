@@ -23,6 +23,7 @@ from dasr_tpu.nn import generators as jg
 from dasr_tpu_torch.models import registry
 from dasr_tpu_torch.nn import blocks, discriminators, generators
 from dasr_tpu_torch.nn.layers import BatchNorm2d, stats_updates
+from dasr_tpu_torch.nn.sft import ACDVGGBN96
 from dasr_tpu_torch.ops.rdb import TOLERANCES
 from dasr_tpu_torch.train import checkpoints as ck
 
@@ -166,11 +167,7 @@ def test_define_d_matches_jax(rng, which):
         # InstanceNorm / the FSD body: the port's state dict by their own carry-overs
         variables = jax.tree.map(np.asarray, jnet.init(jax.random.key(4), jnp.asarray(x)))
         if which == "DSGAN":
-            sd = ck.fsd_state_dict_from_jax(
-                {"params": {"DiscriminatorBasic_0": variables["params"]},
-                 "batch_stats": {"DiscriminatorBasic_0": variables["batch_stats"]}},
-                norm_layer="Batch")
-            sd = {k[len("net."):]: v for k, v in sd.items()}
+            sd = ck.state_dict_from_jax(tnet, variables)
             want, _ = jnet.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
         else:
             sd = ck.nlayer_d_state_dict_from_jax(variables, n_layers=2)
@@ -184,8 +181,16 @@ def test_define_d_matches_jax(rng, which):
 
 
 def test_dis_acd_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        registry.define_D({"network_D": {"which_model_D": "dis_acd"}})
+    """define_D builds 'dis_acd' (``ACDVGGBN96``, held against flax in
+    tests/test_torch_sft.py); the SRGAN trainer refuses its two heads by
+    name, as dasr_tpu's SRGAN never builds it (``srgan_trainer.py:64-66``)."""
+    assert isinstance(registry.define_D({"network_D": {"which_model_D": "dis_acd"}}),
+                      ACDVGGBN96)
+    opt = {"model": "srgan", "is_train": True, "network_G": {"which_model_G": "RRDB_net",
+                                                             "nf": 8, "nb": 1, "gc": 4},
+           "network_D": {"which_model_D": "dis_acd"}}
+    with pytest.raises(NotImplementedError, match=r"\[dis_acd\]: ACDVGGBN96 gives two heads"):
+        registry.create_model(opt)
     assert isinstance(registry.define_pairD(
         {"network_D": {"which_model_D": "dis_acd", "which_model_pairD": "discriminator_vgg_48"}}),
         discriminators.DiscriminatorVGGStack)

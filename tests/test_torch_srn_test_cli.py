@@ -150,6 +150,7 @@ def test_dasr_model_serves_and_other_models_are_refused(corpus):
         DASRAdaptiveModel,
         DASRModel,
         DegradationModel,
+        DePatchModel,
         SRGANModel,
         SRModel,
         create_model,
@@ -168,15 +169,18 @@ def test_dasr_model_serves_and_other_models_are_refused(corpus):
     opt["model"] = "srgan"
     assert isinstance(create_model(opt), SRGANModel)
     opt["model"] = "De_Resnet"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(NotImplementedError, match=r"does not take generator \[RRDB_net\]"):
         create_model(opt)  # an RRDB_net is not a degradation net
     net_g = opt["network_G"]
     opt["network_G"] = {"which_model_G": "De_Resnet", "nf": 8, "nb": 1, "norm_type": None}
     assert isinstance(create_model(opt), DegradationModel)
-    for name in ("De_patch_wavelet_GAN", "DASR_Adaptive_Model"):
-        opt["model"] = name
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            create_model(opt)
+    # the last trainer of the registry is ported (ROADMAP A.9): the DePatch
+    # wavelet GAN serves the De_Resnet family too; the Adaptive model does not
+    opt["model"] = "De_patch_wavelet_GAN"
+    assert isinstance(create_model(opt), DePatchModel)
+    opt["model"] = "DASR_Adaptive_Model"
+    with pytest.raises(NotImplementedError, match="does not take generator"):
+        create_model(opt)
     # the DASR Adaptive model is ported (ROADMAP A.9's first item) with the
     # generators it feeds a domain-distance map; no other model feeds one
     opt["network_G"] = dict(net_g, which_model_G="RRDB_Residual_conv", ada_nb=1)
@@ -186,14 +190,29 @@ def test_dasr_model_serves_and_other_models_are_refused(corpus):
                         ("srragan", "RRDB_Residual_conv"), ("DASR", "RRDB_SEAN"),
                         ("DASR_Adaptive_Model", "RRDB_SEAN")):
         opt["model"], opt["network_G"]["which_model_G"] = name, which
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        with pytest.raises(NotImplementedError, match=f"does not take generator \\[{which}\\]"):
             create_model(opt)
+    # define_G builds 'DSGAN' and 'sft_arch', which no model feeds: each
+    # refusal names the CLI that runs the generator
+    from dasr_tpu_torch.models.registry import define_G
+    from dasr_tpu_torch.nn.generators import DSGANGenerator
+    from dasr_tpu_torch.nn.sft import SFTNet
+
+    assert isinstance(define_G({"network_G": {"which_model_G": "DSGAN"}}), DSGANGenerator)
+    assert isinstance(define_G({"network_G": {"which_model_G": "sft_arch"}}), SFTNet)
+    for name in ("sr", "srgan", "DASR", "DASR_Adaptive_Model", "De_Resnet",
+                 "De_patch_wavelet_GAN"):
+        for which, runner in (("DSGAN", "dsn_test"), ("sft_arch", "sftgan_test")):
+            opt["model"], opt["network_G"] = name, {"which_model_G": which}
+            with pytest.raises(NotImplementedError, match=runner):
+                create_model(opt)
     opt["network_G"] = net_g
     opt["model"], opt["is_train"] = "sr", True
     assert isinstance(create_model(opt), SRModel) and create_model(opt).trainer is not None
+    # define_D builds 'dis_acd'; the SRGAN step cannot train its two heads
     opt["network_D"] = {"which_model_D": "dis_acd"}
     opt["model"] = "srragan"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(NotImplementedError, match=r"\[dis_acd\].*two heads"):
         create_model(opt)
     # the DASR trainer is ported (ROADMAP A.4): training builds its discriminator
     opt["model"] = "DASR"

@@ -69,9 +69,13 @@ def port_trainer(kw, concat: bool, lpips=None) -> DASRAdaptiveTrainer:
     """The port's trainer over the networks JAX's ``AdaptiveConfig`` builds
     with its defaults (an avg_pool FSD patch D, kernel 5, InstanceNorm)."""
     g = RRDBNetResidualConv(nf=NF, nb=NB, gc=GC, nb_ada=NB_ADA, concat=concat)
-    patchd = FSDiscriminator(d_arch="FSD", filter_type="avg_pool", kernel_size=5,
-                             norm_layer="Instance")
-    return DASRAdaptiveTrainer(AdaptiveConfig(**kw), g, patchd, lpips=lpips)
+    return DASRAdaptiveTrainer(AdaptiveConfig(**kw), g, patch_d(), lpips=lpips)
+
+
+def patch_d() -> FSDiscriminator:
+    """The patch D JAX's ``AdaptiveConfig`` defaults to."""
+    return FSDiscriminator(d_arch="FSD", filter_type="avg_pool", kernel_size=5,
+                           norm_layer="Instance")
 
 
 def assert_cancelled_grads_vanish(jtr, patchd_params, b):
@@ -84,7 +88,7 @@ def assert_cancelled_grads_vanish(jtr, patchd_params, b):
         w = jtr.patchd_model.apply(pd, var_l)
         return jdsn_loss(w[n:], w[:n])
 
-    grads = ck.fsd_state_dict_from_jax(np_tree(jax.grad(loss)(patchd_params)))
+    grads = ck.state_dict_from_jax(patch_d(), np_tree(jax.grad(loss)(patchd_params)))
     top = max(float(g.abs().max()) for g in grads.values())
     for k in CANCELLED:
         assert float(grads[k].abs().max()) <= CANCELLED_RTOL * top, (k, top)
@@ -95,7 +99,7 @@ def state_dicts(params_g, params_d, patchd_vars, concat: bool):
     block = "RRDBResidualConvConcat" if concat else "RRDBResidualConv"
     return {"G": ck.conditioned_g_state_dict_from_jax(np_tree(params_g), NB, NB_ADA, block),
             "D_target": ck.nlayer_d_state_dict_from_jax(np_tree(params_d), D_LAYERS),
-            "patchD": ck.fsd_state_dict_from_jax(np_tree(patchd_vars))}
+            "patchD": ck.state_dict_from_jax(patch_d(), np_tree(patchd_vars))}
 
 
 def carried_pair(concat: bool, use_patchd_opt: bool):

@@ -61,7 +61,8 @@ def run_trajectory(rng, wgan: bool, uint8: bool):
     tr = DSNTrainer(DSNConfig(**kw), lpips=lpips.requires_grad_(False))
     st = tr.init_state()
     st.g.net.load_state_dict(ck.deresnet_state_dict_from_jax(np_tree(state.g.params), NB))
-    st.d_target.net.load_state_dict(ck.fsd_state_dict_from_jax(np_tree(state.d_target.params)))
+    st.d_target.net.load_state_dict(ck.state_dict_from_jax(st.d_target.net,
+                                                          np_tree(state.d_target.params)))
 
     for i in range(3):
         b = batch(rng, uint8)
