@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases adaptive                  # the DASR Adaptive model
     python3 chip_smoke.py --phases paired                    # sr, srgan/srragan, De_Resnet
     python3 chip_smoke.py --phases depatch,sft               # De_patch_wavelet_GAN, SFT-GAN
+    python3 chip_smoke.py --phases lpips                     # LPIPS breadth, 2AFC, the tools
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -148,6 +149,22 @@ CPU or to a plain version):
             blocks, 8-channel segmentation maps) over four images, counted (0
             launches); the PNGs against the CPU CLI's (one grey level), each
             f32 output against the CPU's (1e-4); ms/image of the forward.
+15. lpips   - LPIPS breadth and the tools, on seeded reference-format weights
+            (torchvision-layout alexnet, vgg16 and squeezenet1_1, heads) and
+            a seeded BAPPS-layout corpus: LPIPS alex, vgg and squeeze at f32
+            on the card against the CPU (1e-4 relative) at a batch of 50
+            64x64 pairs and at one 1024x1024 pair, timed; lpips_train train
+            --net vgg at the reference's defaults (batch 50, load_size 64, lr
+            1e-4, beta1 0.5) over 600 triplets for 1 + 1 epochs, then eval
+            2afc over them and jnd over 200 pairs; the 2AFC step's ms/step,
+            host ms/step and idle share; three f32 steps on the card against
+            the CPU (the three-step limits); compute_dists pair, dirs (-o,
+            --html, vgg) and self over 1024x1024 pairs, s/pair; parity over
+            four 256x256 LR images plain and --chop with a seeded nb-23 G,
+            counted (345 launches a forward), its kernel shapes checked in
+            phase 2, its PSNR/SSIM against srn_test's on the same weights
+            and images (0.01 dB, 1e-4 SSIM), s/image; test_dataloader and each
+            script once. It needs phase 2, which it then runs too.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -162,6 +179,7 @@ import contextlib
 import copy
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -3184,13 +3202,328 @@ def phase_sft(gpu, root):
     return report
 
 
+LPIPS_NETS = ("alex", "vgg", "squeeze")
+LPIPS_RTOL = 1e-4  # the port's f32 net limit, card against CPU
+LPIPS_BATCH, LPIPS_PATCH = 50, 64  # a BAPPS batch at the reference's load_size
+LPIPS_PAIR = 1024  # an x4 SR output of a 256x256 LR image
+AFC_TRIPLETS, JND_PAIRS = 600, 200
+PARITY_LR = 256
+PARITY_IMAGES = 4
+DISTS_PAIRS = 4
+
+
+def write_bapps(base, rng):
+    """A BAPPS-layout corpus of 64x64 PNGs: 2afc (ref/ p0/ p1/ judge/), p0 and
+    p1 two noise levels of ref, and jnd (p0/ p1/ same/)."""
+    from PIL import Image
+
+    afc, jnd = os.path.join(base, "2afc"), os.path.join(base, "jnd")
+    for d in ("ref", "p0", "p1", "judge"):
+        os.makedirs(os.path.join(afc, d))
+    for d in ("p0", "p1", "same"):
+        os.makedirs(os.path.join(jnd, d))
+    shape = (LPIPS_PATCH, LPIPS_PATCH, 3)
+    for i in range(AFC_TRIPLETS):
+        ref = rng.integers(0, 256, shape)
+        for d, noise in (("ref", 0), ("p0", int(rng.integers(5, 40))),
+                         ("p1", int(rng.integers(5, 40)))):
+            img = np.clip(ref + rng.integers(-noise, noise + 1, shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(afc, d, f"{i:04d}.png"))
+        np.save(os.path.join(afc, "judge", f"{i:04d}.npy"), np.array([rng.random()], np.float32))
+    for i in range(JND_PAIRS):
+        p0 = rng.integers(0, 256, shape)
+        noise = int(rng.integers(0, 40))
+        p1 = np.clip(p0 + rng.integers(-noise, noise + 1, shape), 0, 255)
+        Image.fromarray(p0.astype(np.uint8)).save(os.path.join(jnd, "p0", f"{i:04d}.png"))
+        Image.fromarray(p1.astype(np.uint8)).save(os.path.join(jnd, "p1", f"{i:04d}.png"))
+        np.save(os.path.join(jnd, "same", f"{i:04d}.npy"),
+                np.array([float(noise < 10)], np.float32))
+    return afc, jnd
+
+
+def phase_lpips(gpu, root, checked):
+    """LPIPS breadth and the tools: the three nets on the card against the
+    CPU and timed; lpips_train train (vgg, the reference's defaults) and
+    eval, with the step's times and three f32 steps card vs CPU;
+    compute_dists pair, dirs and self; parity plain and chopped over a
+    full-width nb-23 G, counted, against srn_test; test_dataloader and each
+    script once."""
+    import shutil
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from dasr_tpu_torch.cli import compute_dists, lpips_train, parity, srn_test, test_dataloader
+    from dasr_tpu_torch.data.bapps import TwoAFCDataset
+    from dasr_tpu_torch.data.io import save_img
+    from dasr_tpu_torch.losses.lpips import LPIPS, create_dist_model, load_lpips_params
+    from dasr_tpu_torch.losses.lpips_train import Dist2LogitLayer, TwoAFCTrainer
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.nn.generators import RRDBNet
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, fused_rdb
+    from dasr_tpu_torch.scripts import (extract_subimgs_single, misc_tools, net_interp,
+                                        transfer_params)
+
+    t_phase = time.perf_counter()
+    report = {}
+    rng = np.random.default_rng(SEED + 9)
+    base = os.path.join(root, "lpips")
+    os.makedirs(base)
+    # seeded reference-format weights: torchvision alexnet, vgg16 and
+    # squeezenet1_1 backbones (variance 2 / fan_in) and heads, as the CPU tests use
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lpips_weights import write as write_lpips_weights
+
+    files = {net: write_lpips_weights(pathlib.Path(base), net) for net in LPIPS_NETS}
+    dev = torch.device("cuda")
+
+    # 1. the nets, f32, the card against the CPU, and timed (CUDA events)
+    for net in LPIPS_NETS:
+        fns = {d: create_dist_model("net-lin", net, lin_path=files[net][1],
+                                    backbone_path=files[net][0], device=torch.device(d))
+               for d in ("cuda", "cpu")}
+        for label, (b, hw) in (("batch", (LPIPS_BATCH, LPIPS_PATCH)), ("pair", (1, LPIPS_PAIR))):
+            x0, x1 = (torch.from_numpy(rng.random((b, 3, hw, hw), dtype=np.float32) * 2 - 1)
+                      for _ in range(2))
+            want = fns["cpu"](x0, x1).flatten()
+            c0, c1 = x0.to(dev), x1.to(dev)
+            got = fns["cuda"](c0, c1).flatten().cpu()
+            rel = float(((got - want).abs() / want.abs()).max())
+            ms = cuda_ms(lambda: fns["cuda"](c0, c1), warmup=2, iters=10)
+            print(f"lpips {net} f32 {b} x {hw}x{hw} pairs: the card vs the CPU max rel err "
+                  f"{rel:.3e} (limit {LPIPS_RTOL}); {ms:.3f} ms per call (CUDA events) "
+                  f"[{gpu}]", flush=True)
+            if not rel <= LPIPS_RTOL:
+                fail(f"lpips {net} {label}: the card is {rel:.3e} off the CPU")
+            report[f"{net}_{label}_ms"] = ms
+            report[f"{net}_{label}_max_rel_err"] = rel
+        del fns
+    torch.cuda.empty_cache()
+
+    # 2. lpips_train at the reference's defaults (vgg, batch 50, load_size 64,
+    # lr 1e-4, beta1 0.5): 1 + 1 epochs of 600 triplets, then eval
+    afc, jnd = write_bapps(base, rng)
+    bpath, lpath = files["vgg"]
+    save_dir = os.path.join(base, "train")
+    (trainer, secs) = no_rdb_launch("lpips_train train", lambda: run_cli(lpips_train.main, [
+        "train", "--datasets", afc, "--net", "vgg", "--nepoch", "1", "--nepoch_decay", "1",
+        "--batch_size", str(LPIPS_BATCH), "--lin_path", lpath, "--backbone", bpath,
+        "--print_freq", "12", "--save_dir", save_dir, "--device", "cuda"]))
+    steps = 2 * (AFC_TRIPLETS // LPIPS_BATCH)
+    heads = torch.load(os.path.join(save_dir, "latest_net_.pth"), weights_only=True)
+    if (trainer.opt.state[trainer.lins[0]]["step"] != steps
+            or sorted(heads) != [f"lin{k}.model.1.weight" for k in range(5)]
+            or not all(bool((v >= 0).all()) and bool(v.isfinite().all()) for v in heads.values())):
+        fail(f"lpips_train train: not {steps} steps, or latest_net_.pth is not five "
+             f"nonnegative finite heads")
+    print(f"lpips_train train (vgg, batch {LPIPS_BATCH}, load_size {LPIPS_PATCH}, "
+          f"{AFC_TRIPLETS} triplets, 1 + 1 epochs): {steps} steps in {secs:.2f} s through the "
+          f"CLI, host decode included [{gpu}]", flush=True)
+    report["train_s"] = secs
+    evals = {}
+    for mode, d in (("2afc", afc), ("jnd", jnd)):
+        res, secs = no_rdb_launch(f"lpips_train eval {mode}", lambda: run_cli(lpips_train.main, [
+            "eval", "--datasets", d, "--dataset_mode", mode, "--net", "vgg", "--lin_path",
+            os.path.join(save_dir, "latest_net_.pth"), "--backbone", bpath, "--device", "cuda"]))
+        evals[mode] = res[d]
+        if not 0.0 <= res[d] <= 1.0:
+            fail(f"lpips_train eval {mode}: score {res[d]}")
+        report[f"eval_{mode}_s"] = secs
+    print(f"lpips_train eval (vgg, the trained heads): 2afc {evals['2afc']:.4f} over "
+          f"{AFC_TRIPLETS}, jnd mAP {evals['jnd']:.4f} over {JND_PAIRS} [{gpu}]", flush=True)
+
+    # the step's times on device batches of the corpus, and three f32 steps
+    # (the card against the CPU, the same init and batches)
+    data = TwoAFCDataset(afc, LPIPS_PATCH)
+
+    def batch(lo, device):
+        items = [data[i] for i in range(lo, lo + LPIPS_BATCH)]
+        out = {k: torch.from_numpy(np.stack([it[k] for it in items])).permute(0, 3, 1, 2)
+               .contiguous().to(device) for k in ("ref", "p0", "p1")}
+        out["judge"] = torch.from_numpy(
+            np.stack([it["judge"] for it in items]).reshape(-1, 1, 1, 1)).to(device)
+        return out
+
+    def make_trainer(device):
+        lp = load_lpips_params(LPIPS(net="vgg"), lin_path=lpath, backbone_path=bpath)
+        rank = Dist2LogitLayer().init_weights(torch.Generator().manual_seed(1))
+        return TwoAFCTrainer(lp.to(device), rank.to(device), lr=1e-4, beta1=0.5)
+
+    tr = make_trainer(dev)
+    dev_batches = [batch(i * LPIPS_BATCH, dev) for i in range(2)]
+    fused_rdb.launches = 0
+    report["step"] = time_arms(
+        f"lpips 2afc step (vgg, batch {LPIPS_BATCH}, {LPIPS_PATCH}x{LPIPS_PATCH}, f32)",
+        {"vgg": lambda: [tr.step(b) for b in dev_batches]}, 2, gpu, rounds=2)["vgg"]
+    if fused_rdb.launches:
+        fail("lpips 2afc step: fused_rdb launched on a path without RDBs")
+    runs = {}
+    for name in ("cuda", "cpu"):
+        t = make_trainer(torch.device(name))
+        params = {"heads": t.lins, "rank": list(t.rank.parameters())}
+        init = {k: torch.cat([p.detach().flatten().cpu() for p in ps]) for k, ps in params.items()}
+        traj = [{"loss/bce": float(t.step(batch(i * LPIPS_BATCH, torch.device(name)))["loss"])}
+                for i in range(3)]
+        after = {k: (torch.cat([p.detach().flatten().cpu() for p in ps]),
+                     torch.cat([t.opt.state[p]["exp_avg"].flatten().cpu() for p in ps]))
+                 for k, ps in params.items()}
+        runs[name] = (traj, init, after)
+    lim = DSN_F32_LIMITS
+    worst, parts, bad, _ = compare_three_steps("lpips 2afc f32", runs["cuda"], runs["cpu"],
+                                               lim["loss"], lim["update"], lim["moment"])
+    print(f"lpips 2afc f32 (vgg, batch {LPIPS_BATCH}), 3 steps, the card vs the CPU: losses "
+          f"within {worst:.3f} of their limit; {'; '.join(parts)} (limits {lim['update']}, "
+          f"{lim['moment']})", flush=True)
+    if bad:
+        fail(f"lpips 2afc f32: the card's updates or moments of {bad} are off the CPU's")
+    report["f32_worst_loss_share"] = worst
+    del tr, dev_batches
+    torch.cuda.empty_cache()
+
+    # 3. compute_dists: pair, dirs (-o, --html, vgg) and self over 1024x1024 pairs
+    d0, d1 = os.path.join(base, "d0"), os.path.join(base, "d1")
+    os.makedirs(d0)
+    os.makedirs(d1)
+    for i in range(DISTS_PAIRS):
+        a = rng.random((LPIPS_PAIR, LPIPS_PAIR, 3), dtype=np.float32)
+        save_img(a, os.path.join(d0, f"p{i}.png"))
+        save_img(np.clip(a + 0.05 * (i + 1) * rng.standard_normal(a.shape, dtype=np.float32),
+                         0, 1), os.path.join(d1, f"p{i}.png"))
+    d, secs = no_rdb_launch("compute_dists pair", lambda: run_cli(compute_dists.main, [
+        "pair", "-p0", os.path.join(d0, "p0.png"), "-p1", os.path.join(d1, "p0.png"),
+        "--backbone", files["alex"][0], "--device", "cuda"]))
+    report["pair_s"] = secs
+    mean, secs = no_rdb_launch("compute_dists dirs", lambda: run_cli(compute_dists.main, [
+        "dirs", "-d0", d0, "-d1", d1, "-o", os.path.join(base, "dists.txt"), "--html",
+        os.path.join(base, "html"), "--net", "vgg", "--backbone", bpath, "--device", "cuda"]))
+    lines = open(os.path.join(base, "dists.txt")).read().splitlines()
+    if (len(lines) != DISTS_PAIRS or not np.isfinite(mean) or not np.isfinite(d)
+            or len(os.listdir(os.path.join(base, "html", "images"))) != 2 * DISTS_PAIRS):
+        fail(f"compute_dists: {len(lines)} lines, mean {mean}, pair {d}, or the report is short")
+    report["dirs_s_per_pair"] = secs / DISTS_PAIRS
+    self_mean, secs = no_rdb_launch("compute_dists self", lambda: run_cli(compute_dists.main, [
+        "self", "-d", d1, "--net", "squeeze", "--backbone", files["squeeze"][0],
+        "--device", "cuda"]))
+    report["self_s_per_pair"] = secs / (DISTS_PAIRS - 1)
+    print(f"compute_dists (net-lin, seeded backbones, {LPIPS_PAIR}x{LPIPS_PAIR}): pair (alex) "
+          f"{d:.4f} in {report['pair_s']:.3f} s; dirs (vgg, -o, --html) mean {mean:.6f}, "
+          f"{report['dirs_s_per_pair']:.3f} s/pair; self (squeeze) mean {self_mean:.6f}, "
+          f"{report['self_s_per_pair']:.3f} s/pair (PNG decode and model build included) "
+          f"[{gpu}]", flush=True)
+
+    # 4. parity over four 256x256 LR images, plain and --chop, a seeded nb-23
+    # reference-format G, counted; srn_test on the same weights and images
+    pdir = os.path.join(base, "parity")
+    write_corpus(pdir, rng, sizes=((PARITY_LR, PARITY_LR),) * PARITY_IMAGES)
+    g_pth = os.path.join(pdir, "rrdb_x4_G.pth")
+    net = RRDBNet(nf=NC, nb=NB, gc=GC).init_weights(torch.Generator().manual_seed(SEED))
+    torch.save(net.state_dict(), g_pth)
+    del net
+    seen = set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype))
+
+    pargs = ["--g_pth", g_pth, "--lpips_backbone", files["alex"][0], "--lpips_lin",
+             files["alex"][1], "--hr_dir", os.path.join(pdir, "hr"), "--lr_dir",
+             os.path.join(pdir, "lr"), "--nb", str(NB), "--nf", str(NC), "--gc", str(GC),
+             "--device", "cuda"]
+    avgs, secs = {}, {}
+    fused_rdb.launches = 0
+    handle = register_module_forward_pre_hook(record)
+    try:
+        for how, flags in (("plain", []), ("chop", ["--chop"])):
+            t0 = time.perf_counter()
+            avgs[how] = run_cli(parity.main, pargs + flags + [
+                "--out", os.path.join(pdir, f"parity_{how}.md")])
+            torch.cuda.synchronize()
+            secs[how] = time.perf_counter() - t0
+    finally:
+        handle.remove()
+    launches = fused_rdb.launches
+    forwards = 2 * PARITY_IMAGES  # one per image and run (chop batches its tiles)
+    expected = 3 * NB * LAUNCHES_PER_RDB * forwards
+    print(f"parity: fused_rdb launches {launches}, expected {3 * NB} x {LAUNCHES_PER_RDB} x "
+          f"{forwards} = {expected}; kernel input shapes "
+          f"{sorted((*k[:3], str(k[3])) for k in seen)}", flush=True)
+    if launches != expected:
+        fail(f"parity: fused_rdb launched {launches} times, expected {expected}")
+    if seen - checked:
+        fail(f"parity: kernel shapes phase 2 did not check: {seen - checked}")
+    report["launches_lpips"] = launches
+    for how in avgs:
+        if not all(np.isfinite(v) for v in avgs[how].values()):
+            fail(f"parity {how}: metrics not finite: {avgs[how]}")
+        cfg = serve_config(pdir, f"srn_{how}", how == "chop", g_pth)
+        with contextlib.redirect_stdout(Tee()):
+            want = run_cli(srn_test.main, ["-opt", cfg, "--device", "cuda"])["synth"]
+        errs = {k: abs(avgs[how][k] - want[k]) for k in want}
+        print(f"parity {how} (nb 23, bf16, LPIPS alex seeded): {avgs[how]}; "
+              f"{secs[how] / PARITY_IMAGES:.3f} s/image with host metrics and LPIPS; against "
+              f"srn_test on the same weights and images: "
+              + ", ".join(f"{k} |err| {v:.2e}" for k, v in errs.items())
+              + f" (limits 0.01 dB, 1e-4 SSIM) [{gpu}]", flush=True)
+        if any(not v <= (0.01 if k.startswith("psnr") else 1e-4) for k, v in errs.items()):
+            fail(f"parity {how}: PSNR/SSIM differ from srn_test's: {errs}")
+        report[f"parity_{how}_s_per_image"] = secs[how] / PARITY_IMAGES
+
+    # 5. test_dataloader and each script once, as entry points
+    tdir = os.path.join(base, "dataloader")
+    dirs = write_train_corpus(tdir, rng)
+    with contextlib.redirect_stdout(Tee()):
+        test_dataloader.main(["-opt", train_config(tdir, dirs, "vis", 1), "--out",
+                              os.path.join(tdir, "vis"), "--n", "2"])
+        hr, lr = os.path.join(pdir, "hr"), os.path.join(pdir, "lr")
+        sdir = os.path.join(base, "scripts")
+        extract_subimgs_single.main(["--input_dir", hr, "--save_dir", os.path.join(sdir, "sub"),
+                                     "--crop_sz", "480", "--step", "240"])
+        out = lambda name: os.path.join(sdir, name)  # noqa: E731
+        shutil.copytree(lr, out("renamed"))
+        tools = [["back_projection", "--sr_dir", hr, "--lr_dir", lr, "--out", out("bp"),
+                  "--iters", "2"],
+                 ["make_video", "--input_dir", hr, "--out", out("v.mp4")],
+                 ["rename", "--input_dir", out("renamed")],
+                 ["color2gray", "--input_dir", lr, "--out", out("gray")],
+                 ["generate_mod_lr_bic", "--input_dir", hr, "--out", out("modbic")],
+                 ["extract_enlarge_patches", "--input_dir", hr, "--out", out("figs"),
+                  "--h_start", "16", "--w_start", "16"],
+                 ["rf_table", "--net", "FSD"],
+                 ["param_count"]]
+        for argv in tools:
+            misc_tools.main(argv)
+        try:
+            misc_tools.main(["create_lmdb", "--input_dir", lr, "--out", out("lr.lmdb")])
+        except SystemExit as e:  # gated where the lmdb module is absent, as in JAX
+            if "lmdb" not in str(e):
+                raise
+        psnr_g = os.path.join(sdir, "b_G.pth")
+        torch.save(RRDBNet(nf=NC, nb=NB, gc=GC).init_weights(
+            torch.Generator().manual_seed(SEED + 1)).state_dict(), psnr_g)
+        net_interp.main(["--net_psnr", g_pth, "--net_gan", psnr_g, "--out", out("interp_G.pth")])
+        x2 = os.path.join(sdir, "x2_G.pth")
+        torch.save(RRDBNet(nf=NC, nb=NB, gc=GC, upscale=2).init_weights(
+            torch.Generator().manual_seed(SEED)).state_dict(), x2)
+        transfer_params.main(["--src", x2, "--out", out("x4_G.pth")])
+    written = {name: len(os.listdir(p)) for name, p in (
+        ("dataloader", os.path.join(tdir, "vis")), ("subimgs", out("sub")), ("bp", out("bp")),
+        ("gray", out("gray")), ("figs/patch", out("figs/patch")))}
+    print(f"lpips tools: test_dataloader and the scripts ran: files {written}", flush=True)
+    if not all(written.values()):
+        fail(f"lpips tools: an entry point wrote nothing: {written}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"lpips: the phase took {report['phase_s']:.2f} s [{gpu}]", flush=True)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive,paired,depatch,sft",
+                            "adaptive,paired,depatch,sft,lpips",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools,adaptive,paired,depatch,sft")
+                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3217,8 +3550,8 @@ def main(argv=None):
         "backward": "autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), "
                     "as JAX's custom VJP; checked against the plain version in phase grad",
     }
-    if "serve" in phases:
-        phases.add("kernel")  # serve checks its shapes against phase 2's
+    if phases & {"serve", "lpips"}:
+        phases.add("kernel")  # serve and parity check their shapes against phase 2's
     if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired"}:
         phases |= {"kernel", "grad"}  # and these against phases 2 and 4
     if "adaptive" in phases:
@@ -3279,11 +3612,16 @@ def main(argv=None):
             report = phase_sft(gpu, root)
             entry["launches_sft"] = 0
             print(f"sft (sftgan_test): {json.dumps(report)}", flush=True)
+        if "lpips" in phases:
+            report = phase_lpips(gpu, root, checked)
+            entry["launches_lpips"] = report.pop("launches_lpips")
+            print(f"lpips (LPIPS nets, lpips_train, compute_dists, parity, the scripts): "
+                  f"{json.dumps(report)}", flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
                             for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive",
-                                      "paired", "depatch", "sft"))
+                                      "paired", "depatch", "sft", "lpips"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

@@ -273,29 +273,6 @@ def conditioned_g_state_dict_from_jax(params_np: Dict[str, Any], nb: int, nb_ada
     return sd
 
 
-def nlayer_d_key_map(n_layers: int = 3):
-    """SRN NLayerDiscriminator (architecture.py:983-1024): sequential
-    ``model.{idx}`` convs at 0, 2+3n (n=1..n_layers-1), 2+3(n_layers-1)+3
-    stride-1, then the 1-channel head; InstanceNorm carries no params."""
-    idxs = [0] + [2 + 3 * (n - 1) for n in range(1, n_layers)]
-    idxs.append(2 + 3 * (n_layers - 1))
-    idxs.append(idxs[-1] + 3)
-    return [(f"model.{t}", (f"Conv_{j}",), "conv") for j, t in enumerate(idxs)]
-
-
-def nlayer_d_state_dict_from_jax(params_np: Dict[str, Any], n_layers: int) -> Dict[str, torch.Tensor]:
-    """JAX ``NLayerDiscriminator`` parameters -> reference-named state dict
-    (bias-free convs stay bias-free)."""
-    params = params_np.get("params", params_np)
-    sd: Dict[str, torch.Tensor] = {}
-    for tkey, (name,), _ in nlayer_d_key_map(n_layers):
-        node = params[name]
-        sd[tkey + ".weight"] = torch.from_numpy(_j2t_conv(np.asarray(node["kernel"], np.float32)))
-        if "bias" in node:
-            sd[tkey + ".bias"] = torch.from_numpy(np.array(node["bias"], dtype=np.float32))
-    return sd
-
-
 def deresnet_state_dict_from_jax(params_np: Dict[str, Any], n_res_blocks: int,
                                  scale: int = 4) -> Dict[str, torch.Tensor]:
     """JAX ``DeResnet`` (or ``DSGANGenerator``, ``scale=1``) parameters ->
@@ -421,10 +398,12 @@ def state_dict_from_jax(net: torch.nn.Module,
     ``make_vgg_discriminator``'s stacks and ``ACDVGGBN96`` (their BatchNorm
     statistics; the first linear's input features permuted from flax's
     NHWC flatten to the reference's NCHW one), ``DiscriminatorVGG128SN``
-    (each layer's ``u`` and ``sigma``), ``VGG19Feature54`` and the
-    ``misc_nets`` zoo (``ResnetGenerator``'s transposed convs flipped). The
-    older networks keep their own carry-overs (``rrdbnet_state_dict_from_jax``
-    and the rest, ROADMAP A.13); any other network raises."""
+    (each layer's ``u`` and ``sigma``), ``VGG19Feature54``, the
+    ``misc_nets`` zoo (``ResnetGenerator``'s transposed convs flipped),
+    ``LPIPS`` of every net (its backbone and its heads, flax's (C, 1)) and
+    ``Dist2LogitLayer``. The older networks keep their own carry-overs
+    (``rrdbnet_state_dict_from_jax`` and the rest, ROADMAP A.13); any other
+    network raises."""
     from dasr_tpu_torch.nn import misc_nets
     from dasr_tpu_torch.nn.discriminators import (
         DiscriminatorBasic,
@@ -437,7 +416,9 @@ def state_dict_from_jax(net: torch.nn.Module,
     from dasr_tpu_torch.nn.blocks import ResNetBlock
     from dasr_tpu_torch.nn.generators import DeResnetSRN, SRResNet
     from dasr_tpu_torch.nn.sft import ACDVGGBN96, SFTNet
-    from dasr_tpu_torch.nn.vgg import VGG19Feature54
+    from dasr_tpu_torch.losses.lpips import LPIPS
+    from dasr_tpu_torch.losses.lpips_train import Dist2LogitLayer
+    from dasr_tpu_torch.nn.vgg import _SQUEEZE_FIRES, SqueezeNetFeatures, VGG19Feature54
 
     p = variables_np.get("params", variables_np)
     st = variables_np.get("batch_stats", {})
@@ -495,6 +476,20 @@ def state_dict_from_jax(net: torch.nn.Module,
                          linears=[(p["linear0"], (512, 4, 4)), (p["linear1"], None)], sns=sns)
     if isinstance(net, VGG19Feature54):
         return _zip_into(net, [(n, False) for n in _indexed(p["stack"], "conv")])
+    if isinstance(net, LPIPS):
+        bb = p["backbone"]
+        if isinstance(net.backbone, SqueezeNetFeatures):
+            nodes = [bb["conv0"]] + [bb[f"fire{i}"][part] for i in _SQUEEZE_FIRES
+                                     for part in ("squeeze", "expand1x1", "expand3x3")]
+        else:
+            nodes = _indexed(bb["stack"], "conv")
+        sd = {f"backbone.{k}": v
+              for k, v in _zip_into(net.backbone, [(n, False) for n in nodes]).items()}
+        for name, _ in net.named_parameters(recurse=False):
+            sd[name] = _vec_t(p[name])
+        return sd
+    if isinstance(net, Dist2LogitLayer):
+        return _zip_into(net, [(n, False) for n in _indexed(p, "Conv_")])
     convs = [(n, False) for n in _indexed(p, "Conv_")]
     bns = list(zip(_indexed(p, "BatchNorm_"), _indexed(st, "BatchNorm_")))
     if isinstance(net, FSDiscriminator):
@@ -532,21 +527,6 @@ def state_dict_from_jax(net: torch.nn.Module,
                                        (p["hr_conv"], False), (p["out_conv"], False)]
         return _zip_into(net, nodes + [(p[f"cond{i}"], False) for i in range(5)])
     raise NotImplementedError(f"no carry-over from JAX for [{type(net).__name__}]")
-
-
-def lpips_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``LPIPS(net='alex')`` variables -> the port's ``LPIPS`` state
-    dict: the backbone convs and the five heads."""
-    params = variables_np.get("params", variables_np)
-    stack = params["backbone"]["stack"]
-    sd: Dict[str, torch.Tensor] = {}
-    for i in range(5):
-        node = stack[f"conv{i}"]
-        sd[f"backbone.stack.conv{i}.weight"] = torch.from_numpy(
-            _j2t_conv(np.asarray(node["kernel"], np.float32)))
-        sd[f"backbone.stack.conv{i}.bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
-        sd[f"lin{i}"] = torch.from_numpy(np.array(params[f"lin{i}"], np.float32)[:, 0])
-    return sd
 
 
 def _nets(state):

@@ -65,7 +65,7 @@ def test_three_steps_match_jax():
     jtr = JTrainer(JConfig(nb=NB), g_model=jreg.define_G(OPT))
     state = jtr.init_state(jax.random.key(0), hr_size=HR)
     lpips = LPIPS()
-    lpips.load_state_dict(ck.lpips_state_dict_from_jax(np_tree(jtr.lpips_variables)))
+    lpips.load_state_dict(ck.state_dict_from_jax(lpips, np_tree(jtr.lpips_variables)))
     tr = DePatchTrainer(DePatchConfig(), registry.define_G(OPT), lpips=lpips.requires_grad_(False))
     st = tr.init_state()
     for ns, params in ((st.g, state.g.params), (st.d_target, state.d_target.params)):

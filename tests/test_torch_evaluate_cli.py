@@ -17,7 +17,7 @@ from dasr_tpu.models.registry import _default_lpips_variables
 from dasr_tpu_torch.cli import evaluate
 from dasr_tpu_torch.data.io import save_img
 from dasr_tpu_torch.losses import lpips as lpips_mod
-from dasr_tpu_torch.train.checkpoints import lpips_state_dict_from_jax
+from dasr_tpu_torch.train.checkpoints import state_dict_from_jax
 
 SIZES = ((40, 56), (47, 33), (64, 40))
 KEYS = ("psnr", "psnr_col", "ssim", "lpips")
@@ -50,7 +50,7 @@ def dirs(tmp_path_factory):
 @pytest.fixture
 def jax_lpips_weights(monkeypatch):
     """The port's LPIPS with the JAX package's default weights."""
-    sd = lpips_state_dict_from_jax(_default_lpips_variables())
+    sd = state_dict_from_jax(lpips_mod.LPIPS(), _default_lpips_variables())
 
     def default_lpips(net="alex", **_):
         model = lpips_mod.LPIPS(net=net)

@@ -6,7 +6,8 @@ srn_train CLI, two DASR Adaptive steps on the device bank through it, two
 stages through its auto_reproduce CLI
 (dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
 auto_test and add_corruptions CLIs on those runs' outputs load neither jax
-nor dasr_tpu.
+nor dasr_tpu; nor do compute_dists (squeeze), lpips_train (train and
+eval), parity, test_dataloader and misc_tools (color2gray) on CPU inputs.
 chip_smoke.py refuses to run without a card and outside the repository.
 
 Subprocesses, because this test process already imported JAX (conftest)."""
@@ -113,6 +114,36 @@ assert len(m) == 7 and all(np.isfinite(v) for v in m.values()), m
 sft = SFTNet(n_blocks=1).init_weights(torch.Generator().manual_seed(0))
 with torch.no_grad():
     assert sft(torch.rand(1, 3, 8, 8), torch.rand(1, 8, 32, 32)).shape == (1, 3, 32, 32)
+from PIL import Image
+from dasr_tpu_torch.cli import compute_dists, lpips_train, parity, test_dataloader
+from dasr_tpu_torch.scripts import misc_tools
+afc = os.path.join(root, "2afc")
+for i in range(2):
+    for d in ("ref", "p0", "p1", "judge"):
+        os.makedirs(os.path.join(afc, d), exist_ok=True)
+        if d != "judge":
+            Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(
+                os.path.join(afc, d, f"{i}.png"))
+    np.save(os.path.join(afc, "judge", f"{i}.npy"), np.array([0.25], np.float32))
+d = compute_dists.main(["pair", "-p0", os.path.join(afc, "ref", "0.png"), "-p1",
+                        os.path.join(afc, "p0", "0.png"), "--net", "squeeze", "--device", "cpu"])
+assert np.isfinite(d)
+tr = lpips_train.main(["train", "--datasets", afc, "--nepoch", "1", "--nepoch_decay", "0",
+                       "--batch_size", "2", "--save_dir", os.path.join(root, "lpips"),
+                       "--device", "cpu"])
+assert os.path.exists(os.path.join(root, "lpips", "latest_net_.pth"))
+ev = lpips_train.main(["eval", "--datasets", afc, "--lin_path",
+                       os.path.join(root, "lpips", "latest_net_.pth"), "--device", "cpu"])
+assert 0 <= ev[afc] <= 1
+avg = parity.main(["--hr_dir", os.path.join(root, "hr"), "--lr_dir", os.path.join(root, "lr"),
+                   "--nb", "1", "--nf", "16", "--gc", "8", "--g_pth", os.path.join(root, "g.pth"),
+                   "--device", "cpu"])
+assert np.isfinite(avg["psnr"]) and np.isfinite(avg["lpips"])
+test_dataloader.main(["-opt", acfg_path, "--out", os.path.join(root, "vis"), "--n", "1"])
+assert "00_HR.png" in os.listdir(os.path.join(root, "vis"))
+misc_tools.main(["color2gray", "--input_dir", os.path.join(root, "hr"), "--out",
+                 os.path.join(root, "gray")])
+assert os.listdir(os.path.join(root, "gray")) == ["a.png"]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """

@@ -164,15 +164,13 @@ def test_define_d_matches_jax(rng, which):
     x = rng.random((2, size, size, 3), np.float32)
     jnet = jreg.define_D(opt)
     if which in ("discriminator_patch", "DSGAN"):
-        # InstanceNorm / the FSD body: the port's state dict by their own carry-overs
+        # InstanceNorm / the FSD body: held on their own, not by _check
         variables = jax.tree.map(np.asarray, jnet.init(jax.random.key(4), jnp.asarray(x)))
         if which == "DSGAN":
-            sd = ck.state_dict_from_jax(tnet, variables)
             want, _ = jnet.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
         else:
-            sd = ck.nlayer_d_state_dict_from_jax(variables, n_layers=2)
             want = jnet.apply(variables, jnp.asarray(x))
-        tnet.load_state_dict(sd, strict=True)
+        tnet.load_state_dict(ck.state_dict_from_jax(tnet, variables), strict=True)
         with torch.no_grad():
             got = _out(tnet.train()(_nchw(x)))
         np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)

@@ -51,7 +51,7 @@ def test_nlayer_discriminator_matches_jax(rng, n_layers, in_ch, bias_middle):
                  use_bias_middle=bias_middle)
     variables = _np(jd.init(jax.random.key(2), jnp.asarray(x)))
     d = NLayerDiscriminator(in_ch=in_ch, ndf=16, n_layers=n_layers, use_bias_middle=bias_middle)
-    d.load_state_dict(ck.nlayer_d_state_dict_from_jax(variables, n_layers), strict=True)
+    d.load_state_dict(ck.state_dict_from_jax(d, variables), strict=True)
     with torch.no_grad():
         got = d(_nchw(x)).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, np.asarray(jd.apply(variables, jnp.asarray(x))),
@@ -98,7 +98,7 @@ def test_lpips_matches_jax(rng, normalize):
         variables["params"][f"lin{k}"] = rng.random(variables["params"][f"lin{k}"].shape,
                                                     dtype=np.float32)
     lp = LPIPS()
-    lp.load_state_dict(ck.lpips_state_dict_from_jax(variables), strict=True)
+    lp.load_state_dict(ck.state_dict_from_jax(lp, variables), strict=True)
     with torch.no_grad():
         got = lp(_nchw(a), _nchw(b), normalize=normalize).numpy()
     want = np.asarray(jl.apply(variables, jnp.asarray(a), jnp.asarray(b), normalize=normalize))

@@ -94,11 +94,12 @@ def assert_cancelled_grads_vanish(jtr, patchd_params, b):
         assert float(grads[k].abs().max()) <= CANCELLED_RTOL * top, (k, top)
 
 
-def state_dicts(params_g, params_d, patchd_vars, concat: bool):
-    """The port's G, D_target and patch D state dicts of JAX trees."""
+def state_dicts(params_g, params_d, patchd_vars, concat: bool, d_net):
+    """The port's G, D_target (``d_net``'s) and patch D state dicts of JAX
+    trees."""
     block = "RRDBResidualConvConcat" if concat else "RRDBResidualConv"
     return {"G": ck.conditioned_g_state_dict_from_jax(np_tree(params_g), NB, NB_ADA, block),
-            "D_target": ck.nlayer_d_state_dict_from_jax(np_tree(params_d), D_LAYERS),
+            "D_target": ck.state_dict_from_jax(d_net, np_tree(params_d)),
             "patchD": ck.state_dict_from_jax(patch_d(), np_tree(patchd_vars))}
 
 
@@ -108,11 +109,11 @@ def carried_pair(concat: bool, use_patchd_opt: bool):
     jtr = JTrainer(JConfig(nb_ada=NB_ADA, concat=concat, **kw))
     state = jtr.init_state(jax.random.key(0), lr_size=LR_SIZE)
     lpips = LPIPS()
-    lpips.load_state_dict(ck.lpips_state_dict_from_jax(np_tree(jtr.lpips_variables)))
+    lpips.load_state_dict(ck.state_dict_from_jax(lpips, np_tree(jtr.lpips_variables)))
     tr = port_trainer(kw, concat, lpips=lpips.requires_grad_(False))
     st = tr.init_state()
     sds = state_dicts(state.base.g.params, state.base.d_target.params, state.patchd.params,
-                      concat)
+                      concat, st.d_target.net)
     for net, sd in zip((st.g.net, st.d_target.net, st.patchd.net), sds.values()):
         net.load_state_dict(sd, strict=True)
     return jtr, state, tr
@@ -136,7 +137,7 @@ def run_trajectory(rng, concat: bool, use_patchd_opt: bool):
     assert st.step == 3
 
     wants = state_dicts(state.base.g.params, state.base.d_target.params, state.patchd.params,
-                        concat)
+                        concat, st.d_target.net)
     for side, net in (("G", st.g.net), ("D_target", st.d_target.net), ("patchD", st.patchd.net)):
         ours = net.state_dict()
         assert set(ours) == set(wants[side]), side

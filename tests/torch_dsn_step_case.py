@@ -57,7 +57,7 @@ def run_trajectory(rng, wgan: bool, uint8: bool):
     np_tree = lambda t: jax.tree.map(np.asarray, jax.device_get(t))  # noqa: E731
 
     lpips = LPIPS()
-    lpips.load_state_dict(ck.lpips_state_dict_from_jax(np_tree(jtr.lpips_variables)))
+    lpips.load_state_dict(ck.state_dict_from_jax(lpips, np_tree(jtr.lpips_variables)))
     tr = DSNTrainer(DSNConfig(**kw), lpips=lpips.requires_grad_(False))
     st = tr.init_state()
     st.g.net.load_state_dict(ck.deresnet_state_dict_from_jax(np_tree(state.g.params), NB))

@@ -47,7 +47,7 @@ def run_trajectory(rng, fs: str, ragan: bool, gan_h_source: float = 0.0):
     np_tree = lambda t: jax.tree.map(np.asarray, jax.device_get(t))  # noqa: E731
 
     lpips = LPIPS()
-    lpips.load_state_dict(ck.lpips_state_dict_from_jax(np_tree(jtr.lpips_variables)))
+    lpips.load_state_dict(ck.state_dict_from_jax(lpips, np_tree(jtr.lpips_variables)))
     tr = SRNTrainer(SRNConfig(**kw), lpips=lpips.requires_grad_(False))
     st = tr.init_state()
     st.g.net.load_state_dict(ck.rrdbnet_state_dict_from_jax(np_tree(state.g.params), NB))
@@ -55,10 +55,10 @@ def run_trajectory(rng, fs: str, ragan: bool, gan_h_source: float = 0.0):
              ("D_target", st.d_target.net, lambda s: s.d_target.params,
               jck.nlayer_d_key_map(D_LAYERS))]
     st.d_target.net.load_state_dict(
-        ck.nlayer_d_state_dict_from_jax(np_tree(state.d_target.params), D_LAYERS))
+        ck.state_dict_from_jax(st.d_target.net, np_tree(state.d_target.params)))
     if gan_h_source > 0:
         st.d_source.net.load_state_dict(
-            ck.nlayer_d_state_dict_from_jax(np_tree(state.d_source.params), D_LAYERS))
+            ck.state_dict_from_jax(st.d_source.net, np_tree(state.d_source.params)))
         pairs.append(("D_source", st.d_source.net, lambda s: s.d_source.params,
                       jck.nlayer_d_key_map(D_LAYERS)))
 
