@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases paired                    # sr, srgan/srragan, De_Resnet
     python3 chip_smoke.py --phases depatch,sft               # De_patch_wavelet_GAN, SFT-GAN
     python3 chip_smoke.py --phases lpips                     # LPIPS breadth, 2AFC, the tools
+    python3 chip_smoke.py --phases dist                      # one NCCL rank, two ranks
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -165,6 +166,26 @@ CPU or to a plain version):
             phase 2, its PSNR/SSIM against srn_test's on the same weights
             and images (0.01 dB, 1e-4 SSIM), s/image; test_dataloader and each
             script once. It needs phase 2, which it then runs too.
+16. dist   - the multi-rank paths (core/dist.py), in children started by
+            ``python -m torch.distributed.run``, each reporting its fused_rdb
+            launches and kernel shapes on a DIST_CHILD line and in a file of
+            its own: one NCCL rank
+            runs srn_train at full width (nf 64, nb 23, batch 6 + 6, bf16)
+            for DIST_STEPS banked steps, counted, with its [mesh] data=1
+            spatial=1 line; its step with the one-rank group against the
+            same step without it (bit-equal expected, cuDNN deterministic,
+            beside the step without it run twice); the step's ms with and
+            without the group, in turns. Two ranks (gloo sharing the card
+            with CUDA tensors; NCCL on two cards where the machine has
+            two): three f32 DASR steps (nf 64, nb 2) and one f32 srragan
+            step (train_SRGAN.json at nb 2, its BatchNorm VGG D) on
+            their rows of the global batches against one process on them
+            (the three-step limits; for the one srragan step, Adam's first,
+            its first moments, its update reported), and srn_test --mesh 2
+            at nb 23 on a
+            256x256 LR image, chopped and --spatial_shard, against one
+            process's chopped and plain forwards (0.01 dB, 1e-4 SSIM). It
+            needs phases 2 and 4, which it then runs too.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -228,7 +249,7 @@ PAIRED_RUNS = {
 }
 ADAPTIVE_BANK_K = 8
 ADAPTIVE_BANK_STEPS = 16
-TRAIN_STEPS = 30
+TRAIN_STEPS = 10
 DSN_STEPS = 30  # 48 source images, batch 8: 6 steps an epoch, 5 epochs
 # phase dataset: (h, w) of the targets, DIV2K-sized (tiled), half (whole), ragged
 DATASET_SIZES = ((1356, 2040), (678, 1020), (383, 511))
@@ -352,7 +373,7 @@ def phase_kernel(gpu):
     checked = set()
     with torch.no_grad():
         for b, h, w in (KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES
-                        + ADAPTIVE_SHAPES + PAIRED_SHAPES):
+                        + ADAPTIVE_SHAPES + PAIRED_SHAPES + DIST_SHAPES):
             x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
             x = torch.from_numpy(x_np).to(dev)
             ks = [torch.from_numpy(k).to(dev) for k in ks_np]
@@ -3517,13 +3538,334 @@ def phase_lpips(gpu, root, checked):
     return report
 
 
+# -- phase dist: the multi-rank paths -------------------------------------------
+
+DIST_STEPS = 8  # the one-NCCL-rank srn_train run: two banked windows of DIST_K
+DIST_K = 4
+DIST_TIMED = 4  # steps a turn when the step is timed with and without the group
+DIST_LR = 256  # srn_test --mesh 2: one 256x256 LR image at nb 23
+# what the two ranks give the kernel beyond the other phases' shapes: each
+# rank's 2 of the 4 chop tiles of 160x160; its 128 rows of the image with two
+# 20-row halos; the two 40-row edge strips
+DIST_SHAPES = ((2, 160, 160), (1, 168, 256), (1, 40, 256))
+DIST_B, DIST_HR = 4, 192  # the f32 steps: a global batch of 4 + 4 (DASR) or 4 (srragan), HR 192
+DIST_CHILD = "DIST_CHILD "  # the line a child reports on
+
+
+def dist_batches(kind, n):
+    """``n`` seeded global batches (NHWC numpy) of the f32 steps of phase dist."""
+    rng = np.random.default_rng(SEED + (7 if kind == "dasr" else 8))
+    lr = DIST_HR // 4
+    out = []
+    for _ in range(n):
+        if kind == "dasr":
+            b = {k: rng.random((DIST_B, s, s, 3), dtype=np.float32)
+                 for k, s in (("LR_fake", lr), ("LR_real", lr), ("HR", DIST_HR),
+                              ("HR_unpair", DIST_HR))}
+            b["fake_w"] = rng.random((DIST_B, lr // 2, lr // 2, 1), dtype=np.float32)
+        else:
+            b = {"LR": rng.random((2 * DIST_B, lr, lr, 3), dtype=np.float32),
+                 "HR": rng.random((2 * DIST_B, DIST_HR, DIST_HR, 3), dtype=np.float32)}
+        out.append(b)
+    return out
+
+
+def dist_steps(kind, world):
+    """The f32 steps of phase dist in ``world``, each rank on its rows of the
+    global batches: three DASR steps (nf 64, nb 2) or one srragan step
+    (train_SRGAN.json at nb 2, its BatchNorm VGG D); (metrics of each step,
+    {net: params before}, {net: (params after, Adam's first moments)})."""
+    import torch
+
+    from dasr_tpu_torch.models.registry import create_model
+    from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
+
+    dev = torch.device("cuda")
+    if kind == "dasr":
+        tr = SRNTrainer(SRNConfig(nf=NC, nb=2, gc=GC, lr_steps=()), dev)
+        tr.init_state()
+        step, batches = tr.train_step, dist_batches(kind, 3)
+    else:
+        with open(os.path.join(ROOT, "dasr_tpu_torch", "configs", "train_SRGAN.json")) as f:
+            opt = json.load(f)
+        opt.update(model="srragan", bf16=False, is_train=True)
+        opt["network_G"]["nb"] = 2
+        tr = create_model(opt, dev).init().trainer
+        step, batches = tr.train_step, dist_batches(kind, 1)
+    nets = {"G": tr.state.g, "D_target": tr.state.d_target}
+    init = {name: flat(ns).clone() for name, ns in nets.items()}
+    traj = []
+    for b in batches:
+        dev_b = {k: torch.from_numpy(np.ascontiguousarray(world.shard(v))).to(dev)
+                 .permute(0, 3, 1, 2) for k, v in b.items()}
+        traj.append({k: float(v) for k, v in step(dev_b).items()})
+    for name, ns in nets.items():
+        world.check_replicated(ns.net.state_dict().items(), f"dist {kind} {name}")
+    return traj, init, {name: (flat(ns), flat(ns, True)) for name, ns in nets.items()}
+
+
+def dist_serve_configs(root):
+    """The srn_test configs of phase dist (one 256x256 LR image and the
+    seeded nb-23 .pth under ``root``/serve): {name: path} for one and two
+    ranks, chopped and plain."""
+    root = os.path.join(root, "serve")
+    pth = os.path.join(root, "rrdb_x4_G.pth")
+    return {name: serve_config(root, name, chop, pth)
+            for name, chop in (("one_chop", True), ("two_chop", True), ("one_plain", False),
+                               ("two_shard", False))}
+
+
+def dist_child(kind, root):
+    """A child of phase dist, started by torchrun: ``nccl``, the one NCCL rank
+    (srn_train at full width through the CLI, its step against the step
+    without the process group, the two timed in turns), or ``pair``, each
+    of two ranks (gloo on the one card, or NCCL on two cards where there
+    are two) (the f32 steps, srn_test --mesh 2 chopped
+    and --spatial_shard). Reports its kernel launches, the kernel's input
+    shapes and its numbers on a ``DIST_CHILD`` line and in
+    ``root``/{kind}_{rank}.json; its results go to ``root``."""
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from dasr_tpu_torch.cli import srn_test, srn_train
+    from dasr_tpu_torch.core import dist
+    from dasr_tpu_torch.core.device import resolve_device
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import fused_rdb
+
+    resolve_device("cuda")
+    backend = "gloo" if kind == "pair" and torch.cuda.device_count() < 2 else "nccl"
+    world = dist.init_world("cuda", backend=backend)
+    if world.size != (2 if kind == "pair" else 1) or world.backend != backend:
+        fail(f"dist {kind}: a world of {world.size} on {world.backend}")
+    seen = set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, str(args[0].dtype), torch.is_grad_enabled()))
+
+    handle = register_module_forward_pre_hook(record)
+    out = {"rank": world.rank, "kind": kind, "backend": backend}
+    if kind == "nccl":
+        cfg = os.path.join(root, "dist_nccl.json")
+        fused_rdb.launches = 0
+        out["steps"], _ = run_cli(srn_train.main, ["-opt", cfg, "--device", "cuda",
+                                                   "--device_bank", "--steps_per_call",
+                                                   str(DIST_K)])
+        torch.cuda.synchronize()
+        out["launches"] = fused_rdb.launches
+        handle.remove()
+        out.update(nccl_step_checks(world, cfg))
+    else:
+        fused_rdb.launches = 0
+        results = {k: dist_steps(k, world) for k in ("dasr", "srragan")}
+        configs = dist_serve_configs(root)
+        for name, flags in (("two_chop", []), ("two_shard", ["--spatial_shard"])):
+            results[name] = run_cli(srn_test.main, ["-opt", configs[name], "--device", "cuda",
+                                                    "--mesh", "2", *flags])
+        torch.cuda.synchronize()
+        out["launches"] = fused_rdb.launches
+        handle.remove()
+        if world.rank == 0:
+            torch.save(results, os.path.join(root, "pair_results.pt"))
+        world.barrier()
+    out["shapes"] = sorted(seen)
+    # the ranks share one stdout: the report also goes to a file of its own
+    print(DIST_CHILD + json.dumps(out), flush=True)
+    with open(os.path.join(root, f"{kind}_{world.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def nccl_step_checks(world, cfg):
+    """One host batch's step with the one-rank NCCL group (gradients and
+    metrics through all_reduce) against the same step without the group,
+    and that step run twice (the card's own floor), from three models of
+    one seeded init; then the step's ms with and without the group, in
+    turns."""
+    import torch
+
+    from dasr_tpu_torch.core import dist
+    from dasr_tpu_torch.core.config import parse_srn_options
+    from dasr_tpu_torch.data.datasets import create_dataset
+    from dasr_tpu_torch.data.pipeline import Loader
+    from dasr_tpu_torch.models.registry import create_model
+
+    opt = parse_srn_options(cfg, is_train=True)
+    host = next(iter(Loader(create_dataset(opt["datasets"]["train"]), batch_size=6,
+                            num_workers=6, seed=0)))
+    batch = {k: torch.from_numpy(host[k]).cuda().permute(0, 3, 1, 2)
+             for k in ("LR_fake", "LR_real", "HR", "HR_unpair", "fake_w")}
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    models = [create_model(parse_srn_options(cfg, is_train=True), torch.device("cuda")).init()
+              for _ in range(3)]
+    states = []
+    for i, m in enumerate(models):
+        with dist.using(world if i == 0 else dist.SINGLE):
+            m.trainer.train_step(batch)
+        torch.cuda.synchronize()
+        st = m.trainer.state
+        states.append(torch.cat([flat(st.g), flat(st.d_target), flat(st.g, True)]))
+    grouped, alone, again = states
+    out = {"step_bit_equal": bool(torch.equal(grouped, alone)),
+           "step_max_abs_diff": float((grouped - alone).abs().max()),
+           "floor_bit_equal": bool(torch.equal(alone, again)),
+           "floor_max_abs_diff": float((alone - again).abs().max())}
+    torch.backends.cudnn.deterministic = False
+    tr = models[0].trainer
+    times = {"group": [], "alone": []}
+    for _ in range(3):
+        for arm in times:
+            with dist.using(world if arm == "group" else dist.SINGLE):
+                for _ in range(DIST_TIMED):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    tr.train_step(batch)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[arm].append(start.elapsed_time(end))
+    out["ms_group"], out["ms_alone"] = (float(np.median(times[a])) for a in ("group", "alone"))
+    return out
+
+
+def run_dist_children(kind, root, nproc, timeout):
+    """torchrun ``nproc`` children of kind ``kind``: their reports (one file
+    a rank), the seconds they took and what they printed. Fails if a child
+    fails or reports nothing."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_port", str(port), os.path.join(ROOT, "chip_smoke.py"), "--dist_child",
+           kind, "--dist_dir", root]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(root, f"{kind}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    paths = [os.path.join(root, f"{kind}_{r}.json") for r in range(nproc)]
+    reports = []
+    for path in paths:
+        if os.path.exists(path):
+            with open(path) as f:
+                reports.append(json.load(f))
+    if proc.returncode != 0 or len(reports) != nproc:
+        fail(f"dist: the {kind} children exited {proc.returncode} with {len(reports)} reports:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return reports, secs, proc.stdout
+
+
+def phase_dist(gpu, checked, checked_grad):
+    """The multi-rank paths (core/dist.py): one NCCL rank through srn_train
+    at full width, and two ranks (gloo on the one card, or NCCL on two)
+    against one process on the global batches."""
+    import torch
+
+    from dasr_tpu_torch.cli import srn_test
+    from dasr_tpu_torch.core import dist
+    from dasr_tpu_torch.data.io import read_img_u8
+    from dasr_tpu_torch.nn.generators import RRDBNet
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, TOLERANCES
+
+    report = {}
+    rng = np.random.default_rng(SEED)
+    with tempfile.TemporaryDirectory() as root:
+        dirs = write_train_corpus(root, rng)
+        train_config(root, dirs, "dist_nccl", DIST_STEPS)
+        write_corpus(os.path.join(root, "serve"), rng, sizes=((DIST_LR, DIST_LR),))
+        net = RRDBNet(nf=NC, nb=NB, gc=GC).init_weights(torch.Generator().manual_seed(SEED))
+        torch.save(net.state_dict(), os.path.join(root, "serve", "rrdb_x4_G.pth"))
+        configs = dist_serve_configs(root)
+
+        # one NCCL rank: srn_train through the CLI, counted
+        (nccl,), secs, log = run_dist_children("nccl", root, 1, 600)
+        expected = 3 * NB * LAUNCHES_PER_RDB * (DIST_STEPS + 2)
+        mesh = [ln for ln in log.splitlines() if ln.startswith("[mesh]")]
+        print(f"dist nccl: torchrun child {secs:.2f} s; srn_train {nccl['steps']} banked steps "
+              f"(K {DIST_K}), nf {NC} nb {NB}, {mesh}, fused_rdb launches "
+              f"{nccl['launches']}, expected {expected}", flush=True)
+        if (mesh != ["[mesh] data=1 spatial=1"] or "device bank:" not in log
+                or nccl["steps"] != DIST_STEPS or nccl["launches"] != expected):
+            fail(f"dist nccl: {nccl}")
+        print(f"dist nccl: the step with the one-rank NCCL group vs without it, one seeded "
+              f"init, cuDNN deterministic: bit-equal {nccl['step_bit_equal']} (max|diff| "
+              f"{nccl['step_max_abs_diff']:.3e}); the step without it run twice: bit-equal "
+              f"{nccl['floor_bit_equal']} (max|diff| {nccl['floor_max_abs_diff']:.3e})",
+              flush=True)
+        if not nccl["step_bit_equal"] and (
+                nccl["floor_bit_equal"] or nccl["step_max_abs_diff"]
+                > 2 * nccl["floor_max_abs_diff"]):
+            fail("dist nccl: the grouped step is off the step without the group")
+        print(f"dist nccl: train step, batch 6 + 6, HR 128, bf16: {nccl['ms_group']:.3f} ms/step "
+              f"with the NCCL group, {nccl['ms_alone']:.3f} ms/step without (median of "
+              f"{3 * DIST_TIMED} each, CUDA events, in turns) [{gpu}]", flush=True)
+
+        # two ranks: the f32 steps and srn_test --mesh 2
+        ranks, secs, _ = run_dist_children("pair", root, 2, 600)
+        got = torch.load(os.path.join(root, "pair_results.pt"), weights_only=False)
+        pair = f"pair ({ranks[0]['backend']}, {min(2, torch.cuda.device_count())} card(s))"
+        print(f"dist {pair}: torchrun children {secs:.2f} s; fused_rdb launches "
+              f"{[r['launches'] for r in ranks]}", flush=True)
+        atol, rtol = TOLERANCES["train_loss_f32"]
+        _, utol = TOLERANCES["train_update_f32"]
+        _, mtol = TOLERANCES["train_moment_f32"]
+        for kind in ("dasr", "srragan"):
+            want = dist_steps(kind, dist.SINGLE)
+            # one srragan step is Adam's first, which moves every element by
+            # lr whatever its gradient's size: the conv biases before D's
+            # BatchNorms, whose gradient is rounding noise, move 2 lr apart
+            # between any two runs. Its first moments, linear in the
+            # gradients, are held; its update is reported
+            worst, parts, bad, _ = compare_three_steps(
+                f"dist {kind}", got[kind], want, (atol, rtol),
+                utol if kind == "dasr" else float("inf"), mtol)
+            print(f"dist {pair} {kind} f32 (nf {NC}, nb 2), {len(want[0])} step(s), two ranks "
+                  f"vs one process on the global batch: losses within {worst:.3f} of their "
+                  f"limit; {'; '.join(parts)}", flush=True)
+            if bad:
+                fail(f"dist {kind}: two ranks' updates or moments of {bad} are off one process's")
+        psnr_tol, ssim_tol = TOLERANCES["psnr_db"][0], TOLERANCES["ssim"][0]
+        for two, one in (("two_chop", "one_chop"), ("two_shard", "one_plain")):
+            want = run_cli(srn_test.main, ["-opt", configs[one], "--device", "cuda"])["synth"]
+            have = got[two]["synth"]
+            errs = {k: abs(have[k] - v) for k, v in want.items()}
+            pngs = [read_img_u8(os.path.join(root, "serve", "results", n, "synth", "img_0.png"))
+                    .astype(int) for n in (two, one)]
+            print(f"dist {pair} srn_test --mesh 2 {two} vs {one}, nb {NB} bf16, {DIST_LR}x"
+                  f"{DIST_LR}: |metric err| {errs} (limits {psnr_tol} dB, {ssim_tol}), PNG "
+                  f"max|diff| {np.abs(pngs[0] - pngs[1]).max()} grey levels", flush=True)
+            if any(not e <= (psnr_tol if k.startswith("psnr") else ssim_tol)
+                   for k, e in errs.items()):
+                fail(f"dist: srn_test {two} is off {one}")
+        seen = {(b, h, w, getattr(torch, dt.split(".")[1]), grad)
+                for r in [nccl] + ranks for b, h, w, dt, grad in r["shapes"]}
+        missing = {k[:4] for k in seen} - checked
+        missing |= {k[:4] for k in seen if k[4]} - checked_grad
+        if missing:
+            fail(f"dist: the children gave the kernel shapes phases 2 and 4 did not check: "
+                 f"{missing}")
+        launches = nccl["launches"] + sum(r["launches"] for r in ranks)
+        if not all(r["launches"] > 0 for r in ranks):
+            fail(f"dist: a rank of the pair launched no kernel: {ranks}")
+        report.update(launches_dist=launches, dist_ms_group=nccl["ms_group"],
+                      dist_ms_alone=nccl["ms_alone"])
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive,paired,depatch,sft,lpips",
+                            "adaptive,paired,depatch,sft,lpips,dist",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips")
+                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,dist")
+    ap.add_argument("--dist_child", choices=("nccl", "pair"), default=None,
+                    help=argparse.SUPPRESS)  # phase dist starts its children with it
+    ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3541,6 +3883,9 @@ def main(argv=None):
     from dasr_tpu_torch.core.device import resolve_device
 
     resolve_device("cuda")  # the port's rule for the phases that call no CLI: TF32 off
+    if args.dist_child:
+        dist_child(args.dist_child, args.dist_dir)
+        return
 
     gpu = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -3552,7 +3897,7 @@ def main(argv=None):
     }
     if phases & {"serve", "lpips"}:
         phases.add("kernel")  # serve and parity check their shapes against phase 2's
-    if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired"}:
+    if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired", "dist"}:
         phases |= {"kernel", "grad"}  # and these against phases 2 and 4
     if "adaptive" in phases:
         phases.add("dsn")  # its patch D is stage 1's discriminator
@@ -3617,11 +3962,16 @@ def main(argv=None):
             entry["launches_lpips"] = report.pop("launches_lpips")
             print(f"lpips (LPIPS nets, lpips_train, compute_dists, parity, the scripts): "
                   f"{json.dumps(report)}", flush=True)
+    if "dist" in phases:
+        report = phase_dist(gpu, checked, checked_grad)
+        entry["launches_dist"] = report.pop("launches_dist")
+        print(f"dist (one NCCL rank through srn_train; two ranks against one process): "
+              f"{json.dumps(report)}", flush=True)
     # launches: the count from each main path's run, the counter set to 0
     # just before it; the total of the paths this run drove
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
                             for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive",
-                                      "paired", "depatch", "sft", "lpips"))
+                                      "paired", "depatch", "sft", "lpips", "dist"))
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

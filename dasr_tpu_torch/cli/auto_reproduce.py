@@ -19,6 +19,12 @@ reference's do. The fast path is the JAX package's: DSN ``--transfer_uint8
 ``--steps_per_call 8 --transfer_uint8 --device_bank --decode_cache_gb 24``
 with ``val_device_metrics`` and ``val_metrics_pad_bucket: 128`` in the
 derived config unless the template sets them.
+
+On N cards, under ``python -m torch.distributed.run --nproc_per_node N -m
+dasr_tpu_torch.cli.auto_reproduce ...``, every rank runs the three stages:
+stages 1 and 3 train over the ranks (each prints its ``[mesh]`` line on
+rank 0), stage 2 runs with ``--mesh N``, and rank 0 alone writes the
+derived JSON and the logs.
 """
 
 from __future__ import annotations
@@ -76,13 +82,17 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from dasr_tpu_torch.cli import dsn_create_dataset, dsn_train, srn_train
+    from dasr_tpu_torch.core import dist
     from dasr_tpu_torch.core.config import dataset_paths
+    from dasr_tpu_torch.core.device import resolve_device
 
+    world = dist.init_world(resolve_device(args.device))
     stage_times = {}
 
     def tick(stage, t0):
         stage_times[stage] = dt = time.time() - t0
-        print(f"[auto_reproduce] stage '{stage}' wall-clock: {dt:.1f} s", flush=True)
+        if world.is_main:
+            print(f"[auto_reproduce] stage '{stage}' wall-clock: {dt:.1f} s", flush=True)
 
     paths_yml = args.paths_yml or os.path.join(os.path.dirname(__file__), "..", "..",
                                                "paths.yml")
@@ -117,6 +127,7 @@ def main(argv=None):
              "--checkpoint", os.path.join(exp_root, save_name, "checkpoints"),
              "--generator", "DeResnet", "--discriminator", "FSD", "--filter", "avg_pool",
              "--name", lrs_name, "--paths_yml", paths_yml, "--results_root", res_root]
+            + (["--mesh", str(world.size)] if world.size > 1 else [])
             + device + args.dsn_create_extra.split())
         tick("dsn_create_dataset", t0)
 
@@ -143,9 +154,11 @@ def main(argv=None):
         config.setdefault("val_device_metrics", True)
         config.setdefault("val_metrics_pad_bucket", 128)
     derived = os.path.join(args.work_root, f"train_DASR_auto_reproduce_{args.dataset}.json")
-    os.makedirs(os.path.dirname(os.path.abspath(derived)), exist_ok=True)
-    with open(derived, "w") as f:
-        json.dump(config, f, indent=1)
+    if world.is_main:
+        os.makedirs(os.path.dirname(os.path.abspath(derived)), exist_ok=True)
+        with open(derived, "w") as f:
+            json.dump(config, f, indent=1)
+    world.barrier()
     t0 = time.time()
     srn_args = ["-opt", derived] + device
     if not args.no_fast_path:
@@ -154,9 +167,10 @@ def main(argv=None):
     srn_train.main(srn_args)
     tick("srn_train", t0)
     total = sum(stage_times.values())
-    print("[auto_reproduce] TOTAL wall-clock: "
-          f"{total:.1f} s ({total / 3600:.2f} h) - "
-          + ", ".join(f"{k}={v:.1f}s" for k, v in stage_times.items()), flush=True)
+    if world.is_main:
+        print("[auto_reproduce] TOTAL wall-clock: "
+              f"{total:.1f} s ({total / 3600:.2f} h) - "
+              + ", ".join(f"{k}={v:.1f}s" for k, v in stage_times.items()), flush=True)
     return stage_times
 
 

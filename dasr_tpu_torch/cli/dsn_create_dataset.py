@@ -16,7 +16,15 @@ the card works on one image, the host writes the one before.
 ``--checkpoint`` is the port's checkpoint directory (its latest
 ``{iter}.pt``) or a reference-format DSN ``.tar`` (the port's or the JAX
 package's ``last_iteration.tar``), which is copied into the output
-directory. ``--mesh`` is refused (ROADMAP A.11).
+directory.
+
+``--mesh N`` runs over the N ranks of a launcher's world (``python -m
+torch.distributed.run --nproc_per_node N -m
+dasr_tpu_torch.cli.dsn_create_dataset ... --mesh N``; any other world is
+refused), with JAX's mesh rule: G's tiles are ``MESH_TILE`` pixels, above
+``MESH_TILE``^2 HR pixels, and fan out over the ranks (``tiled_apply``).
+Rank 0 alone scores the fakes with D and writes; its outputs equal those
+of ``--mesh 1``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import shutil
 
 TILE = 512  # G's tile side on large HR images, in HR pixels
 TILE_ABOVE = 1024 * 1024  # HR pixels above which G runs by tiles
+MESH_TILE = 256  # G's tile side with --mesh, tiled above MESH_TILE^2 HR pixels (JAX's rule)
 
 # dataset name -> (registry dataset, artifact), as the reference CLI names them
 _DATASET_KEYS = {
@@ -62,7 +71,9 @@ def build_argparser():
                    help="legacy FSSR mode: LRs only, no DDMs (codes/DSN/create_dataset.py)")
     p.add_argument("--transfer_uint8", action="store_true",
                    help="upload images as uint8, cast to f32/255 on the device (exact)")
-    p.add_argument("--mesh", type=int, default=0, help="not yet ported (ROADMAP A.11)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="fan G's tiles out over the N ranks of a torchrun world (tile 256 "
+                        "above 256x256 HR pixels, as JAX's --mesh)")
     p.add_argument("--pad_bucket", type=int, default=0,
                    help="reflect-pad image sizes up to multiples of N before G (tiny "
                         "border deviations); 0 = exact")
@@ -76,23 +87,24 @@ def build_argparser():
     return p
 
 
-def generate_lr(g, x, scale: int, tile: int = TILE, above: int = TILE_ABOVE):
+def generate_lr(g, x, scale: int, tile: int = TILE, above: int = TILE_ABOVE, world=None):
     """G over one NCHW HR batch ``x``: whole up to ``above`` pixels, else by
-    ``tile`` x ``tile`` tiles with a 16 x ``scale`` halo; cropped to
-    ceil(h / scale) x ceil(w / scale)."""
+    ``tile`` x ``tile`` tiles with a 16 x ``scale`` halo, fanned out over
+    ``world``'s ranks; cropped to ceil(h / scale) x ceil(w / scale)."""
     from dasr_tpu_torch.ops.tiled import tiled_apply
 
     h, w = x.shape[-2], x.shape[-1]
     if h * w > above:
-        out = tiled_apply(x, g, scale=1.0 / scale, tile=tile, halo=16 * scale)
+        out = tiled_apply(x, g, scale=1.0 / scale, tile=tile, halo=16 * scale, world=world)
     else:
         out = g(x)
     return out[..., : math.ceil(h / scale), : math.ceil(w / scale)]
 
 
-def load_nets(checkpoint: str, g, d=None) -> bool:
+def load_nets(checkpoint: str, g, d=None, verbose: bool = True) -> bool:
     """Load G (and D) from the port's checkpoint directory (its latest
-    ``{iter}.pt``) or a DSN ``.tar``; returns whether it was a ``.tar``."""
+    ``{iter}.pt``) or a DSN ``.tar``, saying which unless not ``verbose``;
+    returns whether it was a ``.tar``."""
     import torch
 
     from dasr_tpu_torch.train.checkpoints import latest_train_state, load_dsn_tar
@@ -106,13 +118,14 @@ def load_nets(checkpoint: str, g, d=None) -> bool:
         g.load_state_dict(saved["G"]["net"])
         if d is not None:
             d.load_state_dict(saved["D_target"]["net"])
-        print(f"Using the train state at step {saved['step']} ({path})")
+        if verbose:
+            print(f"Using the train state at step {saved['step']} ({path})")
         return False
     ckpt = load_dsn_tar(checkpoint)
     g.load_state_dict(ckpt.get("model_g_state_dict", ckpt))
     if d is not None:
         d.load_state_dict(ckpt.get("models_d_state_dict", ckpt))
-    if "epoch" in ckpt:
+    if "epoch" in ckpt and verbose:
         print(f"Using model at epoch {ckpt['epoch']}")
     return True
 
@@ -133,14 +146,13 @@ def copy_to_host(device, *tensors):
 
 def main(argv=None):
     opt = build_argparser().parse_args(argv)
-    if opt.mesh:
-        raise NotImplementedError("--mesh is not yet ported (ROADMAP A.11)")
     if opt.checkpoint is None:
         raise SystemExit("Use --checkpoint to define the model parameters used")
 
     import numpy as np
     import torch
 
+    from dasr_tpu_torch.core import dist
     from dasr_tpu_torch.core.config import dataset_paths
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.io import list_images, read_img, read_img_u8, save_img
@@ -149,7 +161,10 @@ def main(argv=None):
     from dasr_tpu_torch.ops.rf_splat import CONVNETS, ddm_shape_for, ddm_splat
     from dasr_tpu_torch.ops.tiled import pad_reflect
 
-    device = resolve_device(opt.device)
+    dist.init_world(resolve_device(opt.device))
+    world = dist.refuse_mismatch(opt.mesh, "dasr_tpu_torch.cli.dsn_create_dataset")
+    device, main_rank = world.device, world.is_main
+    tile, above = (MESH_TILE, MESH_TILE**2) if opt.mesh else (TILE, TILE_ABOVE)
     if opt.source_dir and opt.target_dir:
         source_dir, target_dir = opt.source_dir, opt.target_dir
     else:
@@ -167,8 +182,9 @@ def main(argv=None):
     img_dir = os.path.join(out_dir, "imgs_from_target")
     ddm_t_dir = os.path.join(out_dir, "ddm_target")
     ddm_s_dir = os.path.join(out_dir, "ddm_source")
-    for sub in (img_dir, ddm_t_dir, ddm_s_dir):
-        os.makedirs(sub, exist_ok=True)
+    if main_rank:
+        for sub in (img_dir, ddm_t_dir, ddm_s_dir):
+            os.makedirs(sub, exist_ok=True)
 
     if opt.generator == "DSGAN":
         g = DSGANGenerator(opt.num_res_blocks)
@@ -180,8 +196,9 @@ def main(argv=None):
                         filter_type=opt.filter if opt.highpass else None,
                         kernel_size=opt.kernel_size, cs=opt.cat_or_sum,
                         norm_layer=opt.norm_layer, wgan=opt.wgan)
-    if load_nets(opt.checkpoint, g, d):
+    if load_nets(opt.checkpoint, g, d, verbose=main_rank) and main_rank:
         shutil.copyfile(opt.checkpoint, os.path.join(out_dir, opt.name + ".tar"))
+    world.check_replicated(g.state_dict().items(), "dsn_create_dataset")
     g.to(device, memory_format=torch.channels_last).eval()
     d.to(device, memory_format=torch.channels_last).eval()
     convnet = CONVNETS[opt.discriminator]
@@ -197,7 +214,8 @@ def main(argv=None):
         h0, w0 = x.shape[-2], x.shape[-1]
         if opt.pad_bucket:
             x = pad_reflect(x, 0, -h0 % opt.pad_bucket, 0, -w0 % opt.pad_bucket)
-        return generate_lr(g, x, scale)[..., : math.ceil(h0 / scale), : math.ceil(w0 / scale)]
+        return generate_lr(g, x, scale, tile, above, world)[
+            ..., : math.ceil(h0 / scale), : math.ceil(w0 / scale)]
 
     def ddm(lr):
         """D and the receptive-field splat on the device, from a (1, 3, h, w) LR."""
@@ -219,6 +237,8 @@ def main(argv=None):
     with torch.no_grad():
         for i, path in enumerate(target_files):
             fake = run_g(reader(path))
+            if not main_rank:  # the others only serve their tiles
+                continue
             copies, event = copy_to_host(device, fake, None if opt.no_ddm else ddm(fake))
             prev, inflight = inflight, (copies, event, os.path.basename(path))
             if prev is not None:
@@ -228,7 +248,7 @@ def main(argv=None):
         if inflight is not None:
             drain(inflight)
 
-        for i, path in enumerate(source_files):
+        for i, path in enumerate(source_files if main_rank else ()):
             (ddm_arr,), event = copy_to_host(device, ddm(to_device(reader(path))))
             if event is not None:
                 event.synchronize()
@@ -236,6 +256,7 @@ def main(argv=None):
                     ddm_arr.numpy()[None, None])
             if (i + 1) % 50 == 0 or i == len(source_files) - 1:
                 print(f"[source {i + 1}/{len(source_files)}]")
+    world.barrier()
     return out_dir
 
 

@@ -25,6 +25,14 @@ whole train state as ``checkpoints/{iter}.pt``, and at the end the
 reference-format ``checkpoints/last_iteration.tar``. ``--checkpoint``
 resumes from the port's own saves (a ``{iter}.pt`` or its directory).
 
+On N cards: ``python -m torch.distributed.run --nproc_per_node N -m
+dasr_tpu_torch.cli.dsn_train ...`` (``core/dist.py``). Each rank loads (or,
+with ``--device_bank``, gathers from its whole copy of the banks) its rows
+of each global batch of ``--batch_size``, which N must divide; an N-rank
+step equals the 1-rank step on the global batch. Rank 0 prints the
+``[mesh] data=N spatial=1`` line, and alone writes the logs, the metrics
+and the saves and validates, the others waiting.
+
 ``--packed_trunk`` is a TPU rewrite of the same function, accepted and
 ignored.
 ``--lpips_rot_flip`` is parsed and never read, as in the JAX package.
@@ -127,7 +135,9 @@ def to_device(batch, device):
 
 
 def make_loader(opt, source_dir, target_dir, device):
-    """The host loader of ``opt``'s DSN feed (pinned batches for the card)."""
+    """The host loader of ``opt``'s DSN feed (pinned batches for the card):
+    the current world's rows of each global batch."""
+    from dasr_tpu_torch.core import dist
     from dasr_tpu_torch.data.datasets import DSNTrainDataset
     from dasr_tpu_torch.data.pipeline import Loader
 
@@ -137,7 +147,7 @@ def make_loader(opt, source_dir, target_dir, device):
         device_bicubic=opt.device_bicubic)
     return Loader(train_set, batch_size=opt.batch_size, shuffle=True,
                   num_workers=opt.num_workers, drop_last=True, seed=opt.seed,
-                  pin_memory=device.type == "cuda")
+                  pin_memory=device.type == "cuda", world=dist.current())
 
 
 def make_trainer(opt, device, steps_per_epoch: int):
@@ -193,6 +203,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from dasr_tpu_torch.core import dist
     from dasr_tpu_torch.core.config import dataset_paths
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.datasets import DSNValDataset
@@ -200,7 +211,11 @@ def main(argv=None):
     from dasr_tpu_torch.utils.guards import check_finite
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
-    device = resolve_device(opt.device)
+    world = dist.init_world(resolve_device(opt.device))
+    device, main_rank = world.device, world.is_main
+    if main_rank:
+        print(world.mesh_line(), flush=True)
+    world.batch_slice(opt.batch_size)  # refuses a batch the world does not divide
     if opt.source_dir and opt.target_dir:
         source_dir, target_dir = opt.source_dir, opt.target_dir
         valid_hr, valid_lr = opt.valid_hr_dir, opt.valid_lr_dir
@@ -231,9 +246,10 @@ def main(argv=None):
         steps_per_epoch = n_noisy // opt.batch_size
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        print(f"device bank: {nbytes(banks) / 2**30:.3f} GiB resident ({hosts[0].data.shape[0]} "
-              f"clean / {n_noisy} noisy images; decode {t1 - t0:.2f} s, upload "
-              f"{time.perf_counter() - t1:.2f} s)", flush=True)
+        if main_rank:
+                print(f"device bank: {nbytes(banks) / 2**30:.3f} GiB resident "
+                  f"({hosts[0].data.shape[0]} clean / {n_noisy} noisy images; decode "
+                  f"{t1 - t0:.2f} s, upload {time.perf_counter() - t1:.2f} s)", flush=True)
         del hosts
     else:
         loader = make_loader(opt, source_dir, target_dir, device)
@@ -247,10 +263,13 @@ def main(argv=None):
     if opt.checkpoint:
         step = load_train_state(opt.checkpoint, state)
         start_epoch = step // steps_per_epoch + 1
-        print(f"Continuing training at epoch {start_epoch}")
+        if main_rank:
+            print(f"Continuing training at epoch {start_epoch}")
+    for name, net in (("G", trainer.g_model), ("D", trainer.d_model)):
+        world.check_replicated(net.state_dict().items(), f"dsn_train {name}")
 
     writer = None
-    if opt.saving:
+    if opt.saving and main_rank:
         os.makedirs(save_path, exist_ok=True)
         with open(os.path.join(save_path, "commandline_args.txt"), "w") as f:
             json.dump(vars(opt), f, indent=2)
@@ -324,17 +343,23 @@ def main(argv=None):
             if opt.debug:
                 opt.val_interval = opt.save_model_interval = 1
 
-            if val_set is not None and epoch % opt.val_interval == 0:
+            # rank 0 alone validates and saves; the others wait for it
+            due = [val_set is not None and epoch % opt.val_interval == 0,
+                   opt.saving and val_set is not None and epoch % opt.val_img_interval == 0,
+                   opt.saving and epoch % opt.save_model_interval == 0]
+            if due[0] and main_rank:
                 mean_psnr = _validate(trainer, val_set, device)
                 if writer:
                     writer.write(iteration, {"val/psnr_vs_bicubic": mean_psnr})
                 print(f"[epoch {epoch}] val PSNR vs bicubic: {mean_psnr:.3f} dB")
-            if opt.saving and val_set is not None and epoch % opt.val_img_interval == 0:
+            if due[1] and main_rank:
                 _dump_val_images(trainer, val_set, device, opt, save_path, epoch, iteration,
                                  writer)
-            if opt.saving and epoch % opt.save_model_interval == 0:
+            if due[2] and main_rank:
                 save_train_state(ckpt_dir, state, iteration)
                 print(f"[epoch {epoch}] checkpoint @ iter {iteration}")
+            if any(due):
+                world.barrier()
             if opt.debug and epoch >= start_epoch + 1:
                 break
         if pending:
@@ -343,7 +368,7 @@ def main(argv=None):
         # end-of-run line), checked where they cross a boundary
         if last is not None:
             write(*last)
-        if opt.saving:
+        if opt.saving and main_rank:
             # a final save whatever the interval, so stage 2 always finds one
             save_train_state(ckpt_dir, state, iteration)
             save_dsn_tar(os.path.join(ckpt_dir, "last_iteration.tar"), trainer.g_model,
@@ -351,6 +376,7 @@ def main(argv=None):
                          fs_type=opt.filter, fs_kernel_size=opt.kernel_size,
                          d_type=opt.discriminator)
             print(f"[final] checkpoint @ iter {iteration}")
+        world.barrier()
     finally:
         if writer:
             writer.close()

@@ -23,8 +23,15 @@ else they take the LR image and report no metrics. With
 also writes ``<base>_ddm.npy``, (1, 1, h / 2, w / 2), its D's map of the LR
 image (codes/SRN/test.py:44-46, 77-79).
 
-Not ported yet, and refused rather than skipped: ``--mesh`` and
-``--spatial_shard`` (ROADMAP A.11).
+``--mesh N`` serves over the N ranks of a launcher's world (``python -m
+torch.distributed.run --nproc_per_node N -m dasr_tpu_torch.cli.srn_test
+-opt ... --mesh N``; any other world is refused): with the JSON's ``chop``
+the tile batch fans out over the ranks, with ``--spatial_shard`` each
+image's H axis is split over them with halo exchange
+(``ops/spatial_shard.py``), as JAX's ``--mesh`` does over its devices.
+Rank 0 alone writes the PNGs and reports the metrics, which fall back to
+the host path unless ``--metrics_pad_bucket`` is given, as JAX's do.
+Without ``--mesh``, ``--spatial_shard`` does nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,20 +50,24 @@ def main(argv=None):
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="run on the GPU (hand-written kernels) or on the CPU "
                              "(plain PyTorch versions)")
-    parser.add_argument("--mesh", type=int, default=0, help="not yet ported (ROADMAP A.11)")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="serve over the N ranks of a torchrun world: with the JSON's chop "
+                             "flag the tile batch fans out over them; with --spatial_shard "
+                             "the image's H axis is split over them with halo exchange")
     parser.add_argument("--spatial_shard", action="store_true",
-                        help="not yet ported (ROADMAP A.11)")
+                        help="split each image's H axis over the --mesh ranks (halo "
+                             "exchange; exact for a receptive field <= 20 px, the "
+                             "reference's forward_chop shave)")
     parser.add_argument("--device_metrics", action="store_true",
                         help="PSNR/SSIM (+Y) and LPIPS on the device instead of the host "
-                             "f64 path (within 1e-3 dB / 1e-4 SSIM)")
+                             "f64 path (within 1e-3 dB / 1e-4 SSIM); with --mesh the host "
+                             "path serves unless --metrics_pad_bucket is given")
     parser.add_argument("--metrics_pad_bucket", type=int, default=0,
                         help="with --device_metrics: zero-pad each SR/HR pair to a multiple "
                              "of N and mask (exact); works with any forward")
     args = parser.parse_args(argv)
-    for flag, on in (("--mesh", args.mesh), ("--spatial_shard", args.spatial_shard)):
-        if on:
-            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP A.11)")
 
+    from dasr_tpu_torch.core import dist
     from dasr_tpu_torch.core.config import dict2str, parse_srn_options
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.datasets import create_dataset
@@ -65,16 +76,22 @@ def main(argv=None):
     from dasr_tpu_torch.models.registry import create_model
 
     opt = parse_srn_options(args.opt, is_train=False)
-    device = resolve_device(args.device)
+    dist.init_world(resolve_device(args.device))
+    world = dist.refuse_mismatch(args.mesh, "dasr_tpu_torch.cli.srn_test")
+    device, main_rank = world.device, world.is_main
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     logger = logging.getLogger("base")
+    logger.setLevel(logging.INFO if main_rank else logging.WARNING)
     logger.info(dict2str(opt))
 
     model = create_model(opt, device)
     model.init()
     model.load()
+    if args.mesh:
+        model.prepare_mesh(world, spatial_shard=args.spatial_shard)
     lpips_fn = make_lpips(device) if opt.get("val_lpips") else None
-    measure = sr_metrics_on(opt, lpips_fn, args.device_metrics, args.metrics_pad_bucket)
+    measure = sr_metrics_on(opt, lpips_fn, args.device_metrics, args.metrics_pad_bucket,
+                            mesh=bool(args.mesh))
     realness = opt.get("save_RealorFake") and getattr(model, "realness_map", None)
     if opt.get("save_RealorFake") and not realness:
         logger.info(f"save_RealorFake: model [{opt.get('model')}] has no realness map; "
@@ -86,7 +103,8 @@ def main(argv=None):
         name = dataset_opt["name"]
         logger.info(f"\nTesting [{name}]...")
         dataset_dir = os.path.join(opt["path"]["results_root"], name)
-        os.makedirs(dataset_dir, exist_ok=True)
+        if main_rank:
+            os.makedirs(dataset_dir, exist_ok=True)
 
         per_image = []
 
@@ -116,6 +134,8 @@ def main(argv=None):
             data = test_set[i]
             paired = src in data and ref in data
             sr_dev = model.test_async(data[src if paired else "LR"])
+            if not main_rank:  # every rank serves, rank 0 alone writes and measures
+                continue
             done = measure(sr_dev, data[ref]) if paired else None
             prev, inflight = inflight, (i, data, sr_dev, done)
             if prev is not None:

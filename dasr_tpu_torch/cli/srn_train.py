@@ -24,7 +24,7 @@ The JAX package's fast path, with its semantics:
   ``drop_last``;
 * ``val_device_metrics`` (and ``val_metrics_pad_bucket``): the validation
   PSNR/SSIM (+Y, LPIPS) on the card, one image behind the forward;
-* ``--profile DIR``: a ``torch.profiler`` trace of steps 10-20;
+* ``--profile DIR``: a ``torch.profiler`` trace of steps 10-20 (rank 0's);
 * ``resume_state``: the port's own ``{iter}.pt``, or a reference
   ``{iter}.state`` (``check_resume`` points the pretrain paths at its
   ``{iter}_G.pth`` / ``_D_target.pth`` / ``_D_source.pth``; its Adam states
@@ -41,6 +41,17 @@ back, with the JAX CLI's lines); 'De_Resnet' and 'De_patch_wavelet_GAN'
 validate G(HR) against the LR image. As the
 JAX CLI has no path for these models' reference formats, a ``.state``
 ``resume_state`` and ``save_ref_formats`` are refused for them.
+
+On N cards: ``python -m torch.distributed.run --nproc_per_node N -m
+dasr_tpu_torch.cli.srn_train -opt ...`` (``core/dist.py``). Each rank
+loads (or, with ``--device_bank``, gathers from its whole copy of the
+banks) its rows of each global batch of ``batch_size``, which N must
+divide; an N-rank step equals the 1-rank step on the global batch. Rank 0
+prints the ``[mesh] data=N spatial=1`` line, and alone writes the logs,
+the metrics and the saves and validates, the others waiting; as in the JAX
+CLI on a mesh, ``val_batch`` and the unbucketed ``val_device_metrics`` are
+off there. As JAX shards only them, only 'DASR', 'DASR_Adaptive_Model',
+'srgan' and 'srragan' train on more than one rank.
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ def main(argv=None):
 
     import numpy as np
 
+    from dasr_tpu_torch.core import dist
     from dasr_tpu_torch.core.config import check_resume, dict2str, parse_srn_options
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.datasets import create_dataset
@@ -108,18 +120,22 @@ def main(argv=None):
                                       "(dasr_tpu has no reference format for this model)")
     opt = check_resume(opt)
     rstate = opt["path"].get("resume_state")
-    device = resolve_device(args.device)
+    world = dist.init_world(resolve_device(args.device))
+    device = world.device
     if args.decode_cache_gb is not None:
         from dasr_tpu_torch.data.io import enable_decode_cache
 
         enable_decode_cache(args.decode_cache_gb)
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     logger = logging.getLogger("base")
+    # rank 0 alone logs; the others say only what goes wrong
+    logger.setLevel(logging.INFO if world.is_main else logging.WARNING)
     logger.info(dict2str(opt))
-
-    for d in ("experiments_root", "models", "training_state", "val_images", "log"):
-        if opt["path"].get(d):
-            os.makedirs(opt["path"][d], exist_ok=True)
+    if world.is_main:
+        print(world.mesh_line(), flush=True)
+        for d in ("experiments_root", "models", "training_state", "val_images", "log"):
+            if opt["path"].get(d):
+                os.makedirs(opt["path"][d], exist_ok=True)
 
     train_opt = opt["train"] or {}
     logger_opt = opt["logger"] or {}
@@ -137,6 +153,7 @@ def main(argv=None):
                 dataset_opt["transfer_uint8"] = True
             train_ds_opt = dataset_opt
             bs = int(dataset_opt.get("batch_size", 6) or 6)
+            world.batch_slice(bs)  # refuses a batch the world does not divide
             if args.device_bank:
                 bank_dirs = _bank_gate(opt, dataset_opt, args.device_bank_gb)
             if bank_dirs:
@@ -152,7 +169,7 @@ def main(argv=None):
                     train_set, batch_size=bs,
                     shuffle=bool(dataset_opt.get("use_shuffle", True)),
                     num_workers=int(dataset_opt.get("n_workers", 6) or 6),
-                    drop_last=True, seed=seed, pin_memory=device.type == "cuda",
+                    drop_last=True, seed=seed, pin_memory=device.type == "cuda", world=world,
                     # two windows of batches in flight: a window never waits on decode
                     prefetch=max(4, 2 * max(1, args.steps_per_call)),
                 )
@@ -174,6 +191,7 @@ def main(argv=None):
     if rstate:
         start_iter = model.step if rstate.endswith(".state") else model.resume(rstate)
         logger.info(f"Resuming training from iteration: {start_iter}.")
+    world.check_replicated(model.g.state_dict().items(), "srn_train")
 
     if bank_dirs:
         import time
@@ -198,13 +216,15 @@ def main(argv=None):
 
             torch.cuda.synchronize(device)
         del banks, fake_h
-        print(f"device bank: {nbytes(model._banks) / 2**30:.3f} GiB resident (decode "
-              f"{t1 - t0:.2f} s, upload {time.perf_counter() - t1:.2f} s)", flush=True)
+        if world.is_main:
+            print(f"device bank: {nbytes(model._banks) / 2**30:.3f} GiB resident (decode "
+                  f"{t1 - t0:.2f} s, upload {time.perf_counter() - t1:.2f} s)", flush=True)
 
     tb_dir = None
     if opt.get("use_tb_logger") and "debug" not in (opt.get("name") or ""):
         tb_dir = os.path.join(opt["path"]["experiments_root"], "tb_logger")
-    writer = MetricsWriter(os.path.join(opt["path"]["log"], "metrics.jsonl"), tb_dir=tb_dir)
+    writer = (MetricsWriter(os.path.join(opt["path"]["log"], "metrics.jsonl"), tb_dir=tb_dir)
+              if world.is_main else None)
     total_epochs = int(math.ceil(niter / steps_per_epoch))
     logger.info(f"Total epochs needed: {total_epochs} for iters {niter}")
     lpips_fn = None
@@ -232,7 +252,8 @@ def main(argv=None):
             logger.info(f"<epoch:{epoch:3d}, iter:{step:8,d}> " + ", ".join(
                 f"{name.split('/')[-1]}: {v:.4e}" for name, v in host.items()))
             # imgs: effective images per step (fake + real halves)
-            writer.write(step, host, imgs=bs * 2)
+            if writer:
+                writer.write(step, host, imgs=bs * 2)
             last = host
 
     # a window's device metrics are read after the next window is issued, and
@@ -260,7 +281,7 @@ def main(argv=None):
                     pending.append(batch)
                     if len(pending) < k_steps and current_step + len(pending) < niter:
                         continue
-                if args.profile and profiler is None and (
+                if args.profile and world.is_main and profiler is None and (
                         current_step < start_iter + 10 <= current_step + max(1, len(pending))):
                     profiler = guards.profile(args.profile)
                     profiler.__enter__()
@@ -293,13 +314,21 @@ def main(argv=None):
                                 model.metrics_to_host(prev[3])
                                 runahead = 0
 
-                if val_set is not None and crossed(current_step, k, val_freq):
-                    _validate(model, val_set, opt, current_step, logger, writer, lpips_fn)
-                if val_set is not None and tsample_freq and crossed(current_step, k,
-                                                                    tsample_freq):
-                    _save_tsamples(model, val_set, opt, current_step, writer)
-                if crossed(current_step, k, save_freq):
-                    _save(model, opt, logger_opt, current_step, logger)
+                # rank 0 alone validates and saves; the others wait for it
+                due = [val_set is not None and crossed(current_step, k, val_freq),
+                       val_set is not None and tsample_freq
+                       and crossed(current_step, k, tsample_freq),
+                       crossed(current_step, k, save_freq)]
+                if world.is_main:
+                    if due[0]:
+                        _validate(model, val_set, opt, current_step, logger, writer, lpips_fn,
+                                  mesh=world.size > 1)
+                    if due[1]:
+                        _save_tsamples(model, val_set, opt, current_step, writer)
+                    if due[2]:
+                        _save(model, opt, logger_opt, current_step, logger)
+                if any(due):
+                    world.barrier()
             if current_step >= niter:
                 break
         if lagged is not None:
@@ -308,10 +337,13 @@ def main(argv=None):
             profiler.__exit__(None, None, None)
             logger.info(f"wrote the profiler trace to {args.profile}")
         logger.info("Saving the final model.")
-        _save(model, opt, logger_opt, current_step, logger)
+        if world.is_main:
+            _save(model, opt, logger_opt, current_step, logger)
+        world.barrier()
         logger.info("End of training.")
     finally:
-        writer.close()
+        if writer:
+            writer.close()
     return current_step, last
 
 
@@ -409,7 +441,7 @@ def _save_tsamples(model, val_set, opt, step, writer=None):
             save_img(high(data["HR"]), os.path.join(out_dir, f"{i}_HR_hf.png"))
 
 
-def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
+def _validate(model, val_set, opt, step, logger, writer, lpips_fn, mesh=False):
     """The reference's validation (codes/SRN/train.py:174-235): every val
     image (or ``max_val_images``), SR PNGs under val_images/<step>/,
     averages logged and written. Metrics on the host f64 path, or with
@@ -426,7 +458,9 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
     ``val_metrics_pad_bucket`` is set too.
 
     G's input and the image its output is held against are the model's
-    ``val_keys`` (LR and HR; 'De_Resnet': HR and LR)."""
+    ``val_keys`` (LR and HR; 'De_Resnet': HR and LR). ``mesh``: the run
+    trains over several ranks, where, as the JAX CLI on a mesh, ``val_batch``
+    and the unbucketed device metrics are off."""
     from dasr_tpu_torch.data.io import save_img
     from dasr_tpu_torch.eval.evaluate import average, sr_metrics_on
 
@@ -438,14 +472,14 @@ def _validate(model, val_set, opt, step, logger, writer, lpips_fn):
     device_metrics = bool(opt.get("val_device_metrics"))
     bucket = int(opt.get("val_metrics_pad_bucket") or 0)
     vb = int(opt.get("val_batch") or 1)
-    batched = vb > 1 and not opt.get("chop") and not opt.get("pad_bucket")
+    batched = vb > 1 and not opt.get("chop") and not opt.get("pad_bucket") and not mesh
     per_chunk = vb if batched else 1
     if batched:
         if device_metrics:
             logger.info("val_batch > 1 takes precedence over val_device_metrics: "
                         "metrics run on the host f64 path for this validation")
         device_metrics = device_metrics and bucket > 0
-    measure = sr_metrics_on(opt, lpips_fn, device_metrics, bucket)
+    measure = sr_metrics_on(opt, lpips_fn, device_metrics, bucket, mesh=mesh)
     src, ref = model.val_keys
     results = []
 

@@ -238,6 +238,12 @@ def draw_dasr(gen: torch.Generator, b: int, n_real: int, n_hr: int) -> DasrDraws
                      u[:, 8:11] < 0.5)
 
 
+def shard_draws(draws, rows: slice):
+    """The draws of items ``rows`` of a batch's (a rank's share of the global
+    row's draws)."""
+    return type(draws)(*(t[rows] for t in draws))
+
+
 # -- offsets (shared by the gathers and their plain versions) ------------------
 
 

@@ -7,7 +7,9 @@ prefetch queue, with the same law: shuffle from ``(seed, epoch)``, a
 per-item ``np.random.Generator`` from ``(seed, epoch, index)``,
 ``drop_last``. With the same seed its batches are the JAX package's, bit for
 bit. ``pin_memory`` hands each array over as a tensor in pinned host
-memory, so the copy to the card can run asynchronously.
+memory, so the copy to the card can run asynchronously. In a world of
+several ranks (``world``) each rank loads only its rows of each global
+batch; an item's draws depend on its index, never on the rank.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+from dasr_tpu_torch.core.dist import SINGLE, World
 
 
 def _stack(items, pin_memory: bool):
@@ -40,11 +44,13 @@ class Loader:
     Each epoch reshuffles with a per-epoch generator seeded from
     (seed, epoch); each item gets its own Generator seeded from
     (seed, epoch, index) so augmentations replay identically on resume.
+    ``batch_size`` is the global batch; each batch holds ``world``'s rows of
+    it (``World.batch_slice``).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 6,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 4,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, world: World = SINGLE):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -53,6 +59,7 @@ class Loader:
         self.seed = seed
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self.world = world
         self.epoch = 0
         self.skip = 0
 
@@ -84,7 +91,8 @@ class Loader:
 
     def __iter__(self) -> Iterator[Dict]:
         idx = self._indices()
-        batches = [idx[i : i + self.bs] for i in range(0, len(idx), self.bs)][self.skip:]
+        batches = [self.world.shard(idx[i : i + self.bs])
+                   for i in range(0, len(idx), self.bs)][self.skip:]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

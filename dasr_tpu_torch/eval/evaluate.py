@@ -142,16 +142,19 @@ def pad_pair_to_bucket(a: np.ndarray, b: np.ndarray, bucket: int):
     return pa, pb, h, w
 
 
-def sr_metrics_on(opt, lpips_fn=None, device_metrics: bool = False, bucket: int = 0):
+def sr_metrics_on(opt, lpips_fn=None, device_metrics: bool = False, bucket: int = 0,
+                  mesh: bool = False):
     """The SRN protocol as the CLIs choose it: ``measure(sr, gt)``, with
     ``sr`` the SR image as an f32 HWC device tensor and ``gt`` the HR image
     as the datasets give it (HWC numpy, f32 in [0, 1]), issues the work and returns ``finish(sr_host)`` -> the
     ``sr_metrics`` dict. Host f64 metrics unless ``device_metrics``; on the
-    device unless the chop or ``pad_bucket`` forward is on and no
-    ``bucket`` is given (as the JAX CLIs gate it). ``lpips_fn``:
+    device unless the chop or ``pad_bucket`` forward is on, or the forward
+    runs over a world of ranks (``mesh``), and no ``bucket`` is given (as
+    the JAX CLIs gate it). ``lpips_fn``:
     ``srn_test.make_lpips``'s function."""
     scale = opt.get("scale", 4)
-    on_device = device_metrics and (bucket or not (opt.get("chop") or opt.get("pad_bucket")))
+    on_device = device_metrics and (
+        bucket or not (opt.get("chop") or opt.get("pad_bucket") or mesh))
     raw = lpips_fn.raw if lpips_fn is not None else None
 
     def measure(sr, gt):

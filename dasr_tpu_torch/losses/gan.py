@@ -6,7 +6,8 @@ against a 1/0 target, 'lsgan' MSE, 'wgan'/'wgan-gp' the signed mean; plus
 the relativistic-average pairing of SRRaGAN/DASR (DASR_model.py:240-244).
 DSN (codes/DSN/loss.py:11-41): the generator's and discriminator's losses
 on sigmoided scores, or WGAN's signed means, and the WGAN-GP penalty.
-Losses are taken in f32 whatever the scores' dtype.
+Losses are taken in f32 whatever the scores' dtype. The RaGAN batch means
+are the global batch's in a world of several ranks (``dist.batch_mean``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from dasr_tpu_torch.core.dist import batch_mean
 
 
 def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_type: str = "vanilla") -> torch.Tensor:
@@ -30,11 +33,14 @@ def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_type: str = "vanilla"
     raise NotImplementedError(f"GAN type [{gan_type}] is not found")
 
 
-def ragan_pair_loss(pred_fake, pred_real_detached, gan_type: str = "vanilla") -> torch.Tensor:
-    """Relativistic-average generator-side pair (DASR_model.py:240-244)."""
-    rf = pred_fake - pred_real_detached.mean(0, keepdim=True)
-    fr = pred_real_detached - pred_fake.mean(0, keepdim=True)
-    return (gan_loss(rf, True, gan_type) + gan_loss(fr, False, gan_type)) / 2
+def ragan_pair_loss(pred_a, pred_b, gan_type: str = "vanilla") -> torch.Tensor:
+    """The relativistic-average pair (DASR_model.py:240-244): ``pred_a``
+    against ``pred_b``'s batch mean as real, ``pred_b`` against ``pred_a``'s
+    as fake, halved. G's loss is (fake, detached real); D's (real, fake).
+    The batch means are the global batch's (``dist.batch_mean``)."""
+    ab = pred_a - batch_mean(pred_b)
+    ba = pred_b - batch_mean(pred_a)
+    return (gan_loss(ab, True, gan_type) + gan_loss(ba, False, gan_type)) / 2
 
 
 _EPS = 1e-8

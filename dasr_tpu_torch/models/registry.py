@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from dasr_tpu_torch.core import dist
 from dasr_tpu_torch.data import device_bank
 from dasr_tpu_torch.losses.lpips import default_lpips
 from dasr_tpu_torch.nn.layers import init_lecun_
@@ -51,6 +52,7 @@ from dasr_tpu_torch.nn.generators import (
     SRResNet,
 )
 from dasr_tpu_torch.nn.sft import ACDVGGBN96, SFTNet
+from dasr_tpu_torch.ops.spatial_shard import spatially_sharded_apply
 from dasr_tpu_torch.ops.tiled import forward_chop, pad_reflect, tiled_apply
 from dasr_tpu_torch.train import checkpoints
 from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
@@ -71,6 +73,8 @@ logger = logging.getLogger("base")
 _DE_RESNETS = {"De_Resnet": ("strided", True), "De_RRDB": ("strided", False),
                "De_Resnet_bilinear": ("bilinear", False), "De_Resnet2xd": ("x2", False)}
 
+
+SHARD_HALO = 20  # spatially sharded inference's halo: forward_chop's shave (utils/util.py:96)
 
 # the generators no model feeds, and what runs them
 _RUNNERS = {
@@ -211,6 +215,21 @@ class _InferenceModel:
                 f"Model [{opt.get('model')}] does not take generator [{which}]"
                 + (f": {runner}" if runner else ""))
 
+    _world: Optional[dist.World] = None
+    _spatial_shard: bool = False
+
+    def prepare_mesh(self, world: dist.World, spatial_shard: bool = False):
+        """Route inference over ``world``'s ranks (JAX's ``prepare_mesh``):
+        with ``chop`` the tile batch fans out over them
+        (``tiled_apply``); with ``spatial_shard`` the image's H axis is
+        split over them with halo exchange (``spatially_sharded_apply``,
+        halo 20, the chop's shave), where each rank's share of the rows holds
+        the halo, else the image falls through to the other forwards. Every
+        rank must load the same weights; this checks that it did."""
+        world.check_replicated(self.g.state_dict().items(), "prepare_mesh")
+        self._world, self._spatial_shard = world, bool(spatial_shard)
+        return self
+
     def init(self, seed: Optional[int] = None):
         """Seeded weights (``train.manual_seed`` by default with a trainer,
         else 0) on the device; with a trainer, also its other networks and
@@ -273,12 +292,16 @@ class _InferenceModel:
             bh = math.ceil(h0 / bucket) * bucket
             bw = math.ceil(w0 / bucket) * bucket
             x = pad_reflect(x, 0, bh - h0, 0, bw - w0)
+        world = self._world
         with self._g_in_eval_mode():
-            if self.opt.get("chop") and h0 * w0 >= self.chop_threshold:
+            if self._spatial_shard and -(-x.shape[2] // world.size) >= SHARD_HALO:
+                out = spatially_sharded_apply(x, self._apply_g, scale, SHARD_HALO, world)
+            elif self.opt.get("chop") and h0 * w0 >= self.chop_threshold:
                 if self.opt.get("chop_parity"):
                     out = forward_chop(x, scale, self._apply_g, min_size=320000)
                 else:
-                    out = tiled_apply(x, self._apply_g, scale=scale, tile=128, halo=16)
+                    out = tiled_apply(x, self._apply_g, scale=scale, tile=128, halo=16,
+                                      world=world)
             else:
                 out = self._apply_g(x)
         out = out[0, :, : scale * h0, : scale * w0]
@@ -831,9 +854,21 @@ class DASRAdaptiveModel(DASRModel):
         return self.g(x, self.patchd(x))
 
 
+# the models whose training JAX shards over its mesh's 'data' axis
+# (dasr_tpu/models/registry.py:create_model); the others train on one rank
+SHARDED_MODELS = ("DASR", "DASR_Adaptive_Model", "srgan", "srragan")
+
+
 def create_model(opt: Dict, device: torch.device = torch.device("cpu")):
-    """Trainer registry (reference: codes/SRN/models/__init__.py:5-26)."""
+    """Trainer registry (reference: codes/SRN/models/__init__.py:5-26). A
+    model JAX does not shard is refused for training in a world of several
+    ranks."""
     model = opt.get("model")
+    size = dist.current().size
+    if opt.get("is_train") and size > 1 and model not in SHARDED_MODELS:
+        raise NotImplementedError(
+            f"Model [{model}] trains on one rank (dasr_tpu shards only "
+            f"{', '.join(SHARDED_MODELS)} over its mesh); this process is one of {size}")
     if model == "DASR":
         return DASRModel(opt, device)
     if model == "DASR_Adaptive_Model":

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dasr_tpu_torch.core.dist import batch_mean
 from dasr_tpu_torch.nn.blocks import sequential
 from dasr_tpu_torch.nn.layers import (
     BatchNorm2d,
@@ -48,7 +49,8 @@ def _norm(norm_layer: str, channels: int) -> nn.Module:
     if norm_layer.lower() == "instance":
         return InstanceNorm()
     if norm_layer.lower() == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        # flax's statistics, the global batch's over several ranks
+        return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
     raise NotImplementedError(f"{norm_layer} norm layer is not recognized")
 
 
@@ -115,7 +117,8 @@ class FSDiscriminator(nn.Module):
     for ``cs='cat'``), or none. Bodies (``net``): ``FSD``
     (``DiscriminatorBasic``), ``nld_s1`` / ``nld_s2`` (``NLayerDiscriminator``
     with two layers, stride 1 or 2). With ``y`` the output is relativistic:
-    ``net(x) - mean(net(y), 0)``. The body runs in ``dtype``; the front end
+    ``net(x) - mean(net(y), 0)``, the mean over the global batch
+    (``dist.batch_mean``). The body runs in ``dtype``; the front end
     in its input's. ``in_ch``: the body's input channels where the caller
     filters (flax infers them; 9 for the Haar high bands, 3 by default)."""
 
@@ -155,7 +158,7 @@ class FSDiscriminator(nn.Module):
     def forward(self, x, y=None):
         out = self._body(x)
         if y is not None:
-            out = out - self._body(y).mean(0, keepdim=True)
+            out = out - batch_mean(self._body(y))
         return out if self.wgan else torch.sigmoid(out)
 
 

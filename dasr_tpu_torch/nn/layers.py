@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dasr_tpu_torch.core.dist import world_mean
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with f32 parameters cast to the input's dtype."""
@@ -45,7 +47,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     running mean and variance towards them by ``momentum`` (torch's 0.1 is
     flax's 0.9). ``nn.BatchNorm2d`` moves the running variance towards the
     unbiased variance instead. Statistics and the affine map are taken in
-    f32; the result has the input's dtype."""
+    f32; the result has the input's dtype. In a world of several ranks the
+    statistics are the global batch's (``dist.world_mean``, under autograd),
+    as under JAX's mesh."""
 
     update_stats = True
 
@@ -54,8 +58,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps).to(x.dtype)
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        # the global batch's statistics in a world of several ranks
+        mean, sq = world_mean(torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))]))
+        var = (sq - mean * mean).clamp_min(0.0)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)

@@ -12,10 +12,14 @@ Counterpart of ``dasr_tpu.nn.misc_nets``:
     (architecture.py:1092-1113), torchvision's names
   * ``ResnetGenerator`` — the CycleGAN generator (architecture.py:301-388)
 
-Where ``dasr_tpu`` departs from the reference, the port follows it, and
-the class says where: ``MeanShift`` divides the shift by std twice,
-``MINCNet`` pools with floor and keeps the last ReLU, ``ResnetGenerator``
-upsamples with JAX's 'SAME' transposed conv.
+Where ``dasr_tpu`` departs from the reference, the port follows the
+reference, so that a reference ``.pth`` computes what it computed there,
+and the class says where: ``MINCNet`` leaves ``conv53`` without a ReLU and
+pools with ``ceil_mode`` (JAX keeps the ReLU and pools with floor);
+``ResnetGenerator`` upsamples with the reference's ``padding=1,
+output_padding=1`` transposed convs (JAX's 'SAME' taps are one pixel off
+them). ``MeanShift`` divides the shift by std twice, as ``dasr_tpu`` does;
+for the unit std every caller uses it is the reference's map.
 """
 
 from __future__ import annotations
@@ -117,10 +121,10 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 class MINCNet(nn.Module):
     """MINC's VGG-like feature net (architecture.py:1116-1175): convs
-    ``conv11`` to ``conv53`` (64, 128, 256, 512, 512 channels), a 2x2 max
-    pool after each stage but the last. As ``dasr_tpu``: a ReLU after every
-    conv and floor pooling (the reference leaves ``conv53`` without ReLU
-    and pools with ``ceil_mode``)."""
+    ``conv11`` to ``conv53`` (64, 128, 256, 512, 512 channels), a ReLU after
+    each but ``conv53``, and a 2x2 max pool with ``ceil_mode`` after each
+    stage but the last, as the reference. ``dasr_tpu`` keeps the last ReLU
+    and pools with floor (ROADMAP C.5)."""
 
     _STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
@@ -136,9 +140,11 @@ class MINCNet(nn.Module):
     def forward(self, x):
         for si, names in enumerate(self.stages):
             if si:
-                x = F.max_pool2d(x, 2, 2)
+                x = F.max_pool2d(x, 2, 2, ceil_mode=True)
             for name in names:
-                x = F.relu(getattr(self, name)(x))
+                x = getattr(self, name)(x)
+                if name != "conv53":
+                    x = F.relu(x)
         return x
 
 
@@ -198,21 +204,19 @@ class ResNet101Features(nn.Module):
         return self.features(x)
 
 
-class ConvTranspose2dSame(nn.ConvTranspose2d):
-    """A stride-2 3x3 transposed conv to twice the size, as JAX's
-    ``ConvTranspose(padding='SAME')``: lax.conv_transpose pads the dilated
-    input (2, 1) and does not flip the kernel, which is torch's full
-    transposed conv (padding 0) of the flipped kernel cropped to 2n. The
-    reference's ``padding=1, output_padding=1`` takes its taps one pixel
-    off that."""
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """The reference's stride-2 3x3 transposed conv to twice the size
+    (``padding=1, output_padding=1``), f32 parameters cast to the input's
+    dtype. JAX's ``ConvTranspose(padding='SAME')`` is torch's full
+    transposed conv (padding 0) cropped to 2n: its taps are one pixel off
+    these (ROADMAP C.5)."""
 
     def __init__(self, cin: int, cout: int):
-        super().__init__(cin, cout, 3, stride=2, padding=0)
+        super().__init__(cin, cout, 3, stride=2, padding=1, output_padding=1)
 
     def forward(self, x):
-        h, w = x.shape[-2:]
-        y = F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2)
-        return y[..., : 2 * h, : 2 * w]
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2,
+                                  padding=1, output_padding=1)
 
 
 def _inorm(ch: int) -> nn.Module:
@@ -237,7 +241,7 @@ class ResnetGenerator(nn.Module):
     """CycleGAN generator (architecture.py:301-388): c7s1-ngf, two stride-2
     downs, ``n_blocks`` residual blocks, two transposed-conv ups, c7s1-out
     and tanh, InstanceNorm without affine; ``model`` in the reference's
-    order."""
+    order, its ups the reference's ``ConvTranspose2d``."""
 
     def __init__(self, in_nc: int = 3, out_nc: int = 3, ngf: int = 64, n_blocks: int = 6):
         super().__init__()
@@ -247,7 +251,7 @@ class ResnetGenerator(nn.Module):
                        nn.ReLU()]
         layers += [ResnetBlock(ngf * 4) for _ in range(n_blocks)]
         for mult in (4, 2):
-            layers += [ConvTranspose2dSame(ngf * mult, ngf * mult // 2), _inorm(ngf * mult // 2),
+            layers += [ConvTranspose2d(ngf * mult, ngf * mult // 2), _inorm(ngf * mult // 2),
                        nn.ReLU()]
         layers += [nn.ReflectionPad2d(3), Conv2d(ngf, out_nc, 7), nn.Tanh()]
         self.model = nn.Sequential(*layers)

@@ -7,7 +7,8 @@ Counterpart of ``dasr_tpu.ops.metrics``. On the host in float64, copied:
     (reference: codes/SRN/utils/util.py:250-291; the reference's 3-channel
     path averages the full-color ssim three times, which equals the
     per-channel mean computed here directly)
-  * MATLAB rgb2ycbcr / bgr2ycbcr (reference: codes/SRN/data/util.py:145-190)
+  * MATLAB rgb2ycbcr / bgr2ycbcr / ycbcr2rgb (reference:
+    codes/SRN/data/util.py:145-210)
 
 On the device, batched torch functions of NHWC tensors in f32
 (``psnr_device``, ``ssim_device``: a depthwise ``F.conv2d`` over the
@@ -200,6 +201,21 @@ def rgb2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
 def bgr2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
     """BGR variant (reference: SRN/data/util.py:169-190)."""
     return _ycbcr(img, _Y_RGB[::-1], _FULL_RGB[::-1], only_y)
+
+
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    """MATLAB ycbcr2rgb (reference: SRN/data/util.py:193-210): uint8 in and
+    out (rounded), or floats in [0, 1]."""
+    in_type = img.dtype
+    x = img.astype(np.float64)
+    if in_type != np.uint8:
+        x = x * 255.0
+    mat = np.array([[0.00456621, 0.00456621, 0.00456621],
+                    [0, -0.00153632, 0.00791071],
+                    [0.00625893, -0.00318811, 0]])
+    rlt = x @ mat * 255.0 + np.array([-222.921, 135.576, -276.836])
+    rlt = rlt.round() if in_type == np.uint8 else rlt / 255.0
+    return rlt.astype(in_type)
 
 
 def modcrop(img: np.ndarray, scale: int) -> np.ndarray:

@@ -1,10 +1,13 @@
 """Large-image tiled inference on NCHW tensors.
 
-Counterpart of ``dasr_tpu.ops.tiled`` without the mesh arguments:
+Counterpart of ``dasr_tpu.ops.tiled``:
 
 * ``tiled_apply`` — reflect-pads the image to a tile grid, runs the model
   once over the batch of overlapping fixed-size tiles, discards the halos
-  and reassembles.
+  and reassembles. Over a world of several ranks (``core/dist.py``) the
+  tile batch is wrap-padded to a multiple of the world's size, each rank
+  runs its share, and an all-gather reassembles them (JAX shards the tile
+  batch over its mesh's 'data' axis).
 * ``forward_chop`` — the reference's recursive 4-quadrant chopper
   (codes/SRN/utils/util.py:87-147): same shave/min_size decisions and the
   same even-size output rounding.
@@ -15,10 +18,12 @@ Both take NCHW tensors and an NCHW -> NCHW model, the port's layout.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from dasr_tpu_torch.core.dist import World
 
 
 def reflect_index(n: int, before: int, after: int) -> np.ndarray:
@@ -101,13 +106,15 @@ def tiled_apply(
     scale: float,
     tile: int = 256,
     halo: int = 20,
+    world: Optional[World] = None,
 ) -> torch.Tensor:
     """Run ``model`` (an x`scale` NCHW -> NCHW net) over a large image by tiles.
 
     Every tile carries a ``halo`` overlap that is discarded from the
     outputs, so a model whose receptive influence is < halo gives seam-free
     results. ``tile*scale`` and ``halo*scale`` must be integers; the output
-    is cropped to (ceil(H*scale), ceil(W*scale))."""
+    is cropped to (ceil(H*scale), ceil(W*scale)). With ``world`` the tiles
+    fan out over its ranks, and every rank returns the whole image."""
     th = int(round(scale * halo))
     st = int(round(scale * tile))
     if abs(th - scale * halo) > 1e-9 or abs(st - scale * tile) > 1e-9:
@@ -125,7 +132,16 @@ def tiled_apply(
          for rs in range(0, nh * tile, tile) for cs in range(0, nw * tile, tile)],
         0,
     )
-    inner = model(tiles)[:, :, th : th + st, th : th + st]
+    if world is not None and world.size > 1:
+        n_tiles = tiles.shape[0]
+        # wrap-repeat the tile batch to a multiple of the ranks (the pad may
+        # exceed n_tiles when there are fewer tiles than ranks), as JAX's
+        padded = -(-n_tiles // world.size) * world.size
+        tiles = tiles[torch.arange(padded, device=tiles.device) % n_tiles]
+        out_tiles = torch.cat(world.all_gather(model(world.shard(tiles))), 0)[:n_tiles]
+    else:
+        out_tiles = model(tiles)
+    inner = out_tiles[:, :, th : th + st, th : th + st]
     co = inner.shape[1]
     # (nh*nw*b, co, st, st) -> (b, co, nh, st, nw, st) -> image
     grid = inner.reshape(nh, nw, b, co, st, st).permute(2, 3, 0, 4, 1, 5)

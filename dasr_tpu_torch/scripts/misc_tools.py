@@ -258,6 +258,9 @@ def main(argv=None):
     pc.add_argument("--nb", type=int, default=23)
     pc.add_argument("--gc", type=int, default=32)
     pc.add_argument("--scale", type=int, default=4)
+    pc.add_argument("--imsize", type=int, default=32,
+                    help="parsed, not used: a count does not depend on the input (the JAX "
+                         "tool's parser takes it too)")
     pc.set_defaults(fn=_tool_param_count)
 
     bp = sub.add_parser("back_projection")

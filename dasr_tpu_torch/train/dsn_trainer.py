@@ -30,6 +30,11 @@ from the clean and noisy banks (``data/device_bank.py``), uint8 crops cast
 and the bicubic computed in the step; both are Python loops of
 ``train_step`` with no sync (the JAX package scans them; a CUDA graph of
 the window is ROADMAP B.1).
+
+In a world of several ranks (``core/dist.py``) each rank steps on its rows
+of the global batch: the RaGAN batch mean (``FSDiscriminator``), the
+WGAN-GP draws and the metrics are the global batch's, a banked window draws
+for the global row, and ``NetState.step`` averages the gradients.
 """
 
 from __future__ import annotations
@@ -40,7 +45,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from dasr_tpu_torch.data.device_bank import ImageBank, draw_dsn, gather_dsn, window_generator
+from dasr_tpu_torch.core import dist
+from dasr_tpu_torch.data.device_bank import (
+    ImageBank,
+    draw_dsn,
+    gather_dsn,
+    shard_draws,
+    window_generator,
+)
 from dasr_tpu_torch.losses.gan import (
     dsn_discriminator_loss,
     dsn_generator_adv_loss,
@@ -152,10 +164,13 @@ class DSNTrainer:
 
     def gp_alpha(self, batch_size: int) -> torch.Tensor:
         """This step's WGAN-GP mixing draws, (B, 1, 1, 1) uniform, from a
-        generator seeded from (cfg.seed, step)."""
+        generator seeded from (cfg.seed, step): this rank's ``batch_size``
+        rows of the global batch's draws."""
         seed = int(np.random.SeedSequence([self.cfg.seed, self.state.step]).generate_state(1)[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return torch.rand((batch_size, 1, 1, 1), generator=gen, device=self.device)
+        world = dist.current()
+        return world.shard(torch.rand((batch_size * world.size, 1, 1, 1), generator=gen,
+                                      device=self.device))
 
     # -- the step -------------------------------------------------------------
 
@@ -223,7 +238,7 @@ class DSNTrainer:
             "disc_score/real": real_tex.float().mean(),
             "disc_score/fake": fake_tex.float().mean(),
         }
-        return {k: v.detach().float() for k, v in metrics.items()}
+        return dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
 
     def train_multi_step(self, batches, do_g: bool = True,
                          do_d: bool = True) -> Dict[str, torch.Tensor]:
@@ -244,11 +259,14 @@ class DSNTrainer:
         step's metrics, unsynchronised (counterpart of
         ``DSNTrainer.train_banked_step``)."""
         gen = window_generator(self.cfg.seed, seed, self.device)
+        world = dist.current()
         metrics = {}
         for row in noisy_idx:
-            draws = draw_dsn(gen, row.shape[0], clean.data.shape[0])
-            batch = gather_dsn(clean, noisy, row, draws, crop, self.cfg.upscale_factor, flips,
-                               rotations)
+            # the global row's draws, then this rank's items of it
+            sl = world.batch_slice(row.shape[0])
+            draws = shard_draws(draw_dsn(gen, row.shape[0], clean.data.shape[0]), sl)
+            batch = gather_dsn(clean, noisy, row[sl], draws, crop, self.cfg.upscale_factor,
+                               flips, rotations)
             metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
                                       do_g=do_g, do_d=do_d)
         return metrics

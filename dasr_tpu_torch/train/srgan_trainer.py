@@ -32,6 +32,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from dasr_tpu_torch.core import dist
 from dasr_tpu_torch.losses.gan import gan_loss, gradient_penalty, ragan_pair_loss
 from dasr_tpu_torch.nn.layers import init_lecun_, stats_updates
 from dasr_tpu_torch.nn.vgg import VGG19Feature54
@@ -150,15 +151,16 @@ class SRGANTrainer:
         pr = self._d(var_ref, update=do_d)
         pf = self._d(fake_det, update=do_d)
         if c.ragan:
-            d_loss = (gan_loss(pr - pf.mean(0, keepdim=True), True, c.gan_type)
-                      + gan_loss(pf - pr.mean(0, keepdim=True), False, c.gan_type)) / 2
+            d_loss = ragan_pair_loss(pr, pf, c.gan_type)
         else:
             d_loss = gan_loss(pr, True, c.gan_type) + gan_loss(pf, False, c.gan_type)
         if c.gan_type == "wgan-gp":
             if alpha is None:
+                # the global batch's draws, then this rank's rows of them
+                world = dist.current()
                 gen = torch.Generator(self.device).manual_seed(c.seed * 2**20 + st.step)
-                alpha = torch.rand((var_ref.shape[0], 1, 1, 1), generator=gen,
-                                   device=self.device)
+                alpha = world.shard(torch.rand((var_ref.shape[0] * world.size, 1, 1, 1),
+                                               generator=gen, device=self.device))
             d_loss = d_loss + GP_WEIGHT * gradient_penalty(
                 lambda x: self._d(x, update=False), var_ref, fake_det, alpha)
         d_grads = torch.autograd.grad(d_loss, st.d_target.params())
@@ -171,4 +173,4 @@ class SRGANTrainer:
             st.g.step(g_grads)
         metrics["loss/l_g_total"] = total
         st.step += 1
-        return {k: v.detach().float() for k, v in metrics.items()}
+        return dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})

@@ -29,6 +29,10 @@ device from the stage-3 banks (``data/device_bank.py``): a Python loop of
 window's first iteration), as the JAX package folds the window into its
 key. A window of host batches is the facade's loop of ``train_step``
 (``models/registry.py:DASRModel.train_multi_step``).
+
+In a world of several ranks (``core/dist.py``) each rank steps on its rows
+of the global batch: the RaGAN batch means and the metrics are the global
+batch's, and ``NetState.step`` averages the gradients.
 """
 
 from __future__ import annotations
@@ -38,7 +42,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from dasr_tpu_torch.data.device_bank import SrnBanks, draw_dasr, gather_dasr, window_generator
+from dasr_tpu_torch.core import dist
+from dasr_tpu_torch.data.device_bank import (
+    SrnBanks,
+    draw_dasr,
+    gather_dasr,
+    shard_draws,
+    window_generator,
+)
 from dasr_tpu_torch.losses.gan import gan_loss, ragan_pair_loss
 from dasr_tpu_torch.losses.lpips import LPIPS, default_lpips
 from dasr_tpu_torch.nn.discriminators import NLayerDiscriminator
@@ -168,11 +179,10 @@ class SRNTrainer:
         pr, pf = self._d(net, real), self._d(net, fake)
         c = self.cfg
         if c.ragan:
-            l_real = gan_loss(pr - pf.mean(0, keepdim=True), True, c.gan_type)
-            l_fake = gan_loss(pf - pr.mean(0, keepdim=True), False, c.gan_type)
+            loss = ragan_pair_loss(pr, pf, c.gan_type)
         else:
-            l_real, l_fake = gan_loss(pr, True, c.gan_type), gan_loss(pf, False, c.gan_type)
-        return (l_real + l_fake) / 2, pr.float().mean(), pf.float().mean()
+            loss = (gan_loss(pr, True, c.gan_type) + gan_loss(pf, False, c.gan_type)) / 2
+        return loss, pr.float().mean(), pf.float().mean()
 
     # -- the step -----------------------------------------------------------------
 
@@ -277,22 +287,29 @@ class SRNTrainer:
             st.g.step(g_grads)
         metrics["loss/l_g_total"] = total
         st.step += 1
-        return {k: v.detach().float() for k, v in metrics.items()}
+        return dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
 
     def train_banked_step(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
                           hr_size: int, use_flip: bool = True, use_rot: bool = True,
                           do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
         """K steps over a (K, B) window of fake-LR indices on the banks'
         device, each on a batch drawn and gathered there (``draw_dasr``,
-        ``gather_dasr``); ``seed``: the window's first iteration. Returns
+        ``gather_dasr``); ``seed``: the window's first iteration. In a world
+        of several ranks every rank draws for the global row, from the same
+        generator, and gathers its own rows of it (``World.batch_slice``).
+        Returns
         the last step's metrics as device tensors, unsynchronised
         (counterpart of ``SRNTrainer.train_banked_step``)."""
         gen = window_generator(self.cfg.seed, seed, self.device)
         n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
+        world = dist.current()
         metrics = {}
         for row in fake_idx:
-            draws = draw_dasr(gen, row.shape[0], n_real, n_hr)
-            batch = gather_dasr(banks, row, draws, hr_size, self.cfg.scale, use_flip, use_rot)
+            # the global row's draws, then this rank's items of it
+            sl = world.batch_slice(row.shape[0])
+            draws = shard_draws(draw_dasr(gen, row.shape[0], n_real, n_hr), sl)
+            batch = gather_dasr(banks, row[sl], draws, hr_size, self.cfg.scale, use_flip,
+                                use_rot)
             metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
                                       do_g=do_g, do_d=do_d)
         return metrics

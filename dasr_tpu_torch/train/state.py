@@ -3,7 +3,9 @@
 Counterpart of ``dasr_tpu.train.state``: where JAX keeps one immutable
 pytree that a jitted step maps to the next, the port keeps the modules, a
 ``torch.optim.Adam`` and a scheduler per network, updated in place, as the
-reference does (codes/SRN/models/DASR_model.py:120-151).
+reference does (codes/SRN/models/DASR_model.py:120-151). In a world of
+several ranks (``core/dist.py``) ``NetState.step`` first averages the
+gradients over the ranks, as XLA's all-reduce does under JAX's mesh.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from dasr_tpu_torch.core import dist
 from dasr_tpu_torch.train.schedules import multistep
 
 
@@ -26,8 +29,9 @@ class NetState:
     sched: torch.optim.lr_scheduler.LRScheduler
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """Apply ``grads`` (one per trainable parameter, in order)."""
-        for p, g in zip(self.params(), grads):
+        """Apply ``grads`` (one per trainable parameter, in order), averaged
+        over the current world's ranks."""
+        for p, g in zip(self.params(), dist.average_grads(grads)):
             p.grad = g
         self.opt.step()
         self.sched.step()

@@ -207,10 +207,15 @@ def test_dsn_bank_gate_falls_back_to_the_host_loader(tmp_path, capsys, case, rea
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: dsn_create_dataset.main(["--mesh", "2", "--checkpoint", "x"]), "A.11"),
+    (lambda: dsn_create_dataset.main(["--mesh", "2", "--checkpoint", "x", "--device", "cpu",
+                                      "--source_dir", "s", "--target_dir", "t"]),
+     "--mesh 2 needs a world of 2 rank"),
 ], ids=["dsn_create_dataset-mesh"])
 def test_unported_options_are_refused(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    """--mesh N runs over a launcher's world of N ranks
+    (tests/test_torch_dist_cli.py); in a process without one it is refused,
+    with the torchrun command that gives the world."""
+    with pytest.raises(ValueError, match=f"{item}.*torch.distributed.run"):
         call()
 
 

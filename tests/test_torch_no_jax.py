@@ -7,7 +7,9 @@ stages through its auto_reproduce CLI
 (dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
 auto_test and add_corruptions CLIs on those runs' outputs load neither jax
 nor dasr_tpu; nor do compute_dists (squeeze), lpips_train (train and
-eval), parity, test_dataloader and misc_tools (color2gray) on CPU inputs.
+eval), parity, test_dataloader and misc_tools (color2gray) on CPU inputs,
+nor a one-rank gloo world (core/dist.py) with spatially_sharded_apply
+(ops/spatial_shard.py) over it.
 chip_smoke.py refuses to run without a card and outside the repository.
 
 Subprocesses, because this test process already imported JAX (conftest)."""
@@ -144,6 +146,19 @@ assert "00_HR.png" in os.listdir(os.path.join(root, "vis"))
 misc_tools.main(["color2gray", "--input_dir", os.path.join(root, "hr"), "--out",
                  os.path.join(root, "gray")])
 assert os.listdir(os.path.join(root, "gray")) == ["a.png"]
+import socket
+from dasr_tpu_torch.core import dist
+from dasr_tpu_torch.ops.spatial_shard import spatially_sharded_apply
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+                  LOCAL_RANK="0")
+world = dist.init_world("cpu")
+assert world.group is not None and world.mesh_line() == "[mesh] data=1 spatial=1"
+x = torch.rand(1, 3, 44, 20)
+with torch.no_grad():
+    assert torch.allclose(spatially_sharded_apply(x, net, 4, 20, world), net(x), atol=1e-5)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """

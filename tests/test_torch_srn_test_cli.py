@@ -2,8 +2,8 @@
 reference-named .pth and the same synthetic LRHR corpus, with and without
 chop; ``--device_metrics`` (with and without ``--metrics_pad_bucket``)
 agrees with the host report at 1e-3 dB and 1e-4 SSIM and falls back to the
-host metrics where the JAX CLI does; the flags that are not ported yet are
-refused."""
+host metrics where the JAX CLI does; ``--mesh`` without a world of its size
+is refused."""
 
 import json
 import os
@@ -114,9 +114,12 @@ def test_device_metrics_agree_with_the_host_report(corpus, monkeypatch, chop, bu
         assert abs(got[k] - v) < (1e-3 if k.startswith("psnr") else 1e-4), (k, got[k], v)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--spatial_shard"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--mesh", "2", "--spatial_shard"]])
 def test_unported_flags_are_refused(corpus, flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """--mesh N serves over a launcher's world of N ranks
+    (tests/test_torch_dist_cli.py); in a process without one it is refused,
+    with the torchrun command that gives the world."""
+    with pytest.raises(ValueError, match="--mesh 2 needs a world of 2 rank.*torch.distributed.run"):
         srn_test.main(["-opt", _config(corpus, "refused", False), "--device", "cpu", *flag])
 
 

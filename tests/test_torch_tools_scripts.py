@@ -240,6 +240,18 @@ def test_misc_tools_param_count_matches_jax(capsys, which, extra):
     assert f"{total:,}" in want
 
 
+def test_param_count_takes_a_jax_command_line(capsys):
+    """JAX's parser takes ``--imsize`` (dasr_tpu/scripts/misc_tools.py:259)
+    and the count ignores it; the port parses and ignores it too."""
+    argv = ["param_count", "--which_model_G", "RRDB_net", "--nb", "1", "--nf", "8", "--gc", "4",
+            "--imsize", "48"]
+    jax_misc.main(argv)
+    want = capsys.readouterr().out
+    total = misc_tools.main(argv)
+    assert capsys.readouterr().out == want and f"{total:,}" in want
+    assert total == misc_tools.main(argv[:-2])
+
+
 def test_extract_subimgs_single_matches_jax(images, tmp_path):
     argv = ["--input_dir", str(images / "big"), "--crop_sz", "32", "--step", "24",
             "--thres_sz", "8", "--n_threads", "2"]
