@@ -15,16 +15,18 @@ Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
 
 1. build  - nvcc builds dasr_tpu_torch/csrc into build/dasr_tpu_torch/.
-2. kernel - the shared-memory plan compiled into the bf16 kernel vs
-            ops/rdb.py:WgmmaPlan, which the CPU tests emulate; fused_rdb on
-            the card vs its plain PyTorch version on the same tensors (nc
-            64, gc 32; f32 and bf16; the test shapes and every shape the
-            serve and train phases give the kernel, which take both of the
-            bf16 kernel's tiles; 5-px border band), and the bf16 kernel
-            also vs the f32 computation on the same bf16-rounded inputs.
-            At TIMED_SHAPES the bf16 kernel's time per RDB and per level,
-            TFLOP/s, bound and share of it, timed in turns with cuDNN's
-            bf16 dense chain.
+2. kernel - the shared-memory plans compiled into the bf16 and f32
+            kernels vs ops/rdb.py:WgmmaPlan and F32Plan, which the CPU tests
+            emulate; fused_rdb on the card vs its plain PyTorch version on
+            the same tensors (nc 64, gc 32; f32 and bf16; the test shapes
+            and every shape the serve and train phases give the kernel,
+            which take both tiles; 5-px border band), the bf16 kernel also
+            vs the f32 computation on the same bf16-rounded inputs, and at
+            TIMED_SHAPES the f32 kernel and the plain version vs an f64 RDB
+            (the kernel within twice the plain version's error). At
+            TIMED_SHAPES each kernel's time per RDB and per level, TFLOP/s,
+            bound and share of it, timed in turns with cuDNN's dense chain
+            in its dtype.
 3. serve  - the port's srn_test CLI on a synthetic LRHR set with a
             full-width x4 RRDB_net (nf 64, nb 23, gc 32, seeded weights
             written to a reference-named .pth), plain, chopped, and plain
@@ -32,7 +34,8 @@ CPU or to a plain version):
             SSIM); the
             kernel's launch count over those runs, and a check that every
             shape they gave it was checked in phase 2; the full network with
-            the kernel vs the plain version at f32; ms/image, output Mpix/s,
+            the kernel vs the plain version at f32, and its forward's time
+            with each, in turns; ms/image, output Mpix/s,
             the RDB kernels' device time inside the forward and the
             device's idle share (torch.profiler), and peak memory; for
             information, the same forward replayed from a CUDA graph, in
@@ -189,8 +192,10 @@ CPU or to a plain version):
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
-The line before the last is the kernel report as JSON, and the last line
-is {"ok": true, "device": {...}}.
+The line before the last is the kernel report as JSON, one entry for each
+of the two kernels (the bf16 rdb_level_wgmma and the f32 rdb_level_tf32x3,
+each with its launches on the main paths), and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -326,6 +331,25 @@ def compare(got, want, atol, rtol, what):
     return err.max().item(), band, needed
 
 
+# the f32 kernel's launches on each main path, read with the count of both
+# kernels (read_launches); the bf16 kernel's are the rest
+F32_LAUNCHES = {}
+
+
+def zero_launches(fused_rdb):
+    """Set the launch counts of both kernels, and of the f32 one alone, to 0
+    just before a main path."""
+    fused_rdb.launches = 0
+    fused_rdb.launches_f32 = 0
+
+
+def read_launches(fused_rdb, path):
+    """The launches of both kernels since ``zero_launches``, just after a
+    main path; its f32 kernel's launches are added to ``F32_LAUNCHES``."""
+    F32_LAUNCHES[path] = F32_LAUNCHES.get(path, 0) + fused_rdb.launches_f32
+    return fused_rdb.launches
+
+
 def phase_build():
     from dasr_tpu_torch.kernels import build
 
@@ -338,9 +362,10 @@ def phase_build():
     return secs
 
 
-def cudnn_bf16_chain(x, kernels, biases):
-    """The RDB as stock PyTorch would run it in bf16: F.conv2d (cuDNN) over
-    the concatenated prefix, channels_last. Timed for context only."""
+def cudnn_chain(x, kernels, biases):
+    """The RDB as stock PyTorch would run it in x's dtype: F.conv2d (cuDNN)
+    over the concatenated prefix, channels_last (at f32 with TF32 off, the
+    port's rule). Timed for context only."""
     import torch
     import torch.nn.functional as F
 
@@ -357,19 +382,22 @@ def phase_kernel(gpu):
     import torch
 
     from dasr_tpu_torch.ops.rdb import (
-        TILES, TOLERANCES, WgmmaPlan, bound_ms, fused_rdb, fused_rdb_reference, kernel_plan,
-        prepare_weights, rdb_cost)
+        TILES, TOLERANCES, F32Plan, WgmmaPlan, fused_rdb, fused_rdb_reference, kernel_plan,
+        prepare_weights)
 
-    for cout in (GC, NC):
-        for tile in range(len(TILES)):
-            if kernel_plan(cout, tile) != WgmmaPlan(cout, tile).vector():
-                fail(f"the bf16 kernel's compiled plan (cout {cout}, tile {TILES[tile]}) differs "
-                     f"from ops/rdb.py:WgmmaPlan, which the CPU tests emulate")
-    print(f"kernel plan: the bf16 kernel's compiled shared-memory plan and descriptor offsets "
-          f"equal ops/rdb.py:WgmmaPlan for cout {GC} and {NC}, tiles {TILES}", flush=True)
+    for dt, plan in ((torch.bfloat16, WgmmaPlan), (torch.float32, F32Plan)):
+        for cout in (GC, NC):
+            for tile in range(len(TILES)):
+                if kernel_plan(cout, tile, dt) != plan(cout, tile).vector():
+                    fail(f"the {dt} kernel's compiled plan (cout {cout}, tile {TILES[tile]}) "
+                         f"differs from ops/rdb.py:{plan.__name__}, which the CPU tests emulate")
+    print(f"kernel plan: both kernels' compiled shared-memory plans and descriptor offsets "
+          f"equal ops/rdb.py:WgmmaPlan (bf16) and F32Plan (f32) for cout {GC} and {NC}, tiles "
+          f"{TILES}", flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    report = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "max_abs_err_vs_f32": 0.0}
+    report = {"max_abs_err": 0.0, "max_abs_err_vs_f32": 0.0}
+    report32 = {"max_abs_err": 0.0, "f64_err_ratio": 0.0}
     checked = set()
     with torch.no_grad():
         for b, h, w in (KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES
@@ -388,8 +416,8 @@ def phase_kernel(gpu):
                 want = fused_rdb_reference(xd, kd, bd)
                 atol, rtol = TOLERANCES[tol]
                 err, band, needed = compare(got, want, atol, rtol, f"fused_rdb {dt} {(b, h, w)}")
-                key = "max_abs_err_f32" if dt == torch.float32 else "max_abs_err"
-                report[key] = max(report[key], err)
+                rep = report32 if dt == torch.float32 else report
+                rep["max_abs_err"] = max(rep["max_abs_err"], err)
                 checked.add((b, h, w, dt))
                 print(f"kernel {str(dt):15s} {(b, h, w)}: max|err| {err:.3e} "
                       f"(5-px band {band:.3e}; atol {atol} rtol {rtol:.4g}, atol needed "
@@ -404,63 +432,81 @@ def phase_kernel(gpu):
                     report["max_abs_err_vs_f32"] = max(report["max_abs_err_vs_f32"], err32)
                     print(f"kernel bf16 vs f32 plain {(b, h, w)}: max|err| {err32:.3e} "
                           f"(5-px band {band32:.3e}; atol {atol} rtol {rtol})", flush=True)
-                if dt == torch.float32 and (b, h, w) == TIMED_SHAPES[0]:
-                    ms = cuda_ms(lambda: fused_rdb(xd, kd, bd))
-                    plain_ms = cuda_ms(lambda: fused_rdb_reference(xd, kd, bd))
-                    flop, nbytes = rdb_cost(b, h, w, itemsize=4)
-                    bound, by = bound_ms(flop, nbytes, dt)
-                    print(f"time torch.float32 {(b, h, w)}: kernel {ms:.4f} ms "
-                          f"({flop / ms / 1e9:.2f} TFLOP/s; bound {bound:.4f} ms by {by}), "
-                          f"plain {plain_ms:.4f} ms [{gpu}]", flush=True)
-                    report["ms_f32"], report["plain_ms_f32"] = ms, plain_ms
-                if dt == torch.bfloat16 and (b, h, w) in TIMED_SHAPES:
-                    timed = time_bf16(xd, kd, bd, gpu)
-                    if (b, h, w) == TIMED_SHAPES[0]:
-                        report.update(timed)
+                if (b, h, w) not in TIMED_SHAPES:
+                    continue
+                if dt == torch.float32:
+                    # both f32 computations against f64: the split-TF32
+                    # products must stay within twice the plain version's error
+                    ref = fused_rdb_reference(x.double(), [k.double() for k in ks],
+                                              [v.double() for v in bs])
+                    e_kernel = (got.double() - ref).abs().max().item()
+                    e_plain = (want.double() - ref).abs().max().item()
+                    _, ratio = TOLERANCES["kernel_f32_f64"]
+                    print(f"kernel f32 vs f64 {(b, h, w)}: max|err| {e_kernel:.3e}, the plain "
+                          f"version's {e_plain:.3e}: {e_kernel / e_plain:.3f}x (limit {ratio}x)",
+                          flush=True)
+                    if not e_kernel <= ratio * e_plain:
+                        fail(f"fused_rdb f32 {(b, h, w)}: max |err| against f64 {e_kernel:.3e} "
+                             f"exceeds {ratio} x the plain version's {e_plain:.3e}")
+                    report32["f64_err_ratio"] = max(report32["f64_err_ratio"],
+                                                    e_kernel / e_plain)
+                timed = time_kernel(xd, kd, bd, gpu)
+                if (b, h, w) == TIMED_SHAPES[0]:
+                    rep.update(timed)
+    report["f32"] = report32
     return report, checked
 
 
-def time_bf16(x, kd, bd, gpu):
-    """The bf16 kernel at x's shape: per RDB (CUDA events, so at small shapes
-    the host's launch cost shows) in turns with cuDNN's chain (kernel,
-    chain, chain, kernel); per level on the device (torch.profiler), against
-    the bound; the plain version once."""
+def time_kernel(x, kd, bd, gpu):
+    """The kernel at x's shape and dtype: per RDB (CUDA events, so at small
+    shapes the host's launch cost shows) in turns with cuDNN's chain in that
+    dtype (kernel, chain, chain, kernel); per level on the device
+    (torch.profiler), against the bound; the plain version once."""
+    import torch
+
     from dasr_tpu_torch.ops.rdb import (
         bound_ms, fused_rdb, fused_rdb_reference, level_costs, rdb_cost)
 
     b, h, w, _ = x.shape
-    fns = {"kernel": lambda: fused_rdb(x, kd, bd), "chain": lambda: cudnn_bf16_chain(x, kd, bd)}
-    times = {name: [] for name in fns}
-    for name in ("kernel", "chain", "chain", "kernel"):
-        times[name].append(cuda_ms(fns[name]))
+    dt = x.dtype
+    name = "bf16" if dt == torch.bfloat16 else "f32"
+    size = x.element_size()
+    peak = ("989 TFLOP/s" if dt == torch.bfloat16
+            else "165 TFLOP/s, three TF32 products at 495")
+    fns = {"kernel": lambda: fused_rdb(x, kd, bd), "chain": lambda: cudnn_chain(x, kd, bd)}
+    times = {fn: [] for fn in fns}
+    for fn in ("kernel", "chain", "chain", "kernel"):
+        times[fn].append(cuda_ms(fns[fn]))
     ms, chain_ms = (float(np.mean(times[k])) for k in ("kernel", "chain"))
-    host = {name: host_us(fn) for name, fn in fns.items()}
+    host = {fn: host_us(f) for fn, f in fns.items()}
     plain_ms = cuda_ms(lambda: fused_rdb_reference(x, kd, bd))
-    flop, nbytes = rdb_cost(b, h, w)
-    bound, by = bound_ms(flop, nbytes)
-    print(f"time bf16 {(b, h, w)}: kernel {ms:.4f} ms per RDB ({flop / ms / 1e9:.2f} TFLOP/s), "
-          f"bound {bound:.4f} ms by {by} ({flop / 1e9:.2f} GFLOP at 989 TFLOP/s vs "
+    flop, nbytes = rdb_cost(b, h, w, itemsize=size)
+    bound, by = bound_ms(flop, nbytes, dt)
+    print(f"time {name} {(b, h, w)}: kernel {ms:.4f} ms per RDB ({flop / ms / 1e9:.2f} TFLOP/s), "
+          f"bound {bound:.4f} ms by {by} ({flop / 1e9:.2f} GFLOP at {peak} vs "
           f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), {100 * bound / ms:.1f}% of the bound; "
-          f"in turns: cuDNN bf16 dense chain (yardstick, not the plain version) "
+          f"in turns: cuDNN {name} dense chain (yardstick, not the plain version) "
           f"{chain_ms:.4f} ms; plain version {plain_ms:.4f} ms; each of kernel/chain: "
           + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items()) + f"; host time "
           f"to issue one RDB: kernel {host['kernel']:.1f} us (five launches, one library call), "
           f"chain {host['chain']:.1f} us [{gpu}]", flush=True)
     report = {"ms": ms, "host_us_per_rdb": host["kernel"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
               "roofline_share": bound / ms, "library_ms": chain_ms,
-              "library": "cuDNN bf16 dense chain (five F.conv2d over the concatenated prefix); "
-                         "no single PyTorch call computes an RDB"}
+              "library": f"cuDNN {name} dense chain (five F.conv2d over the concatenated "
+                         f"prefix{', TF32 off' if dt == torch.float32 else ''}); no single "
+                         f"PyTorch call computes an RDB"}
     levels, traces = level_device_ms(lambda: fused_rdb(x, kd, bd))
     if levels is None:
-        fail(f"time bf16 {(b, h, w)}: torch.profiler recorded the kernel's launches in none of "
+        fail(f"time {name} {(b, h, w)}: torch.profiler recorded the kernel's launches in none of "
              f"three traces")
     parts = []
-    for k, ((lf, lb), lms) in enumerate(zip(level_costs(b, h, w), levels)):
-        lbound, lby = bound_ms(lf, lb)
+    for k, ((lf, lb), lms) in enumerate(zip(level_costs(b, h, w, itemsize=size), levels)):
+        lbound, lby = bound_ms(lf, lb, dt)
         parts.append(f"level {k + 1} {lms * 1e3:.1f} us ({lf / lms / 1e9:.1f} TFLOP/s; bound "
                      f"{lbound * 1e3:.1f} us by {lby})")
     report["device_ms"] = sum(levels)
-    print(f"time bf16 {(b, h, w)} device time per level (torch.profiler, trace {traces} of at "
+    report["level_device_ms"] = levels
+    print(f"time {name} {(b, h, w)} device time per level (torch.profiler, trace {traces} of at "
           f"most 3; each from the end of the launch before): " + "; ".join(parts) + f"; {report['device_ms']:.4f} ms per RDB "
           f"on the device, {100 * bound / report['device_ms']:.1f}% of the bound [{gpu}]",
           flush=True)
@@ -633,7 +679,7 @@ def phase_serve(gpu, checked):
                 seen.add((b, h, w, args[0].dtype))
 
         torch.cuda.reset_peak_memory_stats()
-        fused_rdb.launches = 0
+        zero_launches(fused_rdb)
         secs, avgs = [], []
         handle = register_module_forward_pre_hook(record)
         try:
@@ -644,7 +690,7 @@ def phase_serve(gpu, checked):
                 secs.append(time.perf_counter() - t0)
         finally:
             handle.remove()
-        launches = fused_rdb.launches
+        launches = read_launches(fused_rdb, "serve")
         peak = torch.cuda.max_memory_allocated()
 
         forwards = len(runs) * len(LR_SIZES)  # one per image and run (chop batches its tiles)
@@ -708,6 +754,20 @@ def phase_serve(gpu, checked):
           f"the card (atol {atol}), {cpu_err:.3e} vs it on the CPU; output range "
           f"[{want.min().item():.3f}, {want.max().item():.3f}]", flush=True)
     report["network_max_abs_err_f32"] = err
+    # its forward's time with the kernel and with the plain version, in turns
+    xg = x.cuda()
+    times = {fused_rdb: [], fused_rdb_reference: []}
+    with torch.no_grad():
+        for rdb in (fused_rdb, fused_rdb_reference, fused_rdb_reference, fused_rdb):
+            blocks.fused_rdb = rdb
+            try:
+                times[rdb].append(cuda_ms(lambda: net_gpu(xg), warmup=2, iters=10))
+            finally:
+                blocks.fused_rdb = fused_rdb
+    ms, plain = (float(np.mean(times[r])) for r in (fused_rdb, fused_rdb_reference))
+    print(f"network f32 (1, 3, 64, 64) nb {NB} forward: {ms:.3f} ms with the kernel, "
+          f"{plain:.3f} ms with the plain version (CUDA events, in turns) [{gpu}]", flush=True)
+    report.update(network_f32_ms=ms, network_f32_plain_ms=plain)
 
     # serving rate at 256x256 LR, bf16, batch 1, and the RDBs' share of it
     net_bf16 = RRDBNet(nf=NC, nb=NB, gc=GC, dtype=torch.bfloat16)
@@ -998,7 +1058,7 @@ def phase_train(gpu, checked, checked_grad):
                 b, _, h, w = args[0].shape
                 seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
 
-        fused_rdb.launches = 0
+        zero_launches(fused_rdb)
         handle = register_module_forward_pre_hook(record)
         try:
             t0 = time.perf_counter()
@@ -1007,7 +1067,7 @@ def phase_train(gpu, checked, checked_grad):
             secs = time.perf_counter() - t0
         finally:
             handle.remove()
-        launches = fused_rdb.launches
+        launches = read_launches(fused_rdb, "train")
         forwards = TRAIN_STEPS + 2  # one G forward per step, one per validation image
         expected = 3 * NB * LAUNCHES_PER_RDB * forwards
         print(f"train: {steps} steps in {secs:.2f} s through the CLI (host loader, one "
@@ -1481,7 +1541,7 @@ def phase_pipeline(gpu, root, checked, checked_grad):
             seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
 
     tee = Tee()
-    fused_rdb.launches = 0
+    zero_launches(fused_rdb)
     handle = register_module_forward_pre_hook(record)
     try:
         with contextlib.redirect_stdout(tee):
@@ -1489,7 +1549,7 @@ def phase_pipeline(gpu, root, checked, checked_grad):
         torch.cuda.synchronize()
     finally:
         handle.remove()
-    launches = fused_rdb.launches
+    launches = read_launches(fused_rdb, "pipeline")
     printed = "".join(tee.parts)
     if list(times) != ["dsn_train", "dsn_create_dataset", "srn_train"] or not all(
             f"stage '{s}' wall-clock" in printed for s in times):
@@ -1696,7 +1756,7 @@ def phase_bank(gpu, root, checked, checked_grad):
             seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
 
     tee = Tee()
-    fused_rdb.launches = 0
+    zero_launches(fused_rdb)
     handle = register_module_forward_pre_hook(record)
     try:
         t0 = time.perf_counter()
@@ -1708,7 +1768,7 @@ def phase_bank(gpu, root, checked, checked_grad):
         secs = time.perf_counter() - t0
     finally:
         handle.remove()
-    launches = fused_rdb.launches
+    launches = read_launches(fused_rdb, "bank")
     printed = "".join(tee.parts)
     forwards = BANK_STEPS + 2  # one G forward per step, one per validation image
     expected = 3 * NB * LAUNCHES_PER_RDB * forwards
@@ -1938,7 +1998,7 @@ def phase_tools(gpu, root, checked, checked_grad, dsn_ckpt):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    fused_rdb.launches = 0
+    zero_launches(fused_rdb)
     handle = register_module_forward_pre_hook(record)
     try:
         # the reference .state resume at full width, f32: two steps, the
@@ -2082,7 +2142,7 @@ def phase_tools(gpu, root, checked, checked_grad, dsn_ckpt):
         report["auto_test_s_per_image"] = secs / (2 * len(LR_SIZES))
     finally:
         handle.remove()
-    launches = fused_rdb.launches
+    launches = read_launches(fused_rdb, "tools")
     # G forwards: 4 resume steps, 2 CLI steps and one batched validation, the
     # val_batch comparison's 1 + TOOLS_VAL, the sweep's 2 x len(LR_SIZES)
     forwards = 4 + 3 + 1 + TOOLS_VAL + 2 * len(LR_SIZES)
@@ -2259,7 +2319,7 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
     def counted(label, fn, forwards):
         # one run of the main path: the count set to 0 just before it, read
         # just after, and held against 345 launches per generator forward
-        fused_rdb.launches = 0
+        zero_launches(fused_rdb)
         handle = register_module_forward_pre_hook(record)
         tee = Tee()
         try:
@@ -2270,7 +2330,7 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
             secs = time.perf_counter() - t0
         finally:
             handle.remove()
-        n = fused_rdb.launches
+        n = read_launches(fused_rdb, "adaptive")
         print(f"adaptive {label}: fused_rdb launches {n}, expected {per_forward} x {forwards} "
               f"= {per_forward * forwards}; {secs:.2f} s", flush=True)
         if n != per_forward * forwards:
@@ -2589,7 +2649,7 @@ def phase_paired(gpu, root, checked, checked_grad):
     def counted(label, fn, forwards):
         # one run of the main path: the count set to 0 just before it, read
         # just after, and held against 345 launches per generator forward
-        fused_rdb.launches = 0
+        zero_launches(fused_rdb)
         handle = register_module_forward_pre_hook(record)
         tee = Tee()
         try:
@@ -2600,7 +2660,7 @@ def phase_paired(gpu, root, checked, checked_grad):
             secs = time.perf_counter() - t0
         finally:
             handle.remove()
-        n = fused_rdb.launches
+        n = read_launches(fused_rdb, "paired")
         print(f"paired {label}: fused_rdb launches {n}, expected {per_forward} x {forwards} = "
               f"{per_forward * forwards}; {secs:.2f} s", flush=True)
         if n != per_forward * forwards:
@@ -2934,7 +2994,7 @@ def no_rdb_launch(label, fn):
 
     from dasr_tpu_torch.ops.rdb import fused_rdb
 
-    fused_rdb.launches = 0
+    zero_launches(fused_rdb)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -3372,7 +3432,7 @@ def phase_lpips(gpu, root, checked):
 
     tr = make_trainer(dev)
     dev_batches = [batch(i * LPIPS_BATCH, dev) for i in range(2)]
-    fused_rdb.launches = 0
+    zero_launches(fused_rdb)
     report["step"] = time_arms(
         f"lpips 2afc step (vgg, batch {LPIPS_BATCH}, {LPIPS_PATCH}x{LPIPS_PATCH}, f32)",
         {"vgg": lambda: [tr.step(b) for b in dev_batches]}, 2, gpu, rounds=2)["vgg"]
@@ -3452,7 +3512,7 @@ def phase_lpips(gpu, root, checked):
              os.path.join(pdir, "lr"), "--nb", str(NB), "--nf", str(NC), "--gc", str(GC),
              "--device", "cuda"]
     avgs, secs = {}, {}
-    fused_rdb.launches = 0
+    zero_launches(fused_rdb)
     handle = register_module_forward_pre_hook(record)
     try:
         for how, flags in (("plain", []), ("chop", ["--chop"])):
@@ -3463,7 +3523,7 @@ def phase_lpips(gpu, root, checked):
             secs[how] = time.perf_counter() - t0
     finally:
         handle.remove()
-    launches = fused_rdb.launches
+    launches = read_launches(fused_rdb, "lpips")
     forwards = 2 * PARITY_IMAGES  # one per image and run (chop batches its tiles)
     expected = 3 * NB * LAUNCHES_PER_RDB * forwards
     print(f"parity: fused_rdb launches {launches}, expected {3 * NB} x {LAUNCHES_PER_RDB} x "
@@ -3649,23 +3709,23 @@ def dist_child(kind, root):
     out = {"rank": world.rank, "kind": kind, "backend": backend}
     if kind == "nccl":
         cfg = os.path.join(root, "dist_nccl.json")
-        fused_rdb.launches = 0
+        zero_launches(fused_rdb)
         out["steps"], _ = run_cli(srn_train.main, ["-opt", cfg, "--device", "cuda",
                                                    "--device_bank", "--steps_per_call",
                                                    str(DIST_K)])
         torch.cuda.synchronize()
-        out["launches"] = fused_rdb.launches
+        out["launches"], out["launches_f32"] = fused_rdb.launches, fused_rdb.launches_f32
         handle.remove()
         out.update(nccl_step_checks(world, cfg))
     else:
-        fused_rdb.launches = 0
+        zero_launches(fused_rdb)
         results = {k: dist_steps(k, world) for k in ("dasr", "srragan")}
         configs = dist_serve_configs(root)
         for name, flags in (("two_chop", []), ("two_shard", ["--spatial_shard"])):
             results[name] = run_cli(srn_test.main, ["-opt", configs[name], "--device", "cuda",
                                                     "--mesh", "2", *flags])
         torch.cuda.synchronize()
-        out["launches"] = fused_rdb.launches
+        out["launches"], out["launches_f32"] = fused_rdb.launches, fused_rdb.launches_f32
         handle.remove()
         if world.rank == 0:
             torch.save(results, os.path.join(root, "pair_results.pt"))
@@ -3849,6 +3909,7 @@ def phase_dist(gpu, checked, checked_grad):
             fail(f"dist: the children gave the kernel shapes phases 2 and 4 did not check: "
                  f"{missing}")
         launches = nccl["launches"] + sum(r["launches"] for r in ranks)
+        F32_LAUNCHES["dist"] = nccl["launches_f32"] + sum(r["launches_f32"] for r in ranks)
         if not all(r["launches"] > 0 for r in ranks):
             fail(f"dist: a rank of the pair launched no kernel: {ranks}")
         report.update(launches_dist=launches, dist_ms_group=nccl["ms_group"],
@@ -3889,12 +3950,14 @@ def main(argv=None):
 
     gpu = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    backward = ("autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), as "
+                "JAX's custom VJP; checked against the plain version in phase grad")
     entry = {
-        "name": "fused_rdb", "route": "cuda", "source": "dasr_tpu_torch/csrc/rdb.cu",
-        "replaces": "dasr_tpu/ops/pallas_rdb.py:61", "launches": 0,
-        "backward": "autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), "
-                    "as JAX's custom VJP; checked against the plain version in phase grad",
+        "name": "fused_rdb", "kernel": "rdb_level_wgmma", "dtype": "bfloat16", "route": "cuda",
+        "source": "dasr_tpu_torch/csrc/rdb.cu", "replaces": "dasr_tpu/ops/pallas_rdb.py:61",
+        "launches": 0, "backward": backward,
     }
+    entry32 = dict(entry, name="fused_rdb_f32", kernel="rdb_level_tf32x3", dtype="float32")
     if phases & {"serve", "lpips"}:
         phases.add("kernel")  # serve and parity check their shapes against phase 2's
     if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired", "dist"}:
@@ -3909,6 +3972,7 @@ def main(argv=None):
         phase_build()
     if "kernel" in phases:
         report, checked = phase_kernel(gpu)
+        entry32.update(report.pop("f32"))
         entry.update(report)
     if "serve" in phases:
         entry.update(phase_serve(gpu, checked))
@@ -3967,17 +4031,22 @@ def main(argv=None):
         entry["launches_dist"] = report.pop("launches_dist")
         print(f"dist (one NCCL rank through srn_train; two ranks against one process): "
               f"{json.dumps(report)}", flush=True)
-    # launches: the count from each main path's run, the counter set to 0
-    # just before it; the total of the paths this run drove
+    # launches: the count from each main path's run, the counters set to 0
+    # just before it; the total of the paths this run drove, the f32
+    # kernel's apart
+    entry32["launches"] = sum(F32_LAUNCHES.values())
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
                             for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive",
-                                      "paired", "depatch", "sft", "lpips", "dist"))
+                                      "paired", "depatch", "sft", "lpips", "dist")
+                            ) - entry32["launches"]
+    if phases & {"tools", "dist"} and not entry32["launches"]:
+        fail("the f32 paths of phases tools and dist launched the f32 kernel no time")
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",
               flush=True)
     print(gpu, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, entry32]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,11 +2,12 @@
 //
 // Replaces dasr_tpu/ops/pallas_rdb.py:_rdb_kernel (built by
 // _fused_rdb_impl). The tolerances and the Python wrapper are in
-// dasr_tpu_torch/ops/rdb.py, which also holds the tile plan and states the
-// bf16 kernel's shared-memory plan in Python (WgmmaPlan). The CPU tests
-// (tests/test_torch_rdb_plan.py) emulate the kernel's products through that
-// statement, and chip_smoke.py holds it against the plan compiled here,
-// which dasr_rdb_wgmma_plan exports.
+// dasr_tpu_torch/ops/rdb.py, which also holds the tile plan and states both
+// kernels' shared-memory plans in Python (WgmmaPlan, F32Plan). The CPU
+// tests (tests/test_torch_rdb_plan.py, tests/test_torch_rdb_f32_plan.py)
+// emulate the kernels' products through those statements, and
+// chip_smoke.py holds them against the plans compiled here, which
+// dasr_rdb_wgmma_plan and dasr_rdb_f32_plan export.
 //
 // One launch computes one level of the block: a 3x3 SAME conv over a
 // channel prefix of [x | x1 | x2 | x3 | x4] as an implicit GEMM
@@ -21,45 +22,82 @@
 //
 // What bounds it: arithmetic. One RDB (nc 64, gc 32) is 479,232 FLOP per
 // pixel, 62.81 GFLOP at (8, 128, 128): 63.5 us at the H100's 989 TFLOP/s
-// bf16 peak, against 10.2 us for the ~34 MB it must move.
+// bf16 peak, against 10.2 us for the ~34 MB it must move. At f32 the least
+// time is 0.381 ms: three TF32 products per f32 product at 495 TFLOP/s,
+// against 0.94 ms on the CUDA cores' 67 TFLOP/s.
 //
-// bf16, rdb_level_wgmma: a warp-specialised wgmma kernel.
+// Both kernels are wgmma kernels of one shape:
 //   * A block owns a tile of 8x8-pixel sub-blocks: 16x16 pixels, two
-//     consumer warpgroups of two sub-blocks each, or, where 16x16 tiles
-//     would leave more than half the 132 SMs idle, 8x8 and one warpgroup
+//     warpgroups of two sub-blocks each, or, where 16x16 tiles would leave
+//     more than half the 132 SMs idle, 8x8 and one warpgroup
 //     (ops/rdb.py:tile_plan). Each sub-block is one 64-row wgmma tile with
-//     f32 accumulators in registers (m64n32k16 for levels 1-4, m64n64k16
-//     for level 5).
-//   * K is walked in chunks of 16 input channels x 9 taps. A producer warp
-//     stages each chunk with two TMA loads into a ring of 3-4 shared-memory
-//     stages, signalled by mbarriers (full: bytes arrived; empty: every
-//     warpgroup's products that read it are done):
-//       - the input window (tile + 1-px halo), a 4-D box from x or the
-//         growth buffer; TMA fills the out-of-image part with zeros, which
-//         is the SAME padding. It lands as [row][col][16 ch], 32 bytes a
-//         pixel with no unused channels, in TMA's 32-byte swizzle;
-//       - the chunk's weight rows, a 3-D box read straight from the HWIO
-//         matrix that prepare_weights makes (no repacking), landing as
-//         [tap][ci][cout] in the 64- or 128-byte swizzle. Every warpgroup of
-//         the block reads them from there.
-//     Wide rows matter: TMA costs a few clocks per box row, and boxes of
-//     16-byte rows (8 channels, 8 columns) left this kernel bound by TMA at
-//     about twice its time.
+//     f32 accumulators in registers (n32 for levels 1-4, n64 for level 5).
+//   * K is walked in chunks of input channels x 9 taps, each staged into a
+//     ring of shared-memory stages, an mbarrier a stage signalling that its
+//     bytes arrived; in the bf16 kernel by a producer warp once every
+//     warp's products that read the stage are done (a second mbarrier), in
+//     the f32 one by the last warp done with the stage. The input window
+//     (tile + 1-px halo) is a 4-D TMA box from x or the growth buffer; TMA
+//     fills the out-of-image part with zeros, which is the SAME padding.
+//     All nine taps read the one staged window at shifted offsets.
+//   * Programmatic dependent launch: each level's blocks start (barrier
+//     set-up) on the SMs the previous level frees, and wait for it to
+//     finish (griddepcontrol.wait) before they read an activation.
+//   * Epilogue in registers: the four lanes of a quad exchange their
+//     column pairs so that each holds 8 consecutive channels of a pixel,
+//     then bias + leaky ReLU (levels 1-4) or the residual (level 5), rounded
+//     once and written as 16-byte stores.
+//   Left for later: fusing levels 1-4 per tile (the five-launch floor is
+//   ~74 us at (8, 128, 128) in bf16), a persistent grid.
+//
+// bf16, rdb_level_wgmma (Plan):
+//   * 16 input channels a stage (one k16 step). The window lands as
+//     [row][col][16 ch], 32 bytes a pixel, in TMA's 32-byte swizzle; the
+//     chunk's weight rows are a 3-D box read straight from the HWIO matrix
+//     that prepare_weights makes, landing as [tap][ci][cout] in the 64- or
+//     128-byte swizzle. Wide rows matter: TMA costs a few clocks per box
+//     row, and boxes of 16-byte rows (8 channels, 8 columns) left this
+//     kernel bound by TMA at about twice its time.
 //   * Both operands come from shared memory through wgmma descriptors in
 //     the same swizzles: A K-major (a row is one window pixel's 16
 //     channels, so a tap's pixel shift moves the start by whole rows), B
-//     MN-major (the transpose bit). All nine taps reuse one staged window.
-//   * Programmatic dependent launch: each level's blocks start (barrier
-//     set-up, the first weight load) on the SMs the previous level frees,
-//     and wait for it to finish (griddepcontrol.wait) before they read or
-//     write an activation.
-//   * Epilogue in registers: the four lanes of a quad exchange their
-//     column pairs so that each holds 8 consecutive channels of a pixel,
-//     then bias + leaky ReLU (levels 1-4) or the residual read as 16-byte
-//     vectors (level 5), rounded once and written as 16-byte stores.
-//   Left for later: fusing levels 1-4 per tile (the five-launch floor is
-//   ~74 us at (8, 128, 128)), a persistent grid, the f32 variant.
-// f32, rdb_level_simt: CUDA cores (full f32, no TF32), an 8 x 16 tile.
+//     MN-major (the transpose bit).
+//
+// f32, rdb_level_tf32x3 (F32Plan): split-TF32 products ("3xTF32"). Each f32
+// operand v is split into hi = tf32(v) and lo = tf32(v - hi), both rounded
+// to nearest, and each product is hi.hi + hi.lo + lo.hi, three m64nNk8 tf32
+// wgmmas into one f32 accumulator set; the dropped lo.lo term and the
+// split's remainders are ~2^-22 of each product, below the f32 rounding of
+// a K = 1728 sum.
+//   * 8 input channels a stage (one k8 step): the window lands unswizzled
+//     as [row][col][8 ch], 32 bytes a pixel; the chunk's weights are one
+//     bulk copy of an image that ops/rdb.py:split_weights makes once per
+//     parameter version: [hi, lo][tap][cout][8 ch] f32, K-major (wgmma has
+//     no transpose for 32-bit types), already split and already in the
+//     32-byte swizzle wgmma reads, so one copy with no per-row cost lands it.
+//   * A comes from registers (the _RS form), because it must be split:
+//     each lane loads its fragment with two 8-byte loads from the window,
+//     splits it, and issues hi.hi, hi.lo and lo.hi; B_hi and B_lo come from
+//     shared memory through descriptors. Lane (g, t) of a warp holds
+//     K-columns t and t + 4 of its rows, which it reads as the adjacent
+//     channels 2t and 2t + 1: split_weights orders each 8-channel group of
+//     B's K to match (F32Plan.perm), so a warp's loads are 256 contiguous
+//     bytes with no bank conflict.
+//   * A's registers are read by the products until they retire, so they
+//     alternate between two sets, one per tap, each tap's products committed
+//     as one group and one group left in flight; the next tap's A is loaded
+//     while it runs.
+//   * The tensor cores truncate the f32 sum of each product to f32 (on the
+//     H100 a kernel that carried one accumulator over a level's 648
+//     products was ~10x further from an f64 RDB than f32 adds are), so each
+//     chunk's 27 products go into an accumulator that is then added into
+//     the level's total with rounding f32 adds.
+//   * No producer warp: registers are split over an SM's four
+//     sub-partitions, and a ninth warp leaves 168 a thread (96 at two
+//     blocks an SM), fewer than the sums, accumulators and fragments need.
+//     Thread 0 stages the first chunks; after that the last warp done with
+//     a stage (a shared counter) stages the chunk that goes there next, so
+//     no warp waits for another to release a stage.
 // The C entry point launches the five levels and returns
 // cudaGetLastError() after each launch.
 
@@ -73,19 +111,11 @@
 
 namespace {
 
-constexpr int kTileW = 16;
-constexpr int kHaloW = kTileW + 2;
-constexpr int kChunk = 32;     // input channels staged per step
-constexpr int kThreads = 256;  // 8 warps
-
-// CUDA-core path
-constexpr int kSimtTileH = 8;
-constexpr int kSimtHaloPix = (kSimtTileH + 2) * kHaloW;
-
 struct Level {
   const void* x;      // (B, H, W, nc) block input, working type
   const void* g;      // (B, H, W, gstride) growth buffer holding x1..x4
-  const void* w;      // (9 * cin, cout) working type, rows ordered (dy, dx, ci)
+  const void* w;      // bf16: (9 * cin, cout), rows ordered (dy, dx, ci); f32: the
+                      // split image of ops/rdb.py:split_weights, (cin / 8, 2, 9, cout, 8)
   const float* bias;  // (cout,)
   void* out;          // output pixels of out_stride elements
   int B, H, W;
@@ -93,58 +123,6 @@ struct Level {
   int out_stride, out_off;
   int final_level;    // 0: lrelu epilogue; 1: residual epilogue
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Stage input channels [c0, c0 + kChunk) of the (kSimtTileH + 2, kHaloW)
-// window around the tile whose first output pixel is (y0, x0) into `tile`,
-// kChunk elements a pixel; pixels outside the image are 0. Channels below
-// nc come from x, the others from the growth buffer.
-template <typename T>
-__device__ __forceinline__ void stage_window(const Level& L, int b, int y0, int x0,
-                                             int c0, T* tile) {
-  const bool from_x = c0 < L.nc;
-  const int stride = from_x ? L.nc : L.gstride;
-  const T* src = from_x ? static_cast<const T*>(L.x) + c0
-                        : static_cast<const T*>(L.g) + (c0 - L.nc);
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
-  constexpr int kVecPerPix = kChunk / kVec;
-  for (int i = threadIdx.x; i < kSimtHaloPix * kVecPerPix; i += blockDim.x) {
-    const int pix = i / kVecPerPix;
-    const int v = i % kVecPerPix;
-    const int gy = y0 + pix / kHaloW - 1;
-    const int gx = x0 + pix % kHaloW - 1;
-    const bool valid = gy >= 0 && gy < L.H && gx >= 0 && gx < L.W;
-    const T* from =
-        src + (valid ? (static_cast<size_t>(b * L.H + gy) * L.W + gx) * stride + v * kVec : 0);
-    *reinterpret_cast<uint4*>(tile + pix * kChunk + v * kVec) =
-        valid ? *reinterpret_cast<const uint4*>(from) : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_out(const Level& L, int b, int gy, int gx, int co,
-                                          float acc) {
-  float v = acc + L.bias[co];
-  const size_t pix = static_cast<size_t>(b * L.H + gy) * L.W + gx;
-  if (L.final_level) {
-    const float r = to_f32(static_cast<const T*>(L.x)[pix * L.nc + co]);
-    v = r + 0.2f * v;
-  } else {
-    v = v >= 0.f ? v : 0.2f * v;
-  }
-  static_cast<T*>(L.out)[pix * L.out_stride + L.out_off + co] = from_f32<T>(v);
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on Hopper: TMA + mbarriers + wgmma.
@@ -209,6 +187,68 @@ struct Plan {
   static_assert(kWBytes % 1024 == 0, "the stages stay 1024-byte aligned");
 };
 
+// f32 on Hopper: split-TF32 wgmma.
+
+constexpr int kKc32 = 8;  // input channels per pipeline stage (one tf32 k8 step)
+
+// Shared-memory plan of one (COUT, tile) instantiation of the f32 kernel.
+// ops/rdb.py:F32Plan states the same plan in Python; the CPU tests emulate
+// the products through it, and chip_smoke.py holds it against this one
+// (dasr_rdb_f32_plan). A stage is the window (pixels of kKc32 * 4 = 32
+// bytes, unswizzled: the lanes read it, not wgmma) and then the weight
+// image, [hi, lo][tap][COUT][8 ch], one 32-byte row per output channel in
+// the 32-byte swizzle, each region 1024-byte aligned.
+template <int COUT, int TH, int TW>
+struct F32Plan {
+  static constexpr int kSub = (TH / 8) * (TW / 8);
+  static constexpr int kWarpgroups = kSub < 2 ? 1 : 2;
+  static constexpr int kMt = kSub / kWarpgroups;
+  static constexpr int kThreads = 128 * kWarpgroups;  // no producer warp
+  // blocks an SM holds: two, unless two warpgroups each keep two 64 x 64
+  // sums and accumulators (~180 registers a thread; two blocks of eight
+  // warps leave 128)
+  static constexpr int kBlocks = COUT == 64 && kMt == 2 ? 1 : 2;
+  static constexpr int kWinW = TW + 2;
+  static constexpr int kWinPix = (TH + 2) * (TW + 2);
+  static constexpr int kPixBytes = kKc32 * 4;
+  static constexpr int kWinBytes = align1024(kWinPix * kPixBytes);
+  static constexpr int kOpBytes = COUT * kPixBytes;  // one tap's B_hi or B_lo
+  static constexpr int kWBytes = 2 * 9 * kOpBytes;
+  static constexpr int kStageBytes = kWinBytes + kWBytes;
+  static constexpr int kTxBytes = kWinPix * kPixBytes + kWBytes;
+  // as many stages (at most four) as fit beside the barriers and the
+  // alignment slack in the block's share of shared memory: 227 KB alone,
+  // else half the SM's 228 KB less the 1 KB the system keeps per block
+  static constexpr int kShare = (kBlocks == 1 ? 232448 : 233472 / 2 - 1024) - 1024 - 64;
+  static constexpr int kStages = kShare / kStageBytes < 4 ? kShare / kStageBytes : 4;
+  static constexpr int kSmemBytes = kStages * kStageBytes + 16 * kStages + 1024;
+  // B K-major in the 32-byte swizzle: a row is one output channel's 8 input
+  // channels; SBO the next 8 rows; LBO unused
+  static constexpr int kBSpan = kPixBytes;
+  static constexpr int kBMode = swizzle_mode(kBSpan);
+  static constexpr int kBLbo = 16;
+  static constexpr int kBSbo = 8 * kPixBytes;
+  static constexpr int kARowBytes = kWinW * kPixBytes;  // one window row
+  // Byte offset in a stage of sub-block sb's window pixel at tap (dy, dx):
+  // its row m is output pixel (8 sr + m / 8, 8 sc + m % 8), read at window
+  // pixel (8 sr + m / 8 + dy, 8 sc + m % 8 + dx). Lane (g, t) of warp w
+  // reads rows 16 w + g and 16 w + g + 8, i.e. pixels (2 w, g) and
+  // (2 w + 1, g) of the sub-block, 8 bytes each at channel 2t.
+  __host__ __device__ static constexpr int a_offset(int sb, int tap) {
+    return ((8 * (sb / (TW / 8)) + tap / 3) * kWinW + 8 * (sb % (TW / 8)) + tap % 3) * kPixBytes;
+  }
+  __host__ __device__ static constexpr int a_lane(int warp, int lane) {
+    return 2 * warp * kARowBytes + (lane / 4) * kPixBytes + (lane % 4) * 8;
+  }
+  // ... and of the B operand of (hl, tap), hl 0 hi and 1 lo
+  __host__ __device__ static constexpr int b_offset(int hl, int tap) {
+    return kWinBytes + (9 * hl + tap) * kOpBytes;
+  }
+  static_assert(kSub % kWarpgroups == 0, "sub-blocks split evenly");
+  static_assert(kOpBytes % 1024 == 0, "every operand starts a swizzle repeat");
+  static_assert(kStages >= 2, "a ring of two stages at least");
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -258,6 +298,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16) from global to shared
+// memory, completing on the barrier as the tensor loads do.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -330,6 +380,65 @@ __device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint6
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// v = hi + lo + r with hi and lo TF32 values (low 13 bits zero), each
+// rounded to nearest, ties away (cvt.rna), and |r| <= 2^-22 |v|. v - hi is
+// exact in f32.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// D (64 x N, f32) = A (64 x 8, tf32, registers) * B (8 x N, tf32, K-major in
+// shared memory) + (accumulate ? D : 0). Register a[i] of lane (g, t) of
+// warp w holds A[16 w + g + 8 (i % 2)][t + 4 (i / 2)].
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t* a, uint64_t b,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t* a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t* a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ float2 pick(const float2 (&v)[4], int i) {
   float2 r = v[0];
   r = i == 1 ? v[1] : r;
@@ -356,6 +465,87 @@ __device__ __forceinline__ void quad_transpose(float2 (&v)[4], int lane) {
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) v[i] = out[i];
+}
+
+// Eight consecutive channels as f32, and back in the working type, with
+// 16-byte accesses.
+__device__ __forceinline__ void load8(const float* p, float (&t)[8]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  const float4 v = *reinterpret_cast<const float4*>(p + 4);
+  t[0] = u.x, t[1] = u.y, t[2] = u.z, t[3] = u.w, t[4] = v.x, t[5] = v.y, t[6] = v.z, t[7] = v.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&t)[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 rf = __bfloat1622float2(r2[i]);
+    t[2 * i] = rf.x;
+    t[2 * i + 1] = rf.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&t)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(t[0], t[1], t[2], t[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(t[4], t[5], t[6], t[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&t)[8]) {
+  uint4 packed;
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p2[i] = __floats2bfloat162_rn(t[2 * i], t[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = packed;
+}
+
+// The level's epilogue on a consumer warpgroup's accumulators, sub-blocks
+// wg * KMT .. wg * KMT + KMT - 1 of the tile at (y0, x0): accumulator
+// d[4q + 2h + e] is row 16 warp + lane / 4 + 8 h, column 8q + 2 (lane % 4) + e
+// (the layout of m64nNk16 bf16 and m64nNk8 tf32 alike).
+template <typename T, int COUT, int TW, int KMT>
+__device__ __forceinline__ void epilogue(const Level& L, float (&acc)[KMT][COUT / 2], int wg,
+                                         int warp, int lane, int x0, int y0, int b) {
+  const T* xin = static_cast<const T*>(L.x);
+  T* out = static_cast<T*>(L.out);
+#pragma unroll
+  for (int mt = 0; mt < KMT; ++mt) {
+    const int sb = wg * KMT + mt;
+    const int sr = sb / (TW / 8);
+    const int sc = sb % (TW / 8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gy = y0 + 8 * sr + 2 * warp + h;
+      const int gx = x0 + 8 * sc + lane / 4;
+      const bool inside = gy < L.H && gx < L.W;
+      const size_t pix = static_cast<size_t>(b * L.H + gy) * L.W + gx;
+#pragma unroll
+      for (int set = 0; set < COUT / 32; ++set) {
+        float2 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[k] = make_float2(acc[mt][4 * (4 * set + k) + 2 * h],
+                             acc[mt][4 * (4 * set + k) + 2 * h + 1]);
+        }
+        quad_transpose(v, lane);
+        const int n0 = 8 * (4 * set + (lane & 3));
+        if (!inside) continue;
+        float t[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          t[2 * i] = v[i].x + __ldg(L.bias + n0 + 2 * i);
+          t[2 * i + 1] = v[i].y + __ldg(L.bias + n0 + 2 * i + 1);
+        }
+        if (L.final_level) {
+          float r[8];
+          load8(xin + pix * L.nc + n0, r);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) t[i] = r[i] + 0.2f * t[i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) t[i] = t[i] >= 0.f ? t[i] : 0.2f * t[i];
+        }
+        store8(out + pix * L.out_stride + L.out_off + n0, t);
+      }
+    }
+  }
 }
 
 template <int COUT, int TH, int TW>
@@ -450,118 +640,159 @@ __global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
 #pragma unroll
   for (int mt = 0; mt < P::kMt; ++mt) fence_regs(acc[mt]);
 
-  // epilogue: accumulator d[4q + 2h + e] is row 16 warp + lane / 4 + 8 h,
-  // column 8q + 2 (lane % 4) + e
-  const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(L.x);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(L.out);
-#pragma unroll
-  for (int mt = 0; mt < P::kMt; ++mt) {
-    const int sb = wg * P::kMt + mt;
-    const int sr = sb / (TW / 8);
-    const int sc = sb % (TW / 8);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gy = y0 + 8 * sr + 2 * warp + h;
-      const int gx = x0 + 8 * sc + lane / 4;
-      const bool inside = gy < L.H && gx < L.W;
-      const size_t pix = static_cast<size_t>(b * L.H + gy) * L.W + gx;
-#pragma unroll
-      for (int set = 0; set < COUT / 32; ++set) {
-        float2 v[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          v[k] = make_float2(acc[mt][4 * (4 * set + k) + 2 * h],
-                             acc[mt][4 * (4 * set + k) + 2 * h + 1]);
-        }
-        quad_transpose(v, lane);
-        const int n0 = 8 * (4 * set + (lane & 3));
-        if (!inside) continue;
-        float t[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          t[2 * i] = v[i].x + __ldg(L.bias + n0 + 2 * i);
-          t[2 * i + 1] = v[i].y + __ldg(L.bias + n0 + 2 * i + 1);
-        }
-        if (L.final_level) {
-          const uint4 r = *reinterpret_cast<const uint4*>(xin + pix * L.nc + n0);
-          const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 rf = __bfloat1622float2(r2[i]);
-            t[2 * i] = rf.x + 0.2f * t[2 * i];
-            t[2 * i + 1] = rf.y + 0.2f * t[2 * i + 1];
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) t[i] = t[i] >= 0.f ? t[i] : 0.2f * t[i];
-        }
-        uint4 packed;
-        __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p2[i] = __floats2bfloat162_rn(t[2 * i], t[2 * i + 1]);
-        *reinterpret_cast<uint4*>(out + pix * L.out_stride + L.out_off + n0) = packed;
-      }
-    }
-  }
+  epilogue<__nv_bfloat16, COUT, TW, P::kMt>(L, acc, wg, warp, lane, x0, y0, b);
 }
 
-// Level on CUDA cores. Thread t owns output channels [8 cg, 8 cg + 8) of
-// kPix tile pixels.
-template <typename T, int COUT>
-__global__ void __launch_bounds__(kThreads) rdb_level_simt(Level L) {
-  constexpr int kGroups = COUT / 8;
-  constexpr int kPix = kSimtTileH * kTileW * kGroups / kThreads;
-  __shared__ __align__(16) T tile[kSimtHaloPix * kChunk];
+template <int COUT, int TH, int TW>
+__global__ void __launch_bounds__(F32Plan<COUT, TH, TW>::kThreads, F32Plan<COUT, TH, TW>::kBlocks)
+    rdb_level_tf32x3(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_g, Level L) {
+  using P = F32Plan<COUT, TH, TW>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full0 = base + P::kStages * P::kStageBytes;
+  // warps done with each stage's chunk, after the full barriers
+  unsigned* done = reinterpret_cast<unsigned*>(smem_raw + (full0 - raw) + 8 * P::kStages);
 
-  const int cg = threadIdx.x % kGroups;
-  const int pg = threadIdx.x / kGroups;
+  const int x0 = blockIdx.x * TW;
+  const int y0 = blockIdx.y * TH;
   const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kSimtTileH;
-  const int x0 = blockIdx.x * kTileW;
-  const T* wmat = static_cast<const T*>(L.w);
+  const int chunks = L.cin / kKc32;
 
-  float acc[kPix][8];
-  int base[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    const int p = pg * kPix + j;
-    base[j] = ((p / kTileW) * kHaloW + p % kTileW) * kChunk;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[j][q] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // Stage chunk `it` in stage it % kStages: the window box from x or the
+  // growth buffer, and the chunk's weight image in one bulk copy.
+  const CUtensorMap* map_x = &tm_x;
+  const CUtensorMap* map_g = &tm_g;
+  const unsigned char* wimg = static_cast<const unsigned char*>(L.w);
+  auto stage_chunk = [=](int it) {
+    const uint32_t full = full0 + 8 * (it % P::kStages);
+    const uint32_t dst = base + (it % P::kStages) * P::kStageBytes;
+    const int c0 = it * kKc32;
+    mbar_expect_tx(full, P::kTxBytes);
+    bulk_load(dst + P::b_offset(0, 0), wimg + static_cast<size_t>(it) * P::kWBytes, P::kWBytes,
+              full);
+    if (c0 < L.nc) {
+      tma_load_4d(dst, map_x, full, c0, x0 - 1, y0 - 1, b);
+    } else {
+      tma_load_4d(dst, map_g, full, c0 - L.nc, x0 - 1, y0 - 1, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    // The weight image may have been written by the launch just before the
+    // first level, so nothing is read before that launch has finished.
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int it = 0; it < P::kStages && it < chunks; ++it) stage_chunk(it);
   }
 
-  for (int c0 = 0; c0 < L.cin; c0 += kChunk) {
-    __syncthreads();
-    stage_window<T>(L, b, y0, x0, c0, tile);
-    __syncthreads();
+  // Warpgroup `wg` owns sub-blocks wg * kMt .. wg * kMt + kMt - 1. Each tap's
+  // products are one commit group; the A fragments of a group stay
+  // untouched until it retires, so taps alternate between two fragment
+  // sets, with one group left in flight, and the next tap's A is loaded
+  // while it runs. The tensor cores' f32 accumulation truncates, and 648
+  // truncating accumulations (level 5) put the sum ~10x further from the
+  // exact one than f32 adds do; so a chunk's 27 products go into `acc`,
+  // which is added into `total` with rounding f32 adds once they have
+  // retired. Then the warp is done with the stage, and the last warp done
+  // with it stages the chunk kStages on. There is no producer warp: a ninth
+  // warp would take a third warp's share of one SM sub-partition's
+  // registers, leaving 168 a thread (96 at two blocks an SM) where the sums,
+  // accumulators and fragments need more.
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const uint32_t lane_off = P::a_lane(warp, lane);
+  constexpr int kFragSets = 2;
+  float total[P::kMt][COUT / 2] = {};
+  float acc[P::kMt][COUT / 2];
+  uint32_t frag[kFragSets][P::kMt][8];  // [set][sub-block][hi a0..a3, lo a0..a3]
+  // A of a tap, two 8-byte loads a sub-block: rows g (pixel row 2 warp) and
+  // g + 8 (2 warp + 1), K-columns t and t + 4, which are channels 2t and
+  // 2t + 1 (F32Plan.perm)
+  auto load_a = [&](float2 (&v)[P::kMt][2], uint32_t stage, int tap) {
+#pragma unroll
+    for (int mt = 0; mt < P::kMt; ++mt) {
+      const uint32_t a = stage + P::a_offset(wg * P::kMt + mt, tap) + lane_off;
+      v[mt][0] = lds_f2(a);
+      v[mt][1] = lds_f2(a + P::kARowBytes);
+    }
+  };
+
+  for (int it = 0; it < chunks; ++it) {
+    const int s = it % P::kStages;
+    mbar_wait(full0 + 8 * s, (it / P::kStages) & 1);
+    const uint32_t stage = base + s * P::kStageBytes;
+    float2 a_f32[P::kMt][2];  // the tap's A before its split
+    load_a(a_f32, stage, 0);
+#pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * kHaloW + tap % 3) * kChunk;
-      const T* wrow = wmat + static_cast<size_t>(tap * L.cin + c0) * COUT + cg * 8;
-#pragma unroll 4
-      for (int c = 0; c < kChunk; ++c) {
-        float wv[8];
+      uint32_t(&f)[P::kMt][8] = frag[tap % kFragSets];
 #pragma unroll
-        for (int q = 0; q < 8; ++q) wv[q] = to_f32(wrow[c * COUT + q]);
+      for (int mt = 0; mt < P::kMt; ++mt) {
+        split_tf32(a_f32[mt][0].x, f[mt][0], f[mt][4]);
+        split_tf32(a_f32[mt][1].x, f[mt][1], f[mt][5]);
+        split_tf32(a_f32[mt][0].y, f[mt][2], f[mt][6]);
+        split_tf32(a_f32[mt][1].y, f[mt][3], f[mt][7]);
+      }
 #pragma unroll
-        for (int j = 0; j < kPix; ++j) {
-          const float v = to_f32(tile[base[j] + toff + c]);
+      for (int mt = 0; mt < P::kMt; ++mt) fence_regs(acc[mt]);
+      wgmma_fence();
+      const uint64_t b_hi =
+          wgmma_desc(stage + P::b_offset(0, tap), P::kBLbo, P::kBSbo, P::kBMode);
+      const uint64_t b_lo =
+          wgmma_desc(stage + P::b_offset(1, tap), P::kBLbo, P::kBSbo, P::kBMode);
 #pragma unroll
-          for (int q = 0; q < 8; ++q) acc[j][q] = fmaf(v, wv[q], acc[j][q]);
+      for (int mt = 0; mt < P::kMt; ++mt) {
+        wgmma_tf32<COUT>(acc[mt], f[mt], b_hi, tap > 0);
+        wgmma_tf32<COUT>(acc[mt], f[mt], b_lo, 1);
+        wgmma_tf32<COUT>(acc[mt], f[mt] + 4, b_hi, 1);
+      }
+      wgmma_commit();
+      if (tap < 8) {
+        load_a(a_f32, stage, tap + 1);  // while the products run
+        // the group of tap + 1 - kFragSets has retired: its set is free
+        wgmma_wait<kFragSets - 1>();
+#pragma unroll
+        for (int mt = 0; mt < P::kMt; ++mt) {
+          fence_regs(acc[mt]);
+          fence_frag(frag[(tap + 1) % kFragSets][mt]);
         }
       }
     }
-  }
-
+    wgmma_wait<0>();
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    const int p = pg * kPix + j;
-    const int gy = y0 + p / kTileW;
-    const int gx = x0 + p % kTileW;
-    if (gy < L.H && gx < L.W) {
+    for (int mt = 0; mt < P::kMt; ++mt) {
+      fence_regs(acc[mt]);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) store_out<T>(L, b, gy, gx, cg * 8 + q, acc[j][q]);
+      for (int set = 0; set < kFragSets; ++set) fence_frag(frag[set][mt]);
+    }
+    // the last warp done with the stage refills it (no empty barrier: no
+    // thread waits for the others to be done)
+    if (lane == 0 && it + P::kStages < chunks) {
+      __threadfence_block();
+      if (atomicAdd(done + s, 1u) == 4 * P::kWarpgroups - 1) {
+        done[s] = 0;
+        __threadfence_block();
+        stage_chunk(it + P::kStages);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < P::kMt; ++mt) {
+#pragma unroll
+      for (int i = 0; i < COUT / 2; ++i) total[mt][i] += acc[mt][i];
     }
   }
+  epilogue<float, COUT, TW, P::kMt>(L, total, wg, warp, lane, x0, y0, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -599,17 +830,50 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map, zero fill outside the tensor. dims and box innermost
-// first; strides in bytes of dims 1.. .
-bool encode(CUtensorMap* map, int rank, const void* ptr, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A bf16 or f32 tensor map, zero fill outside the tensor. dims and box
+// innermost first; strides in bytes of dims 1.. .
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+            CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Maps of x and the growth buffer as (C, W, H, B) of `e`-byte elements,
+// boxes of kc channels over a th x tw tile's window.
+bool window_maps(CUtensorMap* tm_x, CUtensorMap* tm_g, const Level& L, CUtensorMapDataType type,
+                 cuuint64_t e, cuuint32_t kc, int th, int tw, CUtensorMapSwizzle swizzle) {
+  const cuuint32_t box[4] = {kc, cuuint32_t(tw + 2), cuuint32_t(th + 2), 1};
+  const cuuint64_t x_dims[4] = {cuuint64_t(L.nc), cuuint64_t(L.W), cuuint64_t(L.H), cuuint64_t(L.B)};
+  const cuuint64_t x_strides[3] = {L.nc * e, L.W * L.nc * e, cuuint64_t(L.H) * L.W * L.nc * e};
+  const cuuint64_t g_dims[4] = {cuuint64_t(L.gstride), cuuint64_t(L.W), cuuint64_t(L.H),
+                                cuuint64_t(L.B)};
+  const cuuint64_t g_strides[3] = {L.gstride * e, L.W * L.gstride * e,
+                                   cuuint64_t(L.H) * L.W * L.gstride * e};
+  return encode(tm_x, type, 4, L.x, x_dims, x_strides, box, swizzle) &&
+         encode(tm_g, type, 4, L.g, g_dims, g_strides, box, swizzle);
+}
+
+// Launch with programmatic dependent launch: the grid may start while the
+// previous launch on the stream finishes, see griddepcontrol in the kernels.
+template <typename Kernel, typename... Args>
+cudaError_t launch_pdl(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t s,
+                       Args... args) {
+  cudaLaunchAttribute pdl{};
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 CUtensorMapSwizzle tma_swizzle(int span) {
@@ -624,39 +888,21 @@ cudaError_t launch_wgmma(const Level& L, cudaStream_t s) {
   constexpr auto kernel = rdb_level_wgmma<COUT, TH, TW>;
   const cudaError_t err = allow_smem<kernel>(P::kSmemBytes);
   if (err != cudaSuccess) return err;
-  // x and the growth buffer as (C, W, H, B), boxes of kKc channels over the
-  // tile's window; the weights as (cout, cin, 9), boxes of all columns over
-  // kKc input channels and the nine taps
+  // the window boxes of kKc channels; the weights as (cout, cin, 9), boxes
+  // of all columns over kKc input channels and the nine taps
   CUtensorMap tm_x, tm_g, tm_w;
   const cuuint64_t e = 2;  // bytes per element
-  const cuuint32_t win_box[4] = {kKc, TW + 2, TH + 2, 1};
-  const cuuint64_t x_dims[4] = {cuuint64_t(L.nc), cuuint64_t(L.W), cuuint64_t(L.H), cuuint64_t(L.B)};
-  const cuuint64_t x_strides[3] = {L.nc * e, L.W * L.nc * e, cuuint64_t(L.H) * L.W * L.nc * e};
-  const cuuint64_t g_dims[4] = {cuuint64_t(L.gstride), cuuint64_t(L.W), cuuint64_t(L.H),
-                                cuuint64_t(L.B)};
-  const cuuint64_t g_strides[3] = {L.gstride * e, L.W * L.gstride * e,
-                                   cuuint64_t(L.H) * L.W * L.gstride * e};
   const cuuint32_t w_box[3] = {COUT, kKc, 9};
   const cuuint64_t w_dims[3] = {cuuint64_t(COUT), cuuint64_t(L.cin), 9};
   const cuuint64_t w_strides[2] = {COUT * e, cuuint64_t(L.cin) * COUT * e};
-  if (!encode(&tm_x, 4, L.x, x_dims, x_strides, win_box, tma_swizzle(P::kASpan)) ||
-      !encode(&tm_g, 4, L.g, g_dims, g_strides, win_box, tma_swizzle(P::kASpan)) ||
-      !encode(&tm_w, 3, L.w, w_dims, w_strides, w_box, tma_swizzle(P::kBSpan))) {
+  if (!window_maps(&tm_x, &tm_g, L, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, e, kKc, TH, TW,
+                   tma_swizzle(P::kASpan)) ||
+      !encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, L.w, w_dims, w_strides, w_box,
+              tma_swizzle(P::kBSpan))) {
     return cudaErrorInvalidValue;
   }
-  // programmatic dependent launch: this grid may start while the previous
-  // launch on the stream finishes, see griddepcontrol in the kernel
-  cudaLaunchAttribute pdl{};
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3((L.W + TW - 1) / TW, (L.H + TH - 1) / TH, L.B);
-  cfg.blockDim = dim3(P::kThreads);
-  cfg.dynamicSmemBytes = P::kSmemBytes;
-  cfg.stream = s;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_g, tm_w, L);
+  const dim3 grid((L.W + TW - 1) / TW, (L.H + TH - 1) / TH, L.B);
+  return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, tm_x, tm_g, tm_w, L);
 }
 
 template <int COUT>
@@ -664,6 +910,32 @@ cudaError_t launch_wgmma_tile(const Level& L, int tile, cudaStream_t s) {
   switch (tile) {
     case 0: return launch_wgmma<COUT, 8, 8>(L, s);
     case 1: return launch_wgmma<COUT, 16, 16>(L, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int COUT, int TH, int TW>
+cudaError_t launch_tf32x3(const Level& L, cudaStream_t s) {
+  using P = F32Plan<COUT, TH, TW>;
+  constexpr auto kernel = rdb_level_tf32x3<COUT, TH, TW>;
+  const cudaError_t err = allow_smem<kernel>(P::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // the window boxes of kKc32 channels, unswizzled; the weights come as one
+  // bulk copy a chunk, with no tensor map
+  CUtensorMap tm_x, tm_g;
+  if (!window_maps(&tm_x, &tm_g, L, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, kKc32, TH, TW,
+                   CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((L.W + TW - 1) / TW, (L.H + TH - 1) / TH, L.B);
+  return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, tm_x, tm_g, L);
+}
+
+template <int COUT>
+cudaError_t launch_tf32x3_tile(const Level& L, int tile, cudaStream_t s) {
+  switch (tile) {
+    case 0: return launch_tf32x3<COUT, 8, 8>(L, s);
+    case 1: return launch_tf32x3<COUT, 16, 16>(L, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -690,15 +962,39 @@ int export_plan(int* out, int n) {
   return i;
 }
 
+// F32Plan<COUT, TH, TW> as ints, in the order of ops/rdb.py:F32Plan.vector:
+// kKc32, threads, blocks an SM, stages, stage bytes, window bytes, weight
+// bytes, bytes a stage expects, dynamic shared memory, B's swizzle span,
+// LBO and SBO, a window row's bytes, lane 0's and lane 31's A offset in
+// warp 3, B's offset at each (hl, tap), A's offset at each (sub-block, tap).
+template <int COUT, int TH, int TW>
+int export_f32_plan(int* out, int n) {
+  using P = F32Plan<COUT, TH, TW>;
+  int v[15 + 18 + 9 * P::kSub] = {kKc32,         P::kThreads,  P::kBlocks,   P::kStages,
+                                  P::kStageBytes, P::kWinBytes, P::kWBytes,   P::kTxBytes,
+                                  P::kSmemBytes,  P::kBSpan,    P::kBLbo,     P::kBSbo,
+                                  P::kARowBytes,  P::a_lane(3, 0), P::a_lane(3, 31)};
+  int i = 15;
+  for (int hl = 0; hl < 2; ++hl) {
+    for (int tap = 0; tap < 9; ++tap) v[i++] = P::b_offset(hl, tap);
+  }
+  for (int sb = 0; sb < P::kSub; ++sb) {
+    for (int tap = 0; tap < 9; ++tap) v[i++] = P::a_offset(sb, tap);
+  }
+  for (int j = 0; j < i && j < n; ++j) out[j] = v[j];
+  return i;
+}
+
 }  // namespace
 
 extern "C" {
 
 // The five levels of one RDB, one launch each, in order on `stream`.
 // x (B, H, W, nc); g the growth buffer (B, H, W, 4 gc); w and bias the five
-// levels' (9 * cin, cout) weights and f32 biases; y (B, H, W, nc).
-// kernel: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma). tile (kernel 1
-// only): 0 = 8x8, 1 = 16x16 output pixels a block, see ops/rdb.py:TILES.
+// levels' weights (bf16: (9 * cin, cout); f32: ops/rdb.py:split_weights'
+// images) and f32 biases; y (B, H, W, nc). kernel: 0 = float32
+// (rdb_level_tf32x3), 1 = bfloat16 (rdb_level_wgmma). tile: 0 = 8x8, 1 =
+// 16x16 output pixels a block, see ops/rdb.py:TILES.
 // Returns a cudaError_t: cudaErrorInvalidValue for an unsupported kernel,
 // width or tile, or a tensor map cuTensorMapEncodeTiled refuses; else
 // cudaGetLastError() after each launch, stopping at the first that fails.
@@ -716,10 +1012,8 @@ int dasr_rdb_forward(int kernel, const void* x, void* g, const void* const* w,
     cudaError_t err = cudaSuccess;
     if (kernel == 1 && (cout == 64 || cout == 32) && cin % kKc == 0) {
       err = cout == 64 ? launch_wgmma_tile<64>(L, tile, s) : launch_wgmma_tile<32>(L, tile, s);
-    } else if (kernel == 0 && (cout == 64 || cout == 32)) {
-      const dim3 grid((W + kTileW - 1) / kTileW, (H + kSimtTileH - 1) / kSimtTileH, B);
-      auto kern = cout == 64 ? rdb_level_simt<float, 64> : rdb_level_simt<float, 32>;
-      kern<<<grid, kThreads, 0, s>>>(L);
+    } else if (kernel == 0 && (cout == 64 || cout == 32) && cin % kKc32 == 0) {
+      err = cout == 64 ? launch_tf32x3_tile<64>(L, tile, s) : launch_tf32x3_tile<32>(L, tile, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -736,6 +1030,16 @@ int dasr_rdb_wgmma_plan(int cout, int tile, int* out, int n) {
   if (cout == 32 && tile == 1) return export_plan<32, 16, 16>(out, n);
   if (cout == 64 && tile == 0) return export_plan<64, 8, 8>(out, n);
   if (cout == 64 && tile == 1) return export_plan<64, 16, 16>(out, n);
+  return -1;
+}
+
+// The f32 kernel's shared-memory plan for cout (32 or 64) and tile, see
+// export_f32_plan; -1 for another cout or tile.
+int dasr_rdb_f32_plan(int cout, int tile, int* out, int n) {
+  if (cout == 32 && tile == 0) return export_f32_plan<32, 8, 8>(out, n);
+  if (cout == 32 && tile == 1) return export_f32_plan<32, 16, 16>(out, n);
+  if (cout == 64 && tile == 0) return export_f32_plan<64, 8, 8>(out, n);
+  if (cout == 64 && tile == 1) return export_f32_plan<64, 16, 16>(out, n);
   return -1;
 }
 

@@ -92,8 +92,9 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     vp, i, vpp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     lib.dasr_rdb_forward.argtypes = [i, vp, vp, vpp, vpp, vp] + [i] * 6 + [vp]
     lib.dasr_rdb_forward.restype = i
-    lib.dasr_rdb_wgmma_plan.argtypes = [i, i, ctypes.POINTER(i), i]
-    lib.dasr_rdb_wgmma_plan.restype = i
+    for plan in (lib.dasr_rdb_wgmma_plan, lib.dasr_rdb_f32_plan):
+        plan.argtypes = [i, i, ctypes.POINTER(i), i]
+        plan.restype = i
     lib.dasr_cuda_error_string.argtypes = [i]
     lib.dasr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -21,12 +21,13 @@ What bounds it on the H100: arithmetic. One RDB (nc 64, gc 32) does
 2 * 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64) = 479,232 FLOP
 per pixel: 62.81 GFLOP at (8, 128, 128), 63.5 us at the 989 TFLOP/s bf16
 peak, against 10.2 us for the ~34 MB it must move (x in, y out, 0.48 MB of
-weights); ``rdb_cost`` and ``bound_ms`` compute both. Run as five launches,
-each level also moves its own inputs and output: levels 1-4 lie below the
-card's ~295 FLOP/byte ridge and level 5 above it, a floor of ~74 us at
-(8, 128, 128) (``level_costs``). The 69 RDBs of the x4 RRDBNet are 33.1 of
-its 35.9 MFLOP per LR pixel. So the design keeps the bytes near the minimum
-and puts the FLOPs on the tensor cores:
+weights); ``rdb_cost`` and ``bound_ms`` compute both. At f32 the least
+time is 0.381 ms, three TF32 products per f32 product (``PEAK_FLOPS``). Run
+as five launches, each level also moves its own inputs and output: levels
+1-4 lie below the card's ~295 FLOP/byte ridge and level 5 above it, a floor
+of ~74 us at (8, 128, 128) (``level_costs``). The 69 RDBs of the x4 RRDBNet
+are 33.1 of its 35.9 MFLOP per LR pixel. So the design keeps the bytes near
+the minimum and puts the FLOPs on the tensor cores:
 
 * a preallocated NHWC growth buffer (B, H, W, 4 gc) takes x_1..x_4; level k
   reads channels [0, nc) of x and [0, (k-1) gc) of the buffer and writes its
@@ -51,16 +52,33 @@ and puts the FLOPs on the tensor cores:
   programmatic dependent launch, so its blocks set up while the previous
   level drains. The epilogue runs on the accumulators: bias + leaky ReLU or
   the residual, rounded once, 16-byte stores;
-* f32 runs on CUDA cores (full f32, no TF32), an 8 x 16 tile per block.
+* f32 runs on the same machinery with split-TF32 products (``rdb_level_tf32x3``,
+  CUTLASS's "3xTF32"): each operand v is split into hi = tf32(v) and
+  lo = tf32(v - hi), both rounded to nearest, and each product is
+  hi.hi + hi.lo + lo.hi, three tf32 ``wgmma`` into one f32 accumulator set.
+  What it drops (lo.lo and the split's remainders) is ~2^-22 of each product.
+  The tensor cores truncate each f32 sum, so each 8-channel chunk's 27
+  products are summed apart and added into the level's total in f32.
+  A stage holds 8 input channels (one k8 step). ``wgmma`` has no transpose
+  for 32-bit types, so B is K-major: ``split_weights`` makes, once per
+  parameter version, each level's image [chunk][hi, lo][tap][cout][8 ci],
+  already split and in the 32-byte swizzle, which one bulk copy a stage
+  lands. A comes from registers: each lane loads its fragment from the
+  staged window (unswizzled), splits it and issues the three products; the
+  8 input channels of each chunk are ordered in B (``F32Plan.perm``) so that
+  a lane's two K-columns are adjacent channels. ``F32Plan`` states that
+  layout; the CPU tests emulate the products through it and
+  ``chip_smoke.py`` holds it against the plan compiled into the kernel.
 
 Weights are HWIO, which read as (9 * cin, cout) matrices with rows ordered
 (dy, dx, ci), the layout of ``_im2col_weights``; ``prepare_weights`` makes
-them once per parameter version and the modules cache the result. Not done
-yet, and left to later PRs: fusing levels 1-4 per tile (worth it once the
-kernel nears the five-launch floor), a persistent grid, the f32 variant on
-tensor cores. The Pallas design (a whole RDB per tile) does not fit: five
-on-chip activations of a 16x16 tile already take ~196 KiB of the 227 KB of
-shared memory.
+them once per parameter version, with the f32 kernel's split images beside
+them on the card, and the modules cache the result; under autograd the split
+images are made on every call. Not done yet, and left to later PRs: fusing
+levels 1-4 per tile (worth it once the kernel nears the five-launch floor),
+a persistent grid. The Pallas design (a whole RDB per tile) does not fit:
+five on-chip activations of a 16x16 tile already take ~196 KiB of the 227 KB
+of shared memory.
 
 Tolerances, stated once here; the tests and ``chip_smoke.py`` import
 ``TOLERANCES``:
@@ -69,8 +87,20 @@ Tolerances, stated once here; the tests and ``chip_smoke.py`` import
 check               atol    rtol    why
 ==================  ======  ======  ==================================================
 kernel_f32          1e-4    0       f32 kernel vs f32 plain version on the card: the
-                                    same f32 products summed in another order over
-                                    K <= 1728 terms (TF32 is off on both sides).
+                                    kernel's split-TF32 products (hi.hi + hi.lo +
+                                    lo.hi, each off the f32 product by ~2^-22 of it)
+                                    summed in another order over K <= 1728 terms than
+                                    the plain version's f32 products (TF32 off).
+kernel_f32_f64      0       2       f32 kernel vs an f64 computation of the same RDB:
+                                    max |kernel - f64| <= rtol x max |plain - f64|, the
+                                    plain version's f32 error on the same inputs. The
+                                    split-TF32 products drop ~2^-22 of each product,
+                                    which beside the f32 rounding of the sums must not
+                                    more than double the error. One TF32 product
+                                    (2^-11 of each) is ~280x off in the CPU emulation;
+                                    the three products in one truncating accumulator
+                                    over a level, without the per-chunk f32 adds,
+                                    were 8-22x off on the H100.
 kernel_bf16         3e-3    2^-7    bf16 kernel vs the plain version on the same bf16
                                     tensors, which rounds x_1..x_4 and the output
                                     where the kernel does: the f32 sums differ only
@@ -152,6 +182,7 @@ import torch.nn.functional as F
 
 TOLERANCES = {
     "kernel_f32": (1e-4, 0.0),
+    "kernel_f32_f64": (0.0, 2.0),
     "kernel_bf16": (3e-3, 2.0**-7),
     "bf16_vs_f32": (3e-2, 2e-2),
     "jax_rdb": (1e-4, 0.0),
@@ -168,12 +199,18 @@ TOLERANCES = {
 }
 
 LAUNCHES_PER_RDB = 5  # one kernel launch per level
-# kernel codes of the C entry point: f32 on CUDA cores, bf16 on wgmma
+# kernel codes of the C entry point: f32 split-TF32 wgmma, bf16 wgmma
 _KERNEL_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3, and
+# for f32 the faster of two ways to an f32-accurate product: the CUDA
+# cores' 67 TFLOP/s, or three TF32 products (split-TF32) at 495 / 3 = 165.
+# So f32's bound is min(flop / 67e12, 3 flop / 495e12), 0.381 ms at
+# (8, 128, 128).
+TF32_PEAK_FLOPS = 495e12
+F32_CUDA_CORE_PEAK_FLOPS = 67e12
+PEAK_FLOPS = {torch.bfloat16: 989e12,
+              torch.float32: max(F32_CUDA_CORE_PEAK_FLOPS, TF32_PEAK_FLOPS / 3)}
 PEAK_BYTES_PER_S = 3.35e12
 
 # (rows, columns) of output pixels a block of the bf16 kernel owns, by the
@@ -253,15 +290,136 @@ class WgmmaPlan:
                 + [self.a_desc(sb, tap)[0] for sb in range(self.sub) for tap in range(9)])
 
 
-def kernel_plan(cout, tile):
-    """The plan compiled into the bf16 kernel for (cout, tile code), in the
-    order of ``WgmmaPlan.vector``. Loads the library, so it needs nvcc."""
+class F32Plan:
+    """The f32 kernel's shared-memory plan for one (cout, tile code), as
+    ``F32Plan`` in ``csrc/rdb.cu`` lays it out (byte offsets within a stage):
+
+    * window: [row][col][kc ch] over the (th + 2) x (tw + 2) window, one
+      unswizzled 32-byte row a pixel (the lanes load it, not ``wgmma``);
+    * weights, after the window (1024-byte aligned): the chunk's slice of
+      ``split_weights``' image, [hl][tap][cout][kc], hl 0 hi and 1 lo, one
+      32-byte row per output channel in the 32-byte swizzle (pre-swizzled by
+      ``split_weights``, so a linear copy lands it).
+
+    A's fragment comes from registers: lane (g, t) of warp w holds rows
+    16 w + g and 16 w + g + 8 of a sub-block (its pixels (2 w, g) and
+    (2 w + 1, g)) at K-columns t and t + 4, read as one 8-byte load of
+    channels 2t, 2t + 1 from each pixel (``a_lane``); so K-column k of a
+    chunk is its channel ``perm[k]``, and B is ordered so. ``b_desc`` gives
+    each B operand's (start, LBO, SBO, swizzle span): K-major, SBO the next
+    8 output channels. ``vector`` lists the plan in the order of the
+    library's ``dasr_rdb_f32_plan``, which ``kernel_plan`` reads."""
+
+    kc = 8  # input channels per pipeline stage: one tf32 k8 step
+    perm = (0, 2, 4, 6, 1, 3, 5, 7)  # K-column k of a chunk is channel perm[k]
+
+    def __init__(self, cout, tile):
+        self.cout = cout
+        self.th, self.tw = TILES[tile]
+        self.sub = (self.th // 8) * (self.tw // 8)
+        self.warpgroups = 1 if self.sub < 2 else 2
+        self.mt = self.sub // self.warpgroups
+        self.threads = 128 * self.warpgroups
+        self.blocks = 1 if cout == 64 and self.mt == 2 else 2
+        self.win_w = self.tw + 2
+        self.win_pix = (self.th + 2) * (self.tw + 2)
+        self.pix_bytes = 4 * self.kc
+        self.win_bytes = -(-self.win_pix * self.pix_bytes // 1024) * 1024
+        self.op_bytes = cout * self.pix_bytes
+        self.w_bytes = 2 * 9 * self.op_bytes
+        self.stage_bytes = self.win_bytes + self.w_bytes
+        self.tx_bytes = self.win_pix * self.pix_bytes + self.w_bytes
+        share = (232448 if self.blocks == 1 else 233472 // 2 - 1024) - 1024 - 64
+        self.stages = min(4, share // self.stage_bytes)
+        self.smem_bytes = self.stages * self.stage_bytes + 16 * self.stages + 1024
+        self.row_bytes = self.win_w * self.pix_bytes
+
+    def sub_block(self, sb):
+        """(row, col) of sub-block sb's first pixel in the tile."""
+        cols = self.tw // 8
+        return 8 * (sb // cols), 8 * (sb % cols)
+
+    def a_offset(self, sb, tap):
+        r, c = self.sub_block(sb)
+        dy, dx = divmod(tap, 3)
+        return ((r + dy) * self.win_w + c + dx) * self.pix_bytes
+
+    def a_lane(self, warp, lane):
+        """Byte offset, from ``a_offset``, of the 8-byte load of lane's pixel
+        row 2 warp; the load of row 2 warp + 1 is ``row_bytes`` after it."""
+        return 2 * warp * self.row_bytes + (lane // 4) * self.pix_bytes + (lane % 4) * 8
+
+    def b_desc(self, hl, tap):
+        return self.win_bytes + (9 * hl + tap) * self.op_bytes, 16, 8 * self.pix_bytes, \
+            self.pix_bytes
+
+    def vector(self):
+        _, b_lbo, b_sbo, b_span = self.b_desc(0, 0)
+        return ([self.kc, self.threads, self.blocks, self.stages, self.stage_bytes,
+                 self.win_bytes, self.w_bytes, self.tx_bytes, self.smem_bytes, b_span, b_lbo,
+                 b_sbo, self.row_bytes, self.a_lane(3, 0), self.a_lane(3, 31)]
+                + [self.b_desc(hl, tap)[0] for hl in range(2) for tap in range(9)]
+                + [self.a_offset(sb, tap) for sb in range(self.sub) for tap in range(9)])
+
+
+def split_tf32(v):
+    """(hi, lo) of f32 ``v``: hi = v rounded to TF32 (10 mantissa bits) to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32`` does, and lo =
+    v - hi rounded so; v - hi - lo is within 2^-22 |v|."""
+
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def split_weights(kernel):
+    """The f32 kernel's weight image of one level from its HWIO f32 kernel
+    (3, 3, cin, cout): (cin / 8, 2, 9, cout, 8) f32, [chunk][hi, lo][tap]
+    [output channel][K-column], K-column k of chunk c holding input channel
+    8 c + ``F32Plan.perm[k]``, and each 256-byte group of 8 rows in the
+    32-byte swizzle (rows 4-7 swap their 16-byte halves): the bytes the
+    kernel's bulk copy lands in a stage, and its wgmma descriptors read."""
+    kh, kw, cin, cout = kernel.shape
+    hi, lo = split_tf32(kernel.detach().float().reshape(kh * kw, cin, cout))
+    w = torch.stack((hi, lo)).reshape(2, 9, cin // 8, 8, cout).permute(2, 0, 1, 4, 3)
+    idx = _image_columns(cout, kernel.device).expand(cin // 8, 2, 9, cout, 8)
+    return torch.gather(w, 4, idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_columns(cout, device):
+    """(cout, 8): the input channel of a chunk that byte column j (in 4-byte
+    units) of output channel n's row holds: K-column j, swizzled, in
+    ``F32Plan.perm``'s order."""
+    row = torch.arange(cout).view(cout, 1)
+    col = torch.arange(8).view(1, 8)
+    return torch.tensor(F32Plan.perm)[col ^ (4 * ((row >> 2) & 1))].to(device)
+
+
+class PreparedKernels(tuple):
+    """The five HWIO kernels ``fused_rdb`` takes, as ``prepare_weights``
+    makes them; at f32 on the card also their ``split`` images
+    (``split_weights``), which the f32 kernel reads. Any other tuple of
+    kernels has them made on each call."""
+
+    split = None
+
+
+def kernel_plan(cout, tile, dtype=torch.bfloat16):
+    """The plan compiled into the bf16 kernel (``WgmmaPlan.vector``) or the
+    f32 kernel (``F32Plan.vector``) for (cout, tile code). Loads the
+    library, so it needs nvcc."""
     from dasr_tpu_torch.kernels import build
 
+    lib = build.load()
+    fn = lib.dasr_rdb_wgmma_plan if dtype == torch.bfloat16 else lib.dasr_rdb_f32_plan
     out = (ctypes.c_int * 128)()
-    n = build.load().dasr_rdb_wgmma_plan(cout, tile, out, len(out))
+    n = fn(cout, tile, out, len(out))
     if not 0 <= n <= len(out):
-        raise ValueError(f"kernel_plan: no bf16 kernel for cout {cout}, tile {tile}")
+        raise ValueError(f"kernel_plan: no {dtype} kernel for cout {cout}, tile {tile}")
     return list(out[:n])
 
 
@@ -296,26 +454,31 @@ def bound_ms(flop, nbytes, dtype=torch.bfloat16):
 
 def prepare_weights(kernels, biases, dtype):
     """HWIO kernels in the working type and f32 biases, contiguous and
-    detached: what ``fused_rdb`` takes on the card."""
+    detached: what ``fused_rdb`` takes on the card. At f32 on the card the
+    kernels carry their ``split_weights`` images too (``PreparedKernels``)."""
     with torch.no_grad():
-        ks = tuple(k.detach().to(dtype).contiguous() for k in kernels)
+        ks = PreparedKernels(k.detach().to(dtype).contiguous() for k in kernels)
         bs = tuple(b.detach().to(torch.float32).contiguous() for b in biases)
+        if dtype == torch.float32 and ks[0].is_cuda:
+            ks.split = tuple(split_weights(k) for k in ks)
     return ks, bs
 
 
 def fused_rdb_reference(x, kernels, biases):
     """Plain PyTorch version: ``F.conv2d`` over the concatenated prefix.
 
-    x (B, H, W, nc) NHWC; kernels HWIO; biases (cout,). Convs run in f32 on
-    working-type-rounded inputs; returns NHWC in x's dtype."""
+    x (B, H, W, nc) NHWC; kernels HWIO; biases (cout,). Convs run in f32 (in
+    f64 for an f64 x, which makes this the f64 RDB the f32 kernel is held
+    against) on working-type-rounded inputs; returns NHWC in x's dtype."""
     dt = x.dtype
-    feats = [x.permute(0, 3, 1, 2).float()]
+    ct = torch.promote_types(dt, torch.float32)
+    feats = [x.permute(0, 3, 1, 2).to(ct)]
     out = None
     for k in range(5):
-        w = kernels[k].to(dt).float().permute(3, 2, 0, 1)
-        v = F.conv2d(torch.cat(feats, 1), w, biases[k].float(), padding=1)
+        w = kernels[k].to(dt).to(ct).permute(3, 2, 0, 1)
+        v = F.conv2d(torch.cat(feats, 1), w, biases[k].to(ct), padding=1)
         if k < 4:
-            feats.append(F.leaky_relu(v, 0.2).to(dt).float())
+            feats.append(F.leaky_relu(v, 0.2).to(dt).to(ct))
         else:
             out = (feats[0] + 0.2 * v).to(dt)
     return out.permute(0, 2, 3, 1)
@@ -406,7 +569,10 @@ def fused_rdb(x, kernels, biases):
     return _forward(x, kernels, biases)
 
 
-fused_rdb.launches = 0  # forward kernel launches on the card since the last reset
+# forward kernel launches on the card since the last reset: of either kernel,
+# and of the f32 one (rdb_level_tf32x3) alone
+fused_rdb.launches = 0
+fused_rdb.launches_f32 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -459,6 +625,9 @@ def _launch(x, kernels, biases):
     gc = kernels[0].shape[-1]
     growth = torch.empty((b, h, w, 4 * gc), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
+    f32 = x.dtype == torch.float32
+    if f32:
+        kernels = getattr(kernels, "split", None) or tuple(split_weights(k) for k in kernels)
     ptrs = ctypes.c_void_p * 5
     with torch.cuda.device(x.device):
         rc = lib.dasr_rdb_forward(
@@ -469,4 +638,5 @@ def _launch(x, kernels, biases):
         )
     build.check(lib, rc, "fused_rdb")
     fused_rdb.launches += LAUNCHES_PER_RDB
+    fused_rdb.launches_f32 += LAUNCHES_PER_RDB if f32 else 0
     return y
