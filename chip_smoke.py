@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases paired                    # sr, srgan/srragan, De_Resnet
     python3 chip_smoke.py --phases depatch,sft               # De_patch_wavelet_GAN, SFT-GAN
     python3 chip_smoke.py --phases lpips                     # LPIPS breadth, 2AFC, the tools
+    python3 chip_smoke.py --phases ablation                  # the experiment tools
     python3 chip_smoke.py --phases dist                      # one NCCL rank, two ranks
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
@@ -169,7 +170,26 @@ CPU or to a plain version):
             phase 2, its PSNR/SSIM against srn_test's on the same weights
             and images (0.01 dB, 1e-4 SSIM), s/image; test_dataloader and each
             script once. It needs phase 2, which it then runs too.
-16. dist   - the multi-rank paths (core/dist.py), in children started by
+16. ablation - the port's experiment tools (dasr_tpu_torch/tools) as a user
+            runs them: make_synth_corpus --noise_mode textured (24 targets of
+            512x512, 48 sources, 4 val pairs of 256x384); ddm_ablation with
+            --skip_train (stage 1, dsn_train for ABLATION_DSN_EPOCHS epochs at
+            the launcher's batch 8 and crop 256; stage 2; stage 3, the DDM
+            localization), counted (no RDB: 0 launches), then with --skip_dsn
+            --skip_dataset (stage 3 again, equal; stage 4, two srn_train runs
+            of ABLATION_NITER iterations, multiweights on and off, at the full
+            width of train_DASR_auto_reproduce.json, bf16; stage 5, the
+            region-split eval from each run's {iter}.pt), counted (345
+            launches a generator forward, each RDB5C forward a kernel run),
+            its kernel shapes checked in phases 2 and 4; every stage's
+            outputs, finite losses and finite PSNRs of both runs in
+            ablation_results.json; parity_dryrun at nb 23 on a 256x256 and a
+            540x600 LR image, the port's f32 SRModel (the f32 kernel) plain and
+            chopped against the functional forward and the forward_chop
+            replica (TF32 off) within the nb 23 f32 network limit, counted
+            (all f32 launches). It needs phases 2 and 4, which it then runs
+            too.
+17. dist   - the multi-rank paths (core/dist.py), in children started by
             ``python -m torch.distributed.run``, each reporting its fused_rdb
             launches and kernel shapes on a DIST_CHILD line and in a file of
             its own: one NCCL rank
@@ -401,7 +421,7 @@ def phase_kernel(gpu):
     checked = set()
     with torch.no_grad():
         for b, h, w in (KERNEL_SHAPES + SERVE_SHAPES + TRAIN_SHAPES + TOOLS_SHAPES
-                        + ADAPTIVE_SHAPES + PAIRED_SHAPES + DIST_SHAPES):
+                        + ADAPTIVE_SHAPES + PAIRED_SHAPES + DIST_SHAPES + ABLATION_SHAPES):
             x_np, ks_np, bs_np = rdb_inputs(rng, b, h, w)
             x = torch.from_numpy(x_np).to(dev)
             ks = [torch.from_numpy(k).to(dev) for k in ks_np]
@@ -3598,6 +3618,191 @@ def phase_lpips(gpu, root, checked):
     return report
 
 
+# -- phase ablation: the experiment tools ---------------------------------------
+
+# make_synth_corpus --noise_mode textured: 24 targets of 512x512, 48 sources
+# (256x256 content downscaled to 128x128 LRs), 4 val pairs of 256x384
+ABLATION_CORPUS = ("--n_target", "24", "--n_source", "48", "--n_valid", "4", "--hr_h", "512",
+                   "--hr_w", "512", "--valid_h", "256", "--valid_w", "384")
+ABLATION_DSN_EPOCHS = 2  # 48 sources, batch 8: 6 steps an epoch
+ABLATION_NITER = 32  # a run: four windows of 8 steps, a validation after each
+DRYRUN_LR = ((256, 256), (540, 600))  # the dry-run's LR images: one below, one past 320000 px
+# what the ablation phase gives the kernel beyond the other phases: stage 4's
+# validation and stage 5 on the 64x96 val LRs whole (bf16), and the f32
+# dry-run's chop of its two images into 2 x 2 tiles of 148x148 and 290x320
+ABLATION_SHAPES = ((1, 64, 96), (4, 148, 148), (4, 290, 320))
+
+
+def phase_ablation(gpu, root, checked, checked_grad):
+    """The experiment tools as a user runs them: make_synth_corpus (a
+    textured corpus), ddm_ablation with --skip_train (stages 1-3, counted: no
+    RDB) and then with --skip_dsn --skip_dataset (stages 3-5 at the
+    template's full width, counted), and parity_dryrun at nb 23, f32,
+    counted, within the nb 23 f32 network limit."""
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from dasr_tpu_torch.nn.blocks import RDB5C
+    from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, TOLERANCES, fused_rdb
+    from dasr_tpu_torch.tools import ddm_ablation, parity_dryrun
+
+    t_phase = time.perf_counter()
+    base = os.path.join(root, "ablation")
+    corpus, work = os.path.join(base, "corpus"), os.path.join(base, "work")
+    report = {}
+
+    # 1. the corpus, through the module's entry point
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dasr_tpu_torch.tools.make_synth_corpus",
+                           "--out", corpus, "--noise_mode", "textured", *ABLATION_CORPUS,
+                           "--workers", "8"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    report["corpus_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"make_synth_corpus failed: {proc.stderr[-2000:]}")
+    counts = {d: len(os.listdir(os.path.join(corpus, d)))
+              for d in ("target", "source", "valid_hr", "valid_lr")}
+    if counts != {"target": 24, "source": 48, "valid_hr": 4, "valid_lr": 4} or not \
+            os.path.exists(os.path.join(corpus, "paths.yml")):
+        fail(f"make_synth_corpus wrote {counts}")
+    print(f"ablation corpus: {counts} in {report['corpus_s']:.2f} s", flush=True)
+
+    # 2. stages 1-3 (--skip_train: stage 4 writes the configs, stage 5 finds
+    # no run), counted: the DSN stages run no RDB
+    seen = set()
+
+    def record(mod, args):
+        if isinstance(mod, RDB5C):
+            b, _, h, w = args[0].shape
+            seen.add((b, h, w, args[0].dtype, torch.is_grad_enabled()))
+
+    argv = ["--corpus", corpus, "--work", work, "--dsn_epochs", str(ABLATION_DSN_EPOCHS),
+            "--niter", str(ABLATION_NITER), "--device", "cuda"]
+    zero_launches(fused_rdb)
+    t0 = time.perf_counter()
+    first = run_cli(ddm_ablation.main, argv + ["--skip_train"])
+    report["stages_1_3_s"] = time.perf_counter() - t0
+    launches = read_launches(fused_rdb, "ablation")
+    if launches:
+        fail(f"ablation stages 1-3: fused_rdb launched {launches} times (no RDB there)")
+    ckpts = os.listdir(os.path.join(work, "DSN_experiments", "dsn_abl", "checkpoints"))
+    res = os.path.join(work, "DSN_results", "abl")
+    fakes = os.listdir(os.path.join(res, "imgs_from_target"))
+    ddms = [np.load(os.path.join(res, "ddm_target", f))
+            for f in sorted(os.listdir(os.path.join(res, "ddm_target")))]
+    stats = first["ddm_stats"]
+    if ("last_iteration.tar" not in ckpts or len(fakes) != 24 or len(ddms) != 24
+            or not all(d.ndim == 4 and np.isfinite(d).all() and 0 <= d.min() and d.max() <= 1
+                       for d in ddms)):
+        fail(f"ablation stages 1-2: checkpoints {ckpts}, {len(fakes)} fake LRs, {len(ddms)} DDMs")
+    if stats["corr_ddm_vs_texture_mean"] is None or not all(np.isfinite(v)
+                                                           for v in stats.values()):
+        fail(f"ablation stage 3: {stats}")
+    if first["runs"]:
+        fail(f"ablation --skip_train evaluated runs: {first['runs']}")
+    print(f"ablation stages 1-3 (dsn_train {ABLATION_DSN_EPOCHS} epochs, dsn_create_dataset, "
+          f"DDM localization over {len(fakes)} fake LRs): {json.dumps(stats)}; "
+          f"{report['stages_1_3_s']:.2f} s, 0 kernel launches [{gpu}]", flush=True)
+
+    # 3. stages 3-5: the two full-width DASR runs and their region-split eval,
+    # counted: every RDB forward launched the kernel
+    zero_launches(fused_rdb)
+    handle = register_module_forward_pre_hook(record)
+    t0 = time.perf_counter()
+    try:
+        results = run_cli(ddm_ablation.main, argv + ["--skip_dsn", "--skip_dataset"])
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    report["stages_3_5_s"] = time.perf_counter() - t0
+    launches = read_launches(fused_rdb, "ablation")
+    forwards, vals = 0, {}
+    for name in ("abl_mw_on", "abl_mw_off"):
+        run = os.path.join(work, "SRN_experiments", name)
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        # the template logs losses every 200 steps: a short run is held by its
+        # validations and its saved networks
+        vals[name] = [r for r in recs if "val/psnr" in r]
+        state = os.path.join(run, "training_state", f"{ABLATION_NITER}.pt")
+        nets = torch.load(state, map_location="cpu", weights_only=True) \
+            if os.path.exists(state) else {}
+        if not vals[name] or not all(np.isfinite(v) for r in recs for k, v in r.items()
+                                     if k.startswith(("val/", "loss/"))):
+            fail(f"ablation stage 4 {name}: no validation, or a metric not finite")
+        if not nets or not all(bool(t.isfinite().all()) for net in ("G", "D_target")
+                               for t in nets[net]["net"].values() if t.is_floating_point()):
+            fail(f"ablation stage 4 {name}: {state} missing, or a parameter not finite")
+        # a G forward a step, one a val image a validation, one a val image in stage 5
+        forwards += ABLATION_NITER + (len(vals[name]) + 1) * counts["valid_lr"]
+    expected = 3 * NB * LAUNCHES_PER_RDB * forwards
+    print(f"ablation stages 4-5: fused_rdb launches {launches}, expected {3 * NB} x "
+          f"{LAUNCHES_PER_RDB} x {forwards} = {expected}; kernel input shapes "
+          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}", flush=True)
+    if launches != expected:
+        fail(f"ablation stages 4-5: fused_rdb launched {launches} times, expected {expected}")
+    missing = {k[:4] for k in seen} - checked
+    missing |= {k[:4] for k in seen if k[4]} - checked_grad
+    if missing:
+        fail(f"ablation: kernel shapes phases 2 and 4 did not check: {missing}")
+    if results["ddm_stats"] != stats:
+        fail(f"ablation stage 3 differs between the calls: {results['ddm_stats']} vs {stats}")
+    if set(results["runs"]) != {"abl_mw_on", "abl_mw_off"} or not all(
+            np.isfinite(v) for agg in results["runs"].values() for v in agg.values()):
+        fail(f"ablation stage 5: {results['runs']}")
+    with open(os.path.join(work, "ablation_results.json")) as f:
+        if json.load(f) != results:
+            fail("ablation: ablation_results.json differs from the tool's results")
+    report["launches_ablation"] = launches
+    print(f"ablation stages 3-5 (two srn_train runs of {ABLATION_NITER} iterations at nf {NC} "
+          f"nb {NB}, bf16; region-split eval): {json.dumps(results['runs'])}; last validation "
+          + json.dumps({n: {k: v[-1][k] for k in v[-1] if k.startswith("val/")}
+                        for n, v in vals.items()})
+          + f"; {report['stages_3_5_s']:.2f} s [{gpu}]", flush=True)
+
+    # 4. the parity dry-run at nb 23, f32, on two LR images, counted
+    ddir = os.path.join(base, "dryrun")
+    write_corpus(ddir, np.random.default_rng(SEED), sizes=DRYRUN_LR)
+    seen.clear()
+    zero_launches(fused_rdb)
+    handle = register_module_forward_pre_hook(record)
+    t0 = time.perf_counter()
+    try:
+        rows = run_cli(parity_dryrun.main, [
+            "--lr_dir", os.path.join(ddir, "lr"), "--work", os.path.join(ddir, "work"),
+            "--n", str(len(DRYRUN_LR)), "--nb", str(NB), "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    report["dryrun_s"] = time.perf_counter() - t0
+    launches = read_launches(fused_rdb, "ablation")
+    expected = 3 * NB * LAUNCHES_PER_RDB * 2 * len(DRYRUN_LR)  # plain and chopped
+    if launches != expected or fused_rdb.launches_f32 != expected:
+        fail(f"parity_dryrun: {launches} launches ({fused_rdb.launches_f32} f32), expected "
+             f"{expected}, all f32")
+    missing = {k[:4] for k in seen} - checked
+    if missing:
+        fail(f"parity_dryrun: kernel shapes phase 2 did not check: {missing}")
+    atol, _ = TOLERANCES["network_f32"]
+    worst = max(r[k]["max_abs"] for r in rows
+                for k in ("ours_plain_vs_torch_full", "ours_chop_vs_torch_chop"))
+    print(f"parity_dryrun (nb {NB}, f32, stand-in weights; SRModel on the f32 kernel against the "
+          f"functional forward, TF32 off): "
+          + "; ".join(f"{r['image']} {r['lr_shape'][:2]}: plain "
+                      f"{r['ours_plain_vs_torch_full']['max_abs']:.3e}, chop "
+                      f"{r['ours_chop_vs_torch_chop']['max_abs']:.3e}, |out| max "
+                      f"{r['out_absmax']:.3e}" for r in rows)
+          + f"; worst {worst:.3e} (limit {atol}); f32 launches {launches}; "
+          f"{report['dryrun_s']:.2f} s [{gpu}]", flush=True)
+    if not worst <= atol:
+        fail(f"parity_dryrun: max |delta| {worst:.3e} exceeds {atol}")
+    report["launches_ablation"] += launches
+    report.update(ddm_stats=stats, runs=results["runs"], dryrun_worst_max_abs=worst,
+                  phase_s=time.perf_counter() - t_phase)
+    print(f"ablation: the phase took {report['phase_s']:.2f} s [{gpu}]", flush=True)
+    return report
+
+
 # -- phase dist: the multi-rank paths -------------------------------------------
 
 DIST_STEPS = 8  # the one-NCCL-rank srn_train run: two banked windows of DIST_K
@@ -3921,9 +4126,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive,paired,depatch,sft,lpips,dist",
+                            "adaptive,paired,depatch,sft,lpips,ablation,dist",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,dist")
+                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,ablation,dist")
     ap.add_argument("--dist_child", choices=("nccl", "pair"), default=None,
                     help=argparse.SUPPRESS)  # phase dist starts its children with it
     ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
@@ -3960,7 +4165,7 @@ def main(argv=None):
     entry32 = dict(entry, name="fused_rdb_f32", kernel="rdb_level_tf32x3", dtype="float32")
     if phases & {"serve", "lpips"}:
         phases.add("kernel")  # serve and parity check their shapes against phase 2's
-    if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired", "dist"}:
+    if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired", "ablation", "dist"}:
         phases |= {"kernel", "grad"}  # and these against phases 2 and 4
     if "adaptive" in phases:
         phases.add("dsn")  # its patch D is stage 1's discriminator
@@ -4026,6 +4231,11 @@ def main(argv=None):
             entry["launches_lpips"] = report.pop("launches_lpips")
             print(f"lpips (LPIPS nets, lpips_train, compute_dists, parity, the scripts): "
                   f"{json.dumps(report)}", flush=True)
+        if "ablation" in phases:
+            report = phase_ablation(gpu, root, checked, checked_grad)
+            entry["launches_ablation"] = report.pop("launches_ablation")
+            print(f"ablation (make_synth_corpus, ddm_ablation, parity_dryrun): "
+                  f"{json.dumps(report)}", flush=True)
     if "dist" in phases:
         report = phase_dist(gpu, checked, checked_grad)
         entry["launches_dist"] = report.pop("launches_dist")
@@ -4037,10 +4247,10 @@ def main(argv=None):
     entry32["launches"] = sum(F32_LAUNCHES.values())
     entry["launches"] = sum(entry.get(f"launches_{p}", 0)
                             for p in ("serve", "train", "pipeline", "bank", "tools", "adaptive",
-                                      "paired", "depatch", "sft", "lpips", "dist")
+                                      "paired", "depatch", "sft", "lpips", "ablation", "dist")
                             ) - entry32["launches"]
-    if phases & {"tools", "dist"} and not entry32["launches"]:
-        fail("the f32 paths of phases tools and dist launched the f32 kernel no time")
+    if phases & {"tools", "ablation", "dist"} and not entry32["launches"]:
+        fail("the f32 paths of phases tools, ablation and dist launched the f32 kernel no time")
 
     if stages:
         print(f"stages (no kernel of theirs but fused_rdb in stage 3): {json.dumps(stages)}",

@@ -9,7 +9,9 @@ auto_test and add_corruptions CLIs on those runs' outputs load neither jax
 nor dasr_tpu; nor do compute_dists (squeeze), lpips_train (train and
 eval), parity, test_dataloader and misc_tools (color2gray) on CPU inputs,
 nor a one-rank gloo world (core/dist.py) with spatially_sharded_apply
-(ops/spatial_shard.py) over it.
+(ops/spatial_shard.py) over it; nor do the experiment tools
+(dasr_tpu_torch/tools: make_synth_corpus and parity_dryrun run, ddm_ablation
+imported) with jax, dasr_tpu and the repository's tools/ blocked.
 chip_smoke.py refuses to run without a card and outside the repository.
 
 Subprocesses, because this test process already imported JAX (conftest)."""
@@ -159,7 +161,23 @@ assert world.group is not None and world.mesh_line() == "[mesh] data=1 spatial=1
 x = torch.rand(1, 3, 44, 20)
 with torch.no_grad():
     assert torch.allclose(spatially_sharded_apply(x, net, 4, 20, world), net(x), atol=1e-5)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
+# the experiment tools with jax, the JAX package and the repository's tools/
+# blocked: importing any of them now raises
+for name in ("jax", "jaxlib", "flax", "dasr_tpu", "make_synth_corpus", "ddm_ablation",
+             "parity_dryrun"):
+    sys.modules.setdefault(name, None)
+from dasr_tpu_torch.tools import ddm_ablation, make_synth_corpus, parity_dryrun
+for tool in (make_synth_corpus, ddm_ablation, parity_dryrun):
+    importlib.reload(tool)
+corpus = os.path.join(root, "corpus")
+make_synth_corpus.main(["--out", corpus, "--noise_mode", "textured", "--n_target", "1",
+                        "--n_source", "1", "--n_valid", "1", "--hr_h", "48", "--hr_w", "64",
+                        "--valid_h", "48", "--valid_w", "64", "--workers", "1"])
+rep = parity_dryrun.main(["--lr_dir", os.path.join(corpus, "valid_lr"), "--work",
+                          os.path.join(root, "parity"), "--n", "1", "--nb", "1", "--device", "cpu"])
+assert rep[0]["ours_plain_vs_torch_full"]["max_abs"] <= 1e-5
+bad = sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax", "dasr_tpu"))
 print("LEAKED", bad)
 """
 
