@@ -90,14 +90,22 @@ CPU or to a plain version):
             --transfer_uint8 with val_device_metrics and
             val_metrics_pad_bucket 128 at the train phase's full width,
             BANK_STEPS steps, one validation and one save: the kernel's
-            launches and shapes, finite losses, the device val metrics
-            against the host f64 protocol on the saved PNGs (1e-3 dB, 1e-4
-            SSIM); three f32 banked steps at nb 2 against train_step on the
-            plain gather's batches of the same draws; dsn_train
-            --device_bank --steps_per_call 4 at the dsn phase's launcher
-            set; both steps banked and host-loader in turns (ms/step, host
-            ms/step, idle share, peak memory), the bank's decode and upload
-            time, and the upload rate at 1 GiB. It needs phases 2 and 4.
+            launches (the eager loop's count) and shapes, the steps
+            replayed from the CUDA graph (all but the warm-up), finite
+            losses, the device val metrics against the host f64 protocol
+            on the saved PNGs (1e-3 dB, 1e-4 SSIM); three f32 banked steps
+            at nb 2 against train_step on the plain gather's batches of the
+            same draws; dsn_train --device_bank --steps_per_call 4 at the
+            dsn phase's launcher set, its replays counted; two windows of
+            GRAPH_K steps replayed from the graph against the eager loop
+            from one state, and a run resumed at the window boundary
+            against the straight one, for the DASR and DSN steps at f32 (nb
+            2; the three-step limits) and bf16 at full width
+            (BF16_STEP_LIMITS); both steps on host batches, on the bank by
+            the eager loop and on the bank replayed, in turns (ms/step,
+            host ms/step, busy ms, idle share, peak memory, the capture's
+            seconds), the bank's decode and upload time, and the upload
+            rate at 1 GiB. It needs phases 2 and 4.
 10. tools - the rest of the user surface: the reference .state resume at the
             train phase's full width, f32 (two steps, save_reference_formats,
             a fresh model of another seed through check_resume and load:
@@ -357,10 +365,21 @@ F32_LAUNCHES = {}
 
 
 def zero_launches(fused_rdb):
-    """Set the launch counts of both kernels, and of the f32 one alone, to 0
-    just before a main path."""
+    """Set the launch counts of both kernels, and of the f32 one alone, and
+    the count of train-step replays from a CUDA graph, to 0 just before a
+    main path."""
+    from dasr_tpu_torch.train.step_graph import StepGraphs
+
     fused_rdb.launches = 0
     fused_rdb.launches_f32 = 0
+    StepGraphs.replays = 0
+
+
+def read_replays():
+    """Train steps replayed from a CUDA graph since ``zero_launches``."""
+    from dasr_tpu_torch.train.step_graph import StepGraphs
+
+    return StepGraphs.replays
 
 
 def read_launches(fused_rdb, path):
@@ -1570,6 +1589,7 @@ def phase_pipeline(gpu, root, checked, checked_grad):
     finally:
         handle.remove()
     launches = read_launches(fused_rdb, "pipeline")
+    replays = read_replays()
     printed = "".join(tee.parts)
     if list(times) != ["dsn_train", "dsn_create_dataset", "srn_train"] or not all(
             f"stage '{s}' wall-clock" in printed for s in times):
@@ -1604,10 +1624,12 @@ def phase_pipeline(gpu, root, checked, checked_grad):
           f"logged losses finite ({', '.join(f'{k} {len(v)}' for k, v in losses.items())}); "
           f"fused_rdb launches {launches}, expected "
           f"3 x 2 x {LAUNCHES_PER_RDB} x {forwards} = {expected}; kernel input shapes "
-          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}; TF32 off after the CLI [{gpu}]",
-          flush=True)
+          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}; {replays} steps of stages 1 "
+          f"and 3 replayed from their CUDA graphs; TF32 off after the CLI [{gpu}]", flush=True)
     if launches != expected:
         fail(f"pipeline: fused_rdb launched {launches} times, expected {expected}")
+    if not replays:
+        fail("pipeline: no banked step was replayed from a CUDA graph")
     if missing:
         fail(f"pipeline: stage 3 gave the kernel shapes phases 2 and 4 did not check: {missing}")
     return {"launches_pipeline": launches,
@@ -1647,13 +1669,16 @@ def time_arms(what, fns, steps, gpu, rounds=2, profiled=None):
     import torch
 
     t0 = time.perf_counter()
-    peaks = {}
+    peaks, reserved = {}, {}
     for name, fn in fns.items():  # the first call of each arm: its peak memory
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         fn()
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated()
+        # a captured graph keeps its pool reserved; the allocated peak does not show it
+        reserved[name] = torch.cuda.max_memory_reserved()
     t1 = time.perf_counter()
     times = window_times(fns, steps, rounds)
     t2 = time.perf_counter()
@@ -1668,12 +1693,13 @@ def time_arms(what, fns, steps, gpu, rounds=2, profiled=None):
         events = prof["events"] / n if prof else float("nan")
         out[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms, "busy_ms_per_step": busy,
                      "idle_share": idle, "rdb_ms_per_step": rdb, "device_events_per_step": events,
-                     "peak_mem_bytes": peak}
+                     "peak_mem_bytes": peak, "peak_reserved_bytes": reserved[name]}
         print(f"{what} {name}: {ms:.3f} ms/step (CUDA events, median of {2 * rounds} windows "
               f"of {steps} steps in turns), host {host_ms:.3f} ms/step to issue, device busy "
               f"{busy:.3f} ms/step (torch.profiler over {n} steps), of which rdb_level kernels "
               f"{rdb:.3f} ms, idle share {100 * idle:.2f}%, {events:.0f} device events per "
-              f"step, peak device memory {peak / 2**30:.3f} GiB [{gpu}]", flush=True)
+              f"step, peak device memory {peak / 2**30:.3f} GiB allocated, "
+              f"{reserved[name] / 2**30:.3f} GiB reserved [{gpu}]", flush=True)
     print(f"{what}: {t1 - t0:.2f} s first calls, {t2 - t1:.2f} s in turns, "
           f"{time.perf_counter() - t2:.2f} s traced", flush=True)
     return out
@@ -1736,6 +1762,73 @@ def bank_gather_check(gpu):
     return {"gather_ms_dasr": ms["dasr"], "gather_ms_dsn": ms["dsn"]}
 
 
+GRAPH_K = 8  # the replay checks' windows: the CLIs' --steps_per_call
+# the bf16 replay checks: losses within the bf16 kernel's limits; updates and
+# Adam's first moments within the f32 three-step limits of their norms
+BF16_STEP_LIMITS = {"loss": (3e-3, 2.0**-7), "update": 5e-2, "moment": 1e-2}
+
+
+def replay_check(what, make, window, windows, limits, ckpt_dir, gpu):
+    """Two windows of GRAPH_K steps from one seeded state, replayed from the
+    step's CUDA graph (``train_banked_step``) and by the eager loop
+    (``train_banked_step_eager``), then a run resumed from a train state
+    saved at the window boundary against the straight replayed run: each
+    window's last losses, and each network's params and Adam's first
+    moments, within ``limits`` ({"loss": (atol, rtol), "update", "moment"}).
+    ``make()`` is a fresh trainer from the seed, ``window(tr, eager, start,
+    rows)`` runs one window. Returns the worst loss share of its limit and
+    the largest parameter difference of each comparison, and the capture
+    seconds."""
+    from dasr_tpu_torch.train.checkpoints import load_train_state, save_train_state
+    from dasr_tpu_torch.train.step_graph import StepGraphs
+
+    def after(tr):
+        return {name: (flat(ns).clone(), flat(ns, True).clone())
+                for name, ns in (("G", tr.state.g), ("D", tr.state.d_target))}
+
+    def run(tr, eager, wins, save=False):
+        init = {name: p for name, (p, _) in after(tr).items()}
+        traj, boundary = [], None
+        for w, (start, rows) in enumerate(wins):
+            traj.append({k: float(v) for k, v in window(tr, eager, start, rows).items()})
+            if save and w == 0:
+                save_train_state(ckpt_dir, tr.state, start + GRAPH_K)
+                boundary = {name: p for name, (p, _) in after(tr).items()}
+        return (traj, init, after(tr)), boundary
+
+    before = StepGraphs.replays
+    straight, eager = make(), make()
+    replayed, boundary = run(straight, False, windows, save=True)
+    looped, _ = run(eager, True, windows)
+    resumed = make()
+    load_train_state(ckpt_dir, resumed.state)
+    again, _ = run(resumed, False, windows[1:])
+    n_replays = StepGraphs.replays - before
+    want_replays = 3 * GRAPH_K - 2  # each trainer's first step of its key is its warm-up
+    capture_s = list(straight.graphs.capture_s.values()) + list(resumed.graphs.capture_s.values())
+    out = {}
+    for name, run_a, run_b in (("replay_vs_eager", replayed, looped),
+                               ("resume_vs_straight", again,
+                                (replayed[0][1:], boundary, replayed[2]))):
+        worst, parts, bad, perr = compare_three_steps(f"{what} {name}", run_a, run_b,
+                                                      limits["loss"], limits["update"],
+                                                      limits["moment"])
+        print(f"{what} {name.replace('_', ' ')}, {len(run_b[0])} window(s) of {GRAPH_K} steps: "
+              f"losses within {worst:.3f} of their limit (atol {limits['loss'][0]}, rtol "
+              f"{limits['loss'][1]:.3g}); update and first-moment limits {limits['update']}, "
+              f"{limits['moment']}: {'; '.join(parts)}; largest param difference {perr:.3e} "
+              f"[{gpu}]", flush=True)
+        if bad:
+            fail(f"{what} {name}: the updates or moments of {bad} are off")
+        out[name] = {"loss_share": worst, "param_max_diff": perr}
+    print(f"{what}: {n_replays} replays (expected {want_replays}), capture "
+          + ", ".join(f"{c:.3f}" for c in capture_s) + " s", flush=True)
+    if n_replays != want_replays:
+        fail(f"{what}: {n_replays} replays, expected {want_replays}")
+    out["capture_s"] = capture_s
+    return out
+
+
 def phase_bank(gpu, root, checked, checked_grad):
     """The fast path of stages 1 and 3 on the device banks: gathers on the
     card, the banked full-width srn_train CLI, banked against host-loader
@@ -1789,17 +1882,22 @@ def phase_bank(gpu, root, checked, checked_grad):
     finally:
         handle.remove()
     launches = read_launches(fused_rdb, "bank")
+    replays = read_replays()
     printed = "".join(tee.parts)
     forwards = BANK_STEPS + 2  # one G forward per step, one per validation image
     expected = 3 * NB * LAUNCHES_PER_RDB * forwards
     print(f"bank: srn_train --device_bank --steps_per_call {BANK_K} --transfer_uint8, "
           f"val_device_metrics, val_metrics_pad_bucket 128: {steps} steps in {secs:.2f} s "
           f"(one validation, one save); fused_rdb launches {launches}, expected {3 * NB} x "
-          f"{LAUNCHES_PER_RDB} x {forwards} = {expected}; TF32 off after the CLI", flush=True)
+          f"{LAUNCHES_PER_RDB} x {forwards} = {expected} (the eager loop's count); {replays} "
+          f"steps replayed from the CUDA graph, expected {BANK_STEPS - 1} (the first step is "
+          f"the warm-up); TF32 off after the CLI", flush=True)
     if "device bank: " not in printed or "using the host loader" in printed:
         fail("bank: srn_train did not train on the device bank")
     if steps != BANK_STEPS or launches != expected:
         fail(f"bank: {steps} steps and {launches} launches, expected {BANK_STEPS} and {expected}")
+    if replays != BANK_STEPS - 1:
+        fail(f"bank: srn_train replayed {replays} steps, expected {BANK_STEPS - 1}")
     missing = {k[:4] for k in seen} - checked
     missing |= {k[:4] for k in seen if k[4]} - checked_grad
     if missing:
@@ -1889,6 +1987,7 @@ def phase_bank(gpu, root, checked, checked_grad):
                     str(DSN_BANK_K))
     tee = Tee()
     log_every, dsn_train.LOG_EVERY = dsn_train.LOG_EVERY, 10
+    zero_launches(fused_rdb)
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
@@ -1897,6 +1996,7 @@ def phase_bank(gpu, root, checked, checked_grad):
         secs = time.perf_counter() - t0
     finally:
         dsn_train.LOG_EVERY = log_every
+    dsn_replays = read_replays()
     printed = "".join(tee.parts)
     run = os.path.join(base, "dsn_bank")
     with open(os.path.join(run, "metrics.jsonl")) as f:
@@ -1914,10 +2014,66 @@ def phase_bank(gpu, root, checked, checked_grad):
     print(f"bank: dsn_train --device_bank --steps_per_call {DSN_BANK_K} at the aim2019 launcher "
           f"set: {steps} steps in {secs:.2f} s through the CLI; read and finite at steps 12, 20, "
           f"30, d_tex_loss " + " -> ".join(f"{r['loss/d_tex_loss']:.4e}" for r in dsn_losses)
-          + "; " + [ln for ln in printed.splitlines() if ln.startswith("device bank: ")][0]
+          + f"; {dsn_replays} steps replayed from the CUDA graph, expected {DSN_STEPS - 1}; "
+          + [ln for ln in printed.splitlines() if ln.startswith("device bank: ")][0]
           + f" [{gpu}]", flush=True)
+    if dsn_replays != DSN_STEPS - 1:
+        fail(f"bank: dsn_train replayed {dsn_replays} steps, expected {DSN_STEPS - 1}")
+    report["replays_cli"] = {"srn_train": replays, "dsn_train": dsn_replays}
 
-    # times, banked and host-loader in turns: the DASR step at full width
+    # the replayed windows against the eager loop, and a resume at the window
+    # boundary: f32 at nb 2, then bf16 at full width, DASR and DSN
+    dasr_banks = bank.SrnBanks(*(bank.upload(b, dev) for b in host_banks()))
+    dasr_rows = np.stack(bank.epoch_rows(SEED, 0, 12, 6) * 8)[:2 * GRAPH_K]
+    dasr_windows = [(w * GRAPH_K, torch.from_numpy(dasr_rows[w * GRAPH_K:(w + 1) * GRAPH_K])
+                     .to(dev)) for w in range(2)]
+    dsn_banks = [bank.upload(bank.build_bank(dsn_dirs[k]), dev) for k in ("target", "source")]
+    dsn_rows = np.stack(sum((bank.epoch_rows(SEED, e, 48, 8) for e in range(1, 4)), []))
+    dsn_windows = [(w * GRAPH_K, torch.from_numpy(dsn_rows[w * GRAPH_K:(w + 1) * GRAPH_K])
+                    .to(dev)) for w in range(2)]
+
+    def dasr_trainer(config):
+        def make():
+            m = create_model(parse_srn_options(config, is_train=True), dev)
+            m.init()
+            return m.trainer
+        return make
+
+    def dasr_window(tr, eager, start, rows):
+        run = tr.train_banked_step_eager if eager else tr.train_banked_step
+        return run(dasr_banks, rows, start, 128)
+
+    def dsn_trainer(*extra):
+        dsn_opt = dsn_train.build_argparser().parse_args(dsn_argv(base, dsn_dirs, *extra))
+
+        def make():
+            tr = dsn_train.make_trainer(dsn_opt, dev, 6)
+            tr.init_state()
+            return tr
+        return make, dsn_opt
+
+    make_dsn32, _ = dsn_trainer("--no_bf16", "--num_res_blocks", "2")
+    make_dsn, dsn_opt = dsn_trainer()
+
+    def dsn_window(tr, eager, start, rows):
+        run = tr.train_banked_step_eager if eager else tr.train_banked_step
+        return run(*dsn_banks, rows, start, dsn_opt.crop_size, dsn_opt.flips, dsn_opt.rotations)
+
+    f32_limits = {"loss": (atol, rtol), "update": utol, "moment": mtol}
+    t0 = time.perf_counter()
+    report["replay"] = {
+        what: replay_check(what, make, window, windows, limits,
+                           os.path.join(base, what.replace(" ", "_")), gpu)
+        for what, make, window, windows, limits in (
+            ("dasr f32 nb 2", dasr_trainer(cfg32), dasr_window, dasr_windows, f32_limits),
+            ("dsn f32 nb 2", make_dsn32, dsn_window, dsn_windows, f32_limits),
+            ("dasr bf16 nb 23", dasr_trainer(cfg), dasr_window, dasr_windows, BF16_STEP_LIMITS),
+            ("dsn bf16 nb 8", make_dsn, dsn_window, dsn_windows, BF16_STEP_LIMITS))}
+    print(f"bank replay checks: {time.perf_counter() - t0:.2f} s", flush=True)
+    del dasr_banks, dsn_banks
+
+    # times in turns: the DASR step at full width on host batches, on the bank
+    # by the eager loop, and on the bank replayed from the graph
     opt = parse_srn_options(cfg, is_train=True)
     model = create_model(opt, dev)
     model.init()
@@ -1936,9 +2092,20 @@ def phase_bank(gpu, root, checked, checked_grad):
         batches += list(loader)[:BANK_K - len(batches)]
     tr = model.trainer
     window = np.stack(bank.epoch_rows(SEED, 0, 12, 6) * 4)[:BANK_K]
+    rows = torch.from_numpy(window).to(dev)
+    # the eager arms are traced over one step: the tracer takes ~25 s for
+    # each eager step of ~16k ops (eight of them took 200.89 s on the H100's host)
     srn = time_arms("dasr step", {
         "host loader": lambda: [tr.train_step(model._to_device(b)) for b in batches],
-        "device bank": lambda: model.train_banked_window_async(window, 0)}, BANK_K, gpu)
+        "bank eager": lambda: tr.train_banked_step_eager(model._banks, rows, 0, 128),
+        "bank replayed": lambda: model.train_banked_window_async(window, 0)}, BANK_K, gpu,
+        profiled={"host loader": (lambda: tr.train_step(model._to_device(batches[0])), 1),
+                  "bank eager": (lambda: tr.train_banked_step_eager(model._banks, rows[:1], 0,
+                                                                    128), 1),
+                  "bank replayed": (lambda: model.train_banked_window_async(window[:2], 0), 2)})
+    srn["bank replayed"]["capture_s"] = list(tr.graphs.capture_s.values())
+    print(f"dasr step bank replayed: capture {srn['bank replayed']['capture_s']} s (once a "
+          f"key; the warm-up step before it is a real step) [{gpu}]", flush=True)
     print(f"dasr bank: {bank.nbytes(model._banks) / 2**30:.6f} GiB resident for the 12-image "
           f"synthetic corpus, decoded in {t1 - t0:.3f} s, uploaded in {t2 - t1:.3f} s [{gpu}]",
           flush=True)
@@ -1954,8 +2121,12 @@ def phase_bank(gpu, root, checked, checked_grad):
     nwin = torch.from_numpy(np.stack(bank.epoch_rows(SEED, 1, 48, 8)[:DSN_BANK_K])).to(dev)
     dsn = time_arms("dsn step", {
         "host loader": lambda: [trainer.train_step(dsn_train.to_device(b, dev)) for b in batches],
-        "device bank": lambda: trainer.train_banked_step(clean, noisy, nwin, 0, 256)},
+        "bank eager": lambda: trainer.train_banked_step_eager(clean, noisy, nwin, 0, 256),
+        "bank replayed": lambda: trainer.train_banked_step(clean, noisy, nwin, 0, 256)},
         DSN_BANK_K, gpu)
+    dsn["bank replayed"]["capture_s"] = list(trainer.graphs.capture_s.values())
+    print(f"dsn step bank replayed: capture {dsn['bank replayed']['capture_s']} s [{gpu}]",
+          flush=True)
     del trainer, batches, clean, noisy
 
     # the upload rate at corpus scale: 1 GiB of uint8 images of DIV2K's size
@@ -3716,6 +3887,9 @@ def phase_ablation(gpu, root, checked, checked_grad):
         handle.remove()
     report["stages_3_5_s"] = time.perf_counter() - t0
     launches = read_launches(fused_rdb, "ablation")
+    # stage 4's srn_train runs host-loader windows (train_multi_step_async,
+    # as JAX's tool runs _train_multi), which no graph replays yet
+    report["replays_stage_4"] = read_replays()
     forwards, vals = 0, {}
     for name in ("abl_mw_on", "abl_mw_off"):
         run = os.path.join(work, "SRN_experiments", name)
@@ -3738,7 +3912,9 @@ def phase_ablation(gpu, root, checked, checked_grad):
     expected = 3 * NB * LAUNCHES_PER_RDB * forwards
     print(f"ablation stages 4-5: fused_rdb launches {launches}, expected {3 * NB} x "
           f"{LAUNCHES_PER_RDB} x {forwards} = {expected}; kernel input shapes "
-          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}", flush=True)
+          f"{sorted((*k[:3], str(k[3]), k[4]) for k in seen)}; {report['replays_stage_4']} "
+          f"steps replayed (stage 4 trains on host-loader windows, not replayed yet)",
+          flush=True)
     if launches != expected:
         fail(f"ablation stages 4-5: fused_rdb launched {launches} times, expected {expected}")
     missing = {k[:4] for k in seen} - checked

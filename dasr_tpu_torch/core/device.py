@@ -1,7 +1,11 @@
-"""Device selection for the port's CLIs."""
+"""Device selection for the port's CLIs, and the device constants of the
+step's ops."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -36,3 +40,14 @@ def resolve_device(name: str) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r}: use cuda or cpu")
     return dev
+
+
+@functools.lru_cache(maxsize=512)
+def constant(make, *args, device: torch.device, dtype: torch.dtype = torch.float32):
+    """``make(*args)`` (a numpy array or a sequence of numbers) as a tensor of
+    ``dtype`` on ``device``, made on the first call and kept. The step's ops
+    read their filters and resampling matrices through this because a
+    captured CUDA graph (``train/step_graph.py``) cannot copy from the host:
+    the eager warm-up step makes them and the capture finds them here. The
+    tensor is shared by every caller: never write to it."""
+    return torch.as_tensor(np.asarray(make(*args)), dtype=dtype).to(device)

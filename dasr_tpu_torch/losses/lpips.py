@@ -34,6 +34,7 @@ import torch.nn as nn
 
 import numpy as np
 
+from dasr_tpu_torch.core.device import constant
 from dasr_tpu_torch.nn.layers import init_lecun_
 from dasr_tpu_torch.nn.vgg import (
     AlexNetFeatures, SqueezeNetFeatures, VGG16Features, load_torchvision_features)
@@ -90,8 +91,8 @@ class LPIPS(nn.Module):
         """The unit-normalised backbone taps of NCHW [-1, 1] images, in the
         backbone's dtype (the scaling layer first, for version '0.1')."""
         if self.version == "0.1":
-            shift = torch.tensor(_SHIFT, device=x.device).view(1, 3, 1, 1)
-            scale = torch.tensor(_SCALE, device=x.device).view(1, 3, 1, 1)
+            shift = constant(np.asarray, _SHIFT, device=x.device).view(1, 3, 1, 1)
+            scale = constant(np.asarray, _SCALE, device=x.device).view(1, 3, 1, 1)
             x = (x - shift) / scale
         # an input too small for a backbone stage (alex: under 32 px per
         # side) makes torch's conv or max pool raise, as the reference's does

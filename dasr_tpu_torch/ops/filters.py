@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dasr_tpu_torch.core.device import constant
 from dasr_tpu_torch.ops.dwt import haar_bands, haar_dwt
 
 
@@ -30,19 +31,24 @@ def gaussian_kernel(kernel_size: int = 5) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _depthwise_conv(x: torch.Tensor, kernel2d: np.ndarray, stride: int, pad: int):
+def _ones_kernel(k: int) -> np.ndarray:
+    return np.ones((k, k), dtype=np.float32)
+
+
+def _depthwise_conv(x: torch.Tensor, make, size: int, stride: int, pad: int):
+    """x convolved per channel with the 2D kernel ``make(size)``."""
     c = x.shape[1]
-    k = torch.as_tensor(kernel2d, dtype=x.dtype, device=x.device)
+    k = constant(make, size, device=x.device, dtype=x.dtype)
     return F.conv2d(x, k.expand(c, 1, *k.shape), stride=stride, padding=pad, groups=c)
 
 
 def _avg_pool(x: torch.Tensor, k: int, stride: int, pad: int, include_pad: bool):
     # windowed sums as a depthwise ones-conv, as the JAX package computes them
-    ones_k = np.ones((k, k), dtype=np.float32)
-    sums = _depthwise_conv(x, ones_k, stride, pad)
+    sums = _depthwise_conv(x, _ones_kernel, k, stride, pad)
     if include_pad:
         return sums / (k * k)
-    counts = _depthwise_conv(x.new_ones((1, 1) + tuple(x.shape[-2:])), ones_k, stride, pad)
+    counts = _depthwise_conv(x.new_ones((1, 1) + tuple(x.shape[-2:])), _ones_kernel, k, stride,
+                             pad)
     return sums / counts
 
 
@@ -52,7 +58,7 @@ def filter_low(x: torch.Tensor, kernel_size: int = 5, stride: int = 1, recursion
     pad = (kernel_size - 1) // 2 if padding else 0
     for _ in range(recursions):
         if gaussian:
-            x = _depthwise_conv(x, gaussian_kernel(kernel_size), stride, pad)
+            x = _depthwise_conv(x, gaussian_kernel, kernel_size, stride, pad)
         else:
             x = _avg_pool(x, kernel_size, stride, pad, include_pad)
     return x

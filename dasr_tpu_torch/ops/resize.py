@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from dasr_tpu_torch.core.device import constant
+
 
 def _cubic(x: np.ndarray) -> np.ndarray:
     """MATLAB's bicubic kernel (a = -0.5), reference: DSN/utils.py:37-43."""
@@ -101,8 +103,8 @@ def imresize(img: torch.Tensor, scale: float, antialiasing: bool = True,
     ``imresize`` does (DSN/utils.py:101-166)."""
     h, w = img.shape[-2], img.shape[-1]
     out_h, out_w = math.ceil(h * scale), math.ceil(w * scale)
-    mh = torch.from_numpy(_resize_matrix(h, out_h, scale, antialiasing)).to(img.device)
-    mw = torch.from_numpy(_resize_matrix(w, out_w, scale, antialiasing)).to(img.device)
+    mh = constant(_resize_matrix, h, out_h, scale, antialiasing, device=img.device)
+    mw = constant(_resize_matrix, w, out_w, scale, antialiasing, device=img.device)
     with torch.autocast(img.device.type, enabled=False):
         out = mh @ img.float() @ mw.T
     return out.clamp(0.0, 1.0) if clip else out
@@ -131,6 +133,6 @@ def _bilinear_matrix(in_length: int, out_length: int):
 def bilinear_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize of ...HW tensors (NCHW), torch align_corners=False
     parity, in the input's dtype."""
-    mh = torch.from_numpy(_bilinear_matrix(img.shape[-2], out_h)).to(img.device, img.dtype)
-    mw = torch.from_numpy(_bilinear_matrix(img.shape[-1], out_w)).to(img.device, img.dtype)
+    mh = constant(_bilinear_matrix, img.shape[-2], out_h, device=img.device, dtype=img.dtype)
+    mw = constant(_bilinear_matrix, img.shape[-1], out_w, device=img.device, dtype=img.dtype)
     return mh @ img @ mw.T

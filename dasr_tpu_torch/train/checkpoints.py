@@ -583,8 +583,7 @@ def set_schedule_count(ns, count: int) -> None:
     old run's schedule at that count; this run's schedule (a LambdaLR of the
     count, as optax's) sets the next one."""
     ns.sched.last_epoch = count
-    for group, base, factor in zip(ns.opt.param_groups, ns.sched.base_lrs, ns.sched.lr_lambdas):
-        group["lr"] = base * factor(count)
+    ns.set_lr(ns.sched.base_lrs[0] * ns.sched.lr_lambdas[0](count))
 
 
 def load_reference_training_state(path: str) -> Dict[str, Any]:

@@ -19,9 +19,10 @@ DASR step (``train/srn_trainer.py``, whose ``_gan_step`` it shares):
 * the patch D runs in eval mode (BatchNorm on its running statistics) and
   its Adam keeps a constant LR, as JAX's ``optax.adam(lr_patchd)``.
 
-``train_banked_step`` is the DASR trainer's: the device-bank window draws
-and gathers its batches by the same law, with no DDM bank (the gather's
-all-ones ``fake_w`` is unused here).
+``train_banked_step`` is the DASR trainer's eager loop: the device-bank
+window draws and gathers its batches by the same law, with no DDM bank (the
+gather's all-ones ``fake_w`` is unused here). The online-DDM step is not
+replayed from a CUDA graph yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -123,8 +124,12 @@ class DASRAdaptiveTrainer(SRNTrainer):
             with torch.no_grad():
                 ada_w = st.patchd.net(var_l)
         ddm = bilinear_resize(ada_w[:b], var_h.shape[-2], var_h.shape[-1])
-        return self._gan_step(st.base, var_l, var_h, b, (ada_w,),
-                              ddm if c.use_domain_distance_map else None, metrics, do_g, do_d)
+        metrics = self._gan_step(st.base, var_l, var_h, b, (ada_w,),
+                                 ddm if c.use_domain_distance_map else None, metrics, do_g, do_d)
+        self.host_step(do_g, do_d)
+        return metrics
+
+    train_banked_step = SRNTrainer.train_banked_step_eager
 
     @torch.no_grad()
     def sr(self, lr_img: torch.Tensor) -> torch.Tensor:

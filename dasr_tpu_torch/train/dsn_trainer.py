@@ -24,12 +24,15 @@ uint8 batches (``--transfer_uint8``) are cast to f32 / 255 on the device;
 without ``bicubic`` in the batch (``--device_bicubic``) the MATLAB bicubic
 target is computed in the step (``ops.resize.imresize``).
 
-``train_multi_step`` runs K steps on K device batches, and
-``train_banked_step`` K steps on batches drawn and gathered on the device
-from the clean and noisy banks (``data/device_bank.py``), uint8 crops cast
-and the bicubic computed in the step; both are Python loops of
-``train_step`` with no sync (the JAX package scans them; a CUDA graph of
-the window is ROADMAP B.1).
+``train_multi_step`` runs K steps on K device batches, a Python loop of
+``train_step`` with no sync, and ``train_banked_step`` K steps on batches
+drawn and gathered on the device from the clean and noisy banks
+(``data/device_bank.py``), uint8 crops cast and the bicubic computed in the
+step. The JAX package scans the banked window; here, on CUDA in a world of
+one rank without a process group, each of its steps is replayed from a
+CUDA graph of ``device_step`` (``train/step_graph.py``), and elsewhere, and
+as the plain version, it is ``train_banked_step_eager``, a loop of
+``train_step``.
 
 In a world of several ranks (``core/dist.py``) each rank steps on its rows
 of the global batch: the RaGAN batch mean (``FSDiscriminator``), the
@@ -64,8 +67,9 @@ from dasr_tpu_torch.nn.generators import DeResnet, DSGANGenerator
 from dasr_tpu_torch.nn.layers import init_lecun_
 from dasr_tpu_torch.ops.filters import filter_low, wavelet_ll
 from dasr_tpu_torch.ops.resize import imresize
+from dasr_tpu_torch.train import step_graph
 from dasr_tpu_torch.train.schedules import dsn_linear_decay
-from dasr_tpu_torch.train.state import GANTrainState, NetState
+from dasr_tpu_torch.train.state import GANTrainState, NetState, net_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +127,7 @@ class DSNTrainer:
         self.lpips = lpips
         self.decay = decay
         self.state: Optional[GANTrainState] = None
+        self.graphs = step_graph.StepGraphs(self.device)
 
     # -- init -----------------------------------------------------------------
 
@@ -145,11 +150,12 @@ class DSNTrainer:
 
     def _net_state(self, net) -> NetState:
         c = self.cfg
-        opt = torch.optim.Adam(net.parameters(), lr=c.learning_rate,
-                               betas=(c.adam_beta_1, 0.999), eps=1e-8)
-        sched = (dsn_linear_decay(opt, *self.decay) if self.decay is not None
-                 else torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0))
-        return NetState(net, opt, sched)
+
+        def schedule(opt):
+            return (dsn_linear_decay(opt, *self.decay) if self.decay is not None
+                    else torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0))
+
+        return net_state(net, c.learning_rate, c.adam_beta_1, schedule)
 
     # -- loss pieces ----------------------------------------------------------
 
@@ -181,6 +187,26 @@ class DSNTrainer:
         ``bicubic``; f32 in [0, 1] or uint8. Returns the nine metrics as 0-d
         f32 tensors. With ``do_g`` / ``do_d`` false the losses are still
         reported but that network is not updated."""
+        if self.cfg.wgan and gp_alpha is None:
+            gp_alpha = self.gp_alpha(batch["disc"].shape[0])
+        metrics = self.device_step(batch, do_g, do_d, gp_alpha)
+        self.host_step(do_g, do_d)
+        return metrics
+
+    def host_step(self, do_g: bool, do_d: bool) -> None:
+        """The host part of a step: the LR schedule of each network that
+        updated, and ``state.step`` + 1."""
+        st = self.state
+        if do_g:
+            st.g.advance()
+        if do_d:
+            st.d_target.advance()
+        st.step += 1
+
+    def device_step(self, batch: Dict[str, torch.Tensor], do_g: bool, do_d: bool,
+                    gp_alpha: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``train_step`` without its host part: what a CUDA graph captures
+        (with WGAN-GP, ``gp_alpha`` is this step's ``gp_alpha``)."""
         c, st = self.cfg, self.state
         batch = {k: v.float() / 255.0 if v.dtype == torch.uint8 else v for k, v in batch.items()}
         if "bicubic" in batch:
@@ -211,16 +237,14 @@ class DSNTrainer:
             real_tex, fake_tex = d(disc), d(fake_det)
         gp = 0.0
         if c.wgan:
-            alpha = self.gp_alpha(disc.shape[0]) if gp_alpha is None else gp_alpha
-            gp = 10.0 * gradient_penalty(d, disc, fake_det, alpha)
+            gp = 10.0 * gradient_penalty(d, disc, fake_det, gp_alpha)
         d_loss = dsn_discriminator_loss(real_tex, fake_tex, wasserstein=c.wgan, grad_penalty=gp)
         d_grads = torch.autograd.grad(d_loss, st.d_target.params())
 
         if do_g:
-            st.g.step(g_grads)
+            st.g.update(g_grads)
         if do_d:
-            st.d_target.step(d_grads)
-        st.step += 1
+            st.d_target.update(d_grads)
 
         # L1 between per-image spatial means, so the fake-LR / input sizes do
         # not matter (DSN/loss.py:97-101, logged against the G input)
@@ -257,7 +281,19 @@ class DSNTrainer:
         device, each on a batch drawn and gathered there (``draw_dsn``,
         ``gather_dsn``); ``seed``: the window's first iteration. The last
         step's metrics, unsynchronised (counterpart of
-        ``DSNTrainer.train_banked_step``)."""
+        ``DSNTrainer.train_banked_step``). Replayed from a CUDA graph where
+        ``step_graph.replays_on`` the banks' device, else the eager loop."""
+        args = (clean, noisy, noisy_idx, seed, crop, flips, rotations, do_g, do_d)
+        if step_graph.replays_on(noisy_idx.device):
+            return self.train_banked_step_graphed(*args)
+        return self.train_banked_step_eager(*args)
+
+    def train_banked_step_eager(self, clean: ImageBank, noisy: ImageBank,
+                                noisy_idx: torch.Tensor, seed: int, crop: int,
+                                flips: bool = False, rotations: bool = False, do_g: bool = True,
+                                do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """``train_banked_step`` as a Python loop of ``train_step``: the
+        plain version, and the path of several ranks."""
         gen = window_generator(self.cfg.seed, seed, self.device)
         world = dist.current()
         metrics = {}
@@ -270,6 +306,40 @@ class DSNTrainer:
             metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
                                       do_g=do_g, do_d=do_d)
         return metrics
+
+    def train_banked_step_graphed(self, clean: ImageBank, noisy: ImageBank,
+                                  noisy_idx: torch.Tensor, seed: int, crop: int,
+                                  flips: bool = False, rotations: bool = False,
+                                  do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """``train_banked_step`` through ``self.graphs``: the draws and the
+        WGAN-GP draws stay eager, the gather and ``device_step`` are the
+        graph. One rank."""
+        c = self.cfg
+        gen = window_generator(c.seed, seed, self.device)
+
+        def step(row, draws, alpha):
+            batch = gather_dsn(clean, noisy, row, draws, crop, c.upscale_factor, flips,
+                               rotations)
+            return self.device_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
+                                    do_g, do_d, alpha)
+
+        def inputs():
+            for row in noisy_idx:
+                draws = draw_dsn(gen, row.shape[0], clean.data.shape[0])
+                yield row, draws, self.gp_alpha(row.shape[0]) if c.wgan else None
+
+        def tensors():
+            st = self.state
+            for ns in (st.g, st.d_target):
+                yield from ns.tensors()
+            if self.lpips is not None:
+                yield from self.lpips.parameters()
+                yield from self.lpips.buffers()
+            yield from (*clean, *noisy)
+
+        key = ("dsn", noisy_idx.shape[1], crop, flips, rotations, c.dtype, do_g, do_d)
+        return self.graphs.window(key, tensors, step, inputs(),
+                                  lambda: self.host_step(do_g, do_d))
 
     @torch.no_grad()
     def generate(self, x: torch.Tensor) -> torch.Tensor:

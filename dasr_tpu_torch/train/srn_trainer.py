@@ -24,11 +24,15 @@ applied twice in the multiweights path (DASR_model.py:213-218); with RaGAN
 on, ``gan_H_target`` is applied twice on the G side (:240-247).
 
 ``train_banked_step`` runs a window of K steps on batches sampled on the
-device from the stage-3 banks (``data/device_bank.py``): a Python loop of
-``train_step``, no sync, the generator seeded from (``cfg.seed``, the
-window's first iteration), as the JAX package folds the window into its
-key. A window of host batches is the facade's loop of ``train_step``
-(``models/registry.py:DASRModel.train_multi_step``).
+device from the stage-3 banks (``data/device_bank.py``), no sync, the
+generator seeded from (``cfg.seed``, the window's first iteration), as the
+JAX package folds the window into its key. On CUDA in a world of one rank
+without a process group each step is replayed from a CUDA graph of
+``device_step`` (``train/step_graph.py``), the counterpart of JAX's ``jit``
+over ``lax.scan``; elsewhere, and as the plain version the card is held
+against, it is ``train_banked_step_eager``, a Python loop of
+``train_step``. A window of host batches is the facade's loop of
+``train_step`` (``models/registry.py:DASRModel.train_multi_step``).
 
 In a world of several ranks (``core/dist.py``) each rank steps on its rows
 of the global batch: the RaGAN batch means and the metrics are the global
@@ -59,6 +63,7 @@ from dasr_tpu_torch.nn.vgg import VGG19Feature54
 from dasr_tpu_torch.ops.dwt import haar_bands
 from dasr_tpu_torch.ops.filters import filter_high, filter_low
 from dasr_tpu_torch.ops.resize import bilinear_resize
+from dasr_tpu_torch.train import step_graph
 from dasr_tpu_torch.train.state import GANTrainState, make_net_state
 
 
@@ -116,6 +121,7 @@ class SRNTrainer:
             nf=cfg.nf, nb=cfg.nb, gc=cfg.gc, upscale=cfg.scale, dtype=cfg.dtype)
         self.lpips, self.vgg = lpips, vgg
         self.state: Optional[GANTrainState] = None
+        self.graphs = step_graph.StepGraphs(self.device)
 
     def make_d(self) -> NLayerDiscriminator:
         """SRN 'discriminator_patch': NLayer, stride 2, instance norm,
@@ -192,6 +198,25 @@ class SRNTrainer:
         HR, HR_unpair, fake_w). Returns the metrics as 0-d f32 tensors. With
         ``do_g``/``do_d`` false the losses are still reported but that side
         is not updated."""
+        metrics = self.device_step(batch, do_g, do_d)
+        self.host_step(do_g, do_d)
+        return metrics
+
+    def host_step(self, do_g: bool, do_d: bool) -> None:
+        """The host part of a step: the LR schedule of each network that
+        updated, and ``state.step`` + 1."""
+        c, st = self.cfg, self.state
+        if do_d:
+            for ns, on in ((st.d_target, c.gan_H_target > 0), (st.d_source, c.gan_H_source > 0)):
+                if on:
+                    ns.advance()
+        if do_g:
+            st.g.advance()
+        st.step += 1
+
+    def device_step(self, batch: Dict[str, torch.Tensor], do_g: bool,
+                    do_d: bool) -> Dict[str, torch.Tensor]:
+        """``train_step`` without its host part: what a CUDA graph captures."""
         var_l = torch.cat([batch["LR_fake"], batch["LR_real"]])
         var_h = torch.cat([batch["HR"], batch["HR_unpair"]])
         weights = bilinear_resize(batch["fake_w"], var_h.shape[-2], var_h.shape[-1])
@@ -201,11 +226,11 @@ class SRNTrainer:
     def _gan_step(self, st: GANTrainState, var_l, var_h, b: int, g_extra, weights,
                   metrics: Dict[str, torch.Tensor], do_g: bool,
                   do_d: bool) -> Dict[str, torch.Tensor]:
-        """The step after its batch is assembled: G on ``var_l`` (and
-        ``g_extra``), G's losses, the discriminators' losses, the updates,
-        ``st.step`` + 1. ``weights``: the per-pixel pixel-loss weights at HR
-        size, or None for the plain pixel loss; ``metrics``: those the caller
-        already took."""
+        """The step's device part after its batch is assembled: G on
+        ``var_l`` (and ``g_extra``), G's losses, the discriminators' losses,
+        the updates (``host_step`` follows). ``weights``: the per-pixel
+        pixel-loss weights at HR size, or None for the plain pixel loss;
+        ``metrics``: those the caller already took."""
         c = self.cfg
         real_ll, real_hc = self._fs(var_h)
         hr_src, hr_ll_src = var_h[:b], real_ll[:b]
@@ -282,11 +307,10 @@ class SRNTrainer:
                             "disc_Score/D_fake_source_H": f})
         if do_d:
             for net_state, grads in updates:
-                net_state.step(grads)
+                net_state.update(grads)
         if do_g:
-            st.g.step(g_grads)
+            st.g.update(g_grads)
         metrics["loss/l_g_total"] = total
-        st.step += 1
         return dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
 
     def train_banked_step(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
@@ -294,12 +318,22 @@ class SRNTrainer:
                           do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
         """K steps over a (K, B) window of fake-LR indices on the banks'
         device, each on a batch drawn and gathered there (``draw_dasr``,
-        ``gather_dasr``); ``seed``: the window's first iteration. In a world
-        of several ranks every rank draws for the global row, from the same
-        generator, and gathers its own rows of it (``World.batch_slice``).
-        Returns
-        the last step's metrics as device tensors, unsynchronised
-        (counterpart of ``SRNTrainer.train_banked_step``)."""
+        ``gather_dasr``); ``seed``: the window's first iteration. Returns the
+        last step's metrics as device tensors, unsynchronised (counterpart of
+        ``SRNTrainer.train_banked_step``). Replayed from a CUDA graph where
+        ``step_graph.replays_on`` the banks' device, else the eager loop."""
+        args = (banks, fake_idx, seed, hr_size, use_flip, use_rot, do_g, do_d)
+        if step_graph.replays_on(fake_idx.device):
+            return self.train_banked_step_graphed(*args)
+        return self.train_banked_step_eager(*args)
+
+    def train_banked_step_eager(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
+                                hr_size: int, use_flip: bool = True, use_rot: bool = True,
+                                do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """``train_banked_step`` as a Python loop of ``train_step``: the
+        plain version. In a world of several ranks every rank draws for the
+        global row, from the same generator, and gathers its own rows of it
+        (``World.batch_slice``)."""
         gen = window_generator(self.cfg.seed, seed, self.device)
         n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
         world = dist.current()
@@ -313,6 +347,40 @@ class SRNTrainer:
             metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
                                       do_g=do_g, do_d=do_d)
         return metrics
+
+    def train_banked_step_graphed(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
+                                  hr_size: int, use_flip: bool = True, use_rot: bool = True,
+                                  do_g: bool = True,
+                                  do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """``train_banked_step`` through ``self.graphs``: the draws stay
+        eager, the gather and ``device_step`` are the graph. One rank."""
+        c = self.cfg
+        gen = window_generator(c.seed, seed, self.device)
+        n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
+
+        def step(row, draws):
+            batch = gather_dasr(banks, row, draws, hr_size, c.scale, use_flip, use_rot)
+            return self.device_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
+                                    do_g, do_d)
+
+        def tensors():
+            st = self.state
+            for ns in (st.g, st.d_target, st.d_source):
+                if ns is not None:
+                    yield from ns.tensors()
+            for m in (self.lpips, self.vgg):
+                if m is not None:
+                    yield from m.parameters()
+                    yield from m.buffers()
+            for b in banks:
+                if b is not None:
+                    yield from b
+
+        key = ("dasr", fake_idx.shape[1], hr_size, use_flip, use_rot, c.dtype, do_g, do_d)
+        return self.graphs.window(
+            key, tensors, step,
+            ((row, draw_dasr(gen, row.shape[0], n_real, n_hr)) for row in fake_idx),
+            lambda: self.host_step(do_g, do_d))
 
     # -- inference ----------------------------------------------------------------
 

@@ -1,0 +1,263 @@
+"""The replayed banked window (``dasr_tpu_torch/train/step_graph.py``) on the
+CPU, with stand-ins for the CUDA graph: the step on static buffers, its
+per-step inputs written the way a replay writes them, equals the eager
+``train_banked_step`` for the DASR step (RRDBNet nf 16 nb 1) and the DSN
+step (DeResnet nb 1, vanilla and WGAN-GP) in losses, params and Adam's
+moments (f32, RTOL 1e-6 as tests/test_torch_banked_step.py; exact equality
+is expected), which tests/test_torch_banked_step.py holds against
+``train_step`` and tests/test_torch_{srn,dsn}_step_*.py against JAX. Also:
+the LR a tensor-LR ``NetState`` is given each step equals the float
+``LambdaLR``'s across a multistep milestone and a ``dsn_linear_decay``
+step; a window's metrics do not change when the next window runs; a
+replay is credited with the kernel launches its capture recorded."""
+
+import copy
+import gc
+import weakref
+
+import numpy as np
+import pytest
+import torch
+
+from dasr_tpu_torch.data import device_bank as bank
+from dasr_tpu_torch.ops.rdb import fused_rdb
+from dasr_tpu_torch.train import step_graph
+from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
+from dasr_tpu_torch.train.schedules import dsn_linear_decay, multistep
+from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
+from dasr_tpu_torch.train.state import NetState, keep_form, net_state
+
+RTOL = 1e-6
+HR_SIZE = 32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small ops: torch's intra-op threads only contend with the other
+    test workers for the cores (as in tests/test_torch_banked_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def replaying_capture(step, args, stream):
+    """A CUDA graph's memory behaviour on the CPU: the capture runs nothing;
+    each replay runs ``step`` on the static inputs and writes its outputs
+    into the same tensors, which the first replay made."""
+    outputs = {}
+
+    def replay():
+        out = step(*args)
+        if not outputs:
+            outputs.update(out)
+        else:
+            for k, v in out.items():
+                outputs[k].copy_(v)
+        return outputs
+
+    return replay
+
+
+def recording_capture(step, args, stream):
+    """A CUDA graph's launch behaviour: the capture runs the step's Python
+    once (where the kernel wrappers count), a replay runs no Python."""
+    out = step(*args)
+    return lambda: out
+
+
+def _bank(rng, n, hw, c=3, f32=False):
+    data = (rng.random((n, *hw, c), dtype=np.float32) if f32
+            else rng.integers(0, 256, (n, *hw, c)).astype(np.uint8))
+    return bank.ImageBank(torch.from_numpy(data), torch.tensor([hw] * n, dtype=torch.int32))
+
+
+@pytest.fixture(scope="module")
+def srn_banks():
+    rng = np.random.default_rng(0)
+    return bank.SrnBanks(_bank(rng, 3, (12, 14)), _bank(rng, 3, (48, 56)),
+                         _bank(rng, 2, (10, 9)), _bank(rng, 3, (12, 14), 1, f32=True))
+
+
+@pytest.fixture(scope="module")
+def dsn_banks():
+    rng = np.random.default_rng(1)
+    return _bank(rng, 3, (70, 66)), _bank(rng, 4, (20, 22))
+
+
+def _srn_trainer():
+    tr = SRNTrainer(SRNConfig(nf=16, nb=1, gc=8, d_nf=16, d_n_layers=2, seed=5,
+                              lr_steps=(2,)))
+    tr.init_state()
+    return tr
+
+
+def _dsn_trainer(wgan):
+    tr = DSNTrainer(DSNConfig(num_res_blocks=1, use_per_loss=False, filter="avg_pool",
+                              wgan=wgan, seed=3), decay=(3, 2, 1))
+    tr.init_state()
+    return tr
+
+
+def _flat(ns, what):
+    if what == "params":
+        return torch.cat([p.detach().flatten() for p in ns.params()])
+    return torch.cat([ns.opt.state[p][what].flatten() for p in ns.params()])
+
+
+def _assert_close(a, b):
+    torch.testing.assert_close(a, b, rtol=RTOL, atol=RTOL * float(b.abs().max()))
+
+
+def _assert_same_state(a, b, names):
+    assert a.state.step == b.state.step
+    for name in names:
+        na, nb = getattr(a.state, name), getattr(b.state, name)
+        for what in ("params", "exp_avg", "exp_avg_sq"):
+            _assert_close(_flat(na, what), _flat(nb, what))
+        assert na.opt.param_groups[0]["lr"] == nb.opt.param_groups[0]["lr"]
+
+
+def _windows(run, windows):
+    """Each window's metrics, read after every window has run."""
+    return [run(start, idx) for start, idx in windows]
+
+
+WINDOWS = [(0, torch.tensor([[0, 2], [1, 1], [2, 0]])), (3, torch.tensor([[1, 2], [0, 0]]))]
+
+
+def test_srn_replayed_window_equals_eager(srn_banks):
+    """Two windows (3 steps across the milestone at 2, then 2): the first
+    step of the key is the eager warm-up, the other four replay."""
+    a, b = _srn_trainer(), _srn_trainer()
+    a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    got = _windows(lambda s, idx: a.train_banked_step_graphed(srn_banks, idx, s, HR_SIZE),
+                   WINDOWS)
+    want = _windows(lambda s, idx: b.train_banked_step(srn_banks, idx, s, HR_SIZE), WINDOWS)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            _assert_close(g[k], w[k])
+    _assert_same_state(a, b, ("g", "d_target"))
+    assert a.state.step == 5 and len(a.graphs._graphs) == 1
+
+
+@pytest.mark.parametrize("wgan", [False, True])
+def test_dsn_replayed_window_equals_eager(dsn_banks, wgan):
+    """As the DASR case, across ``dsn_linear_decay``'s steps at 2 and 3; with
+    WGAN-GP the mixing draws are written before each replay."""
+    clean, noisy = dsn_banks
+    windows = [(0, torch.tensor([[3, 0], [1, 2], [0, 1]])), (3, torch.tensor([[2, 3], [1, 0]]))]
+    a, b = _dsn_trainer(wgan), _dsn_trainer(wgan)
+    a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    got = _windows(lambda s, idx: a.train_banked_step_graphed(clean, noisy, idx, s, 64, True,
+                                                              True), windows)
+    want = _windows(lambda s, idx: b.train_banked_step(clean, noisy, idx, s, 64, True, True),
+                    windows)
+    for g, w in zip(got, want):
+        for k in w:
+            _assert_close(g[k], w[k])
+    _assert_same_state(a, b, ("g", "d_target"))
+
+
+def test_srn_window_metrics_survive_the_next_window(srn_banks):
+    """The next window's replays overwrite the graph's outputs, not the
+    metrics a window returned (a CLI reads them one window late)."""
+    tr = _srn_trainer()
+    tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    first = tr.train_banked_step_graphed(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
+    kept = {k: v.clone() for k, v in first.items()}
+    tr.train_banked_step_graphed(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
+    for k in kept:
+        assert torch.equal(first[k], kept[k])
+    # the graph's own outputs did move: the clone is what kept them
+    outputs = tr.graphs._graphs[next(iter(tr.graphs._graphs))].replay()
+    assert not all(torch.equal(outputs[k], kept[k]) for k in kept)
+
+
+def test_replay_is_credited_with_its_captures_launches():
+    """A stub step that counts five launches a call as the kernel wrapper
+    does: the warm-up counts 5, the capture nets 0, each replay 5."""
+    def step(x):
+        fused_rdb.launches += 5
+        fused_rdb.launches_f32 += 5
+        return {"m": x.sum()}
+
+    graphs = step_graph.StepGraphs("cpu", capture=recording_capture)
+    before = (fused_rdb.launches, fused_rdb.launches_f32, step_graph.StepGraphs.replays)
+    hosts = []
+    xs = [(torch.full((2,), float(i)),) for i in range(4)]
+    graphs.window("k", lambda: [], step, iter(xs), lambda: hosts.append(1))
+    assert fused_rdb.launches - before[0] == 20
+    assert fused_rdb.launches_f32 - before[1] == 20
+    assert step_graph.StepGraphs.replays - before[2] == 3
+    assert len(hosts) == 4 and "k" in graphs.capture_s
+    # the static input holds the last step's item
+    assert torch.equal(graphs._graphs["k"].static[0], xs[-1][0])
+
+
+def test_state_moved_under_the_graph_is_captured_again(srn_banks):
+    """Loading a train state replaces Adam's state tensors, whose addresses
+    the graph holds: the next window captures the key again."""
+    tr = _srn_trainer()
+    tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    tr.train_banked_step_graphed(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
+    graph = tr.graphs._graphs[next(iter(tr.graphs._graphs))]
+    tr.state.g.opt.load_state_dict(copy.deepcopy(tr.state.g.opt.state_dict()))
+    tr.train_banked_step_graphed(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
+    assert tr.graphs._graphs[next(iter(tr.graphs._graphs))] is not graph
+
+
+def _tensor_lr_state(schedule):
+    """The form ``net_state`` gives a network on CUDA (a tensor LR, written
+    in place), on the CPU."""
+    net = torch.nn.Linear(2, 2)
+    lr = torch.tensor(1e-3)
+    opt = torch.optim.Adam(net.parameters(), lr=lr, foreach=False)
+    opt.param_groups[0]["initial_lr"] = 1e-3
+    ns = NetState(net, opt, schedule(opt), lr)
+    ns.set_lr(opt.param_groups[0]["lr"])
+    opt.register_load_state_dict_post_hook(keep_form(lr))
+    return ns
+
+
+@pytest.mark.parametrize("schedule, steps", [
+    (lambda opt: multistep(opt, (2, 5), 0.5), 7),
+    (lambda opt: dsn_linear_decay(opt, 4, 2, 2), 9),
+])
+def test_tensor_lr_follows_the_float_schedule(schedule, steps):
+    """Each step's LR written into the tensor equals the float LambdaLR's,
+    and the optimizer keeps reading that tensor."""
+    t = _tensor_lr_state(schedule)
+    f = net_state(torch.nn.Linear(2, 2), 1e-3, 0.9, schedule)
+    assert f.lr is None
+    seen = []
+    for _ in range(steps):
+        assert t.opt.param_groups[0]["lr"] is t.lr
+        assert float(t.lr) == pytest.approx(f.opt.param_groups[0]["lr"], rel=1e-7)
+        seen.append(f.opt.param_groups[0]["lr"])
+        for ns in (t, f):
+            ns.opt.step()  # no gradients: no update, the schedule's order only
+            ns.advance()
+    assert len(set(seen)) == 3  # the window crossed two changes
+    # a float the scheduler or a load assigns goes into the tensor
+    t.set_lr(0.25)
+    assert t.opt.param_groups[0]["lr"] is t.lr and float(t.lr) == 0.25
+    t.opt.load_state_dict(f.opt.state_dict())
+    assert t.opt.param_groups[0]["lr"] is t.lr
+    assert float(t.lr) == pytest.approx(f.opt.param_groups[0]["lr"], rel=1e-7)
+    assert t.opt.param_groups[0]["capturable"]
+
+
+def test_net_state_is_freed_without_the_cycle_collector():
+    """The optimizer's load hook holds the LR tensor only: a dropped
+    ``NetState`` (its network and Adam state) is freed at once, not at the
+    next cycle collection."""
+    ns = net_state(torch.nn.Linear(2, 2), 1e-3, 0.9, lambda opt: multistep(opt, (2,), 0.5))
+    ref = weakref.ref(ns.opt)
+    gc.disable()
+    try:
+        del ns
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -1,0 +1,132 @@
+"""The banked windows replayed from a CUDA graph on the card against the
+eager loop, at a small size: the DASR step (RRDBNet nf 32 nb 1 gc 32, so
+the RDB kernel runs; LPIPS alex; HR 32) and the DSN step (DeResnet nb 1,
+FSD, LPIPS alex, crop 128), f32, two windows of 4 steps from one state;
+and a dropped graphed trainer leaves no device memory behind.
+
+Imports neither jax nor the JAX package, so it runs where only the port is
+installed, without the suite's conftest:
+
+    python3 -m pytest --noconftest tests/test_torch_step_graph_card.py
+
+Every test is marked ``cuda`` and skips without a card."""
+
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from dasr_tpu_torch.core.device import resolve_device
+from dasr_tpu_torch.data import device_bank as bank
+from dasr_tpu_torch.ops.rdb import TOLERANCES, fused_rdb
+from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
+from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
+from dasr_tpu_torch.train.step_graph import StepGraphs
+
+K = 4
+
+
+def _bank(rng, n, hw, c=3, f32=False):
+    data = (rng.random((n, *hw, c), dtype=np.float32) if f32
+            else rng.integers(0, 256, (n, *hw, c)).astype(np.uint8))
+    return bank.upload(bank.ImageBank(data, np.array([hw] * n, np.int32)), "cuda")
+
+
+def _trainers(kind):
+    """Two trainers from one seeded state on the card, and their window."""
+    rng = np.random.default_rng(0)
+    if kind == "dasr":
+        banks = bank.SrnBanks(_bank(rng, 3, (12, 14)), _bank(rng, 3, (48, 56)),
+                              _bank(rng, 2, (10, 9)), _bank(rng, 3, (12, 14), 1, f32=True))
+        cfg = SRNConfig(nf=32, nb=1, gc=32, d_nf=16, seed=5, lr_steps=(3,))
+        make = lambda: SRNTrainer(cfg, "cuda")  # noqa: E731
+
+        def window(tr, eager, start, idx):
+            run = tr.train_banked_step_eager if eager else tr.train_banked_step
+            return run(banks, idx, start, 32)
+    else:
+        clean, noisy = _bank(rng, 3, (140, 132)), _bank(rng, 4, (40, 44))
+        cfg = DSNConfig(num_res_blocks=1, filter="avg_pool", seed=3)
+        make = lambda: DSNTrainer(cfg, "cuda", decay=(3, 2, 2))  # noqa: E731
+
+        def window(tr, eager, start, idx):
+            run = tr.train_banked_step_eager if eager else tr.train_banked_step
+            return run(clean, noisy, idx, start, 128, True, True)
+    out = []
+    for _ in range(2):
+        tr = make()
+        tr.init_state()
+        out.append(tr)
+    n = 3 if kind == "dasr" else 4
+    idx = torch.from_numpy(rng.integers(0, n, (2, K, 2))).cuda()
+    return out, window, idx
+
+
+def _flat(ns, what):
+    if what == "params":
+        return torch.cat([p.detach().flatten() for p in ns.params()])
+    return torch.cat([ns.opt.state[p][what].flatten() for p in ns.params()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dasr", "dsn"])
+def test_replayed_windows_equal_the_eager_loop(kind):
+    """Losses within the three-step loss limits, each network's update and
+    Adam moments within the update and moment limits of their norm, the
+    same LR and step, the same kernel launches, and replays counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")  # the port's f32 rule: TF32 off
+    (graphed, eager), window, idx = _trainers(kind)
+    init = {name: _flat(getattr(eager.state, name), "params").clone() for name in ("g",
+                                                                                   "d_target")}
+    launches, got, want = [], [], []
+    for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
+        before, replays = fused_rdb.launches, StepGraphs.replays
+        for w in range(2):
+            sink.append(window(tr, is_eager, w * K, idx[w]))
+        torch.cuda.synchronize()
+        launches.append(fused_rdb.launches - before)
+        if not is_eager:
+            assert StepGraphs.replays - replays == 2 * K - 1
+    # nb 1: three RDBs of five launches a generator forward; DeResnet has none
+    assert launches[0] == launches[1] == (2 * K * 3 * 5 if kind == "dasr" else 0)
+    atol, rtol = TOLERANCES["train_loss_f32"]
+    for g, w in zip(got, want):
+        for k in w:
+            assert abs(float(g[k]) - float(w[k])) <= atol + rtol * abs(float(w[k])), k
+    assert graphed.state.step == eager.state.step == 2 * K
+    for name in ("g", "d_target"):
+        a, b = getattr(graphed.state, name), getattr(eager.state, name)
+        p, pr = _flat(a, "params"), _flat(b, "params")
+        assert ((p - pr).norm() / (pr - init[name]).norm()).item() <= (
+            TOLERANCES["train_update_f32"][1])
+        for what in ("exp_avg", "exp_avg_sq"):
+            m, mr = _flat(a, what), _flat(b, what)
+            assert ((m - mr).norm() / mr.norm()).item() <= TOLERANCES["train_moment_f32"][1]
+        assert float(a.lr) == float(b.lr)
+        assert a.opt.param_groups[0]["lr"] is a.lr and a.opt.param_groups[0]["capturable"]
+
+
+@pytest.mark.cuda
+def test_dropped_graphed_trainers_leave_no_memory_behind():
+    """A trainer that captured and replayed its step frees everything when
+    dropped: after a first run (which sets up what a process keeps, such as
+    cuBLAS's workspace on the one capture stream), a second one leaves the
+    allocated memory where it found it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+
+    def run():
+        (tr, _), window, idx = _trainers("dasr")
+        window(tr, False, 0, idx[0])
+        torch.cuda.synchronize()
+
+    run()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    run()
+    gc.collect()
+    assert torch.cuda.memory_allocated() == base
