@@ -1,0 +1,6 @@
+"""``device_idle_pct.serve``: the share of the traced serving window in
+which no kernel, copy or memset ran on the card (``trace.Reduced.idle_pct``)."""
+
+
+def read(run):
+    return None if run.trace is None else run.trace.idle_pct()
