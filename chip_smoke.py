@@ -364,22 +364,31 @@ def compare(got, want, atol, rtol, what):
 F32_LAUNCHES = {}
 
 
-def zero_launches(fused_rdb):
-    """Set the launch counts of both kernels, and of the f32 one alone, and
-    the count of train-step replays from a CUDA graph, to 0 just before a
-    main path."""
-    from dasr_tpu_torch.train.step_graph import StepGraphs
+REPLAYS_AT_ZERO = 0  # the graph.replays counter at the last zero_launches
 
+
+def zero_launches(fused_rdb):
+    """Set the launch counts of both kernels, and of the f32 one alone, to 0,
+    and start the count of train-step replays from a CUDA graph (the
+    ``graph.replays`` counter), just before a main path."""
+    from dasr_tpu_torch.utils import trace
+
+    global REPLAYS_AT_ZERO
     fused_rdb.launches = 0
     fused_rdb.launches_f32 = 0
-    StepGraphs.replays = 0
+    REPLAYS_AT_ZERO = trace.counters().get("graph.replays", 0)
 
 
 def read_replays():
     """Train steps replayed from a CUDA graph since ``zero_launches``."""
-    from dasr_tpu_torch.train.step_graph import StepGraphs
+    from dasr_tpu_torch.utils import trace
 
-    return StepGraphs.replays
+    return trace.counters().get("graph.replays", 0) - REPLAYS_AT_ZERO
+
+
+def capture_seconds(spans):
+    """The seconds of each graph capture among the recorder's ``spans``."""
+    return [(s.end_ns - s.start_ns) * 1e-9 for s in spans if s.name == "graph.capture"]
 
 
 def read_launches(fused_rdb, path):
@@ -1665,16 +1674,23 @@ def time_arms(what, fns, steps, gpu, rounds=2, profiled=None):
     """The in-turns times, idle share (torch.profiler over one call) and peak
     memory of each arm, printed; returns them by arm. ``profiled``: {arm:
     (a shorter call, its steps)} to trace in place of the arm's window
-    (the tracer's cost grows with the events it records)."""
+    (the tracer's cost grows with the events it records). The first calls
+    run with the port's recorder on, for the seconds of each graph capture
+    (``capture_s``); a graph captured there carries its phase marks."""
     import torch
 
+    from dasr_tpu_torch.utils import trace
+
     t0 = time.perf_counter()
-    peaks, reserved = {}, {}
+    peaks, reserved, captures = {}, {}, {}
     for name, fn in fns.items():  # the first call of each arm: its peak memory
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        trace.enable()
         fn()
+        trace.disable()
+        captures[name] = capture_seconds(trace.drain())
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated()
         # a captured graph keeps its pool reserved; the allocated peak does not show it
@@ -1693,7 +1709,8 @@ def time_arms(what, fns, steps, gpu, rounds=2, profiled=None):
         events = prof["events"] / n if prof else float("nan")
         out[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms, "busy_ms_per_step": busy,
                      "idle_share": idle, "rdb_ms_per_step": rdb, "device_events_per_step": events,
-                     "peak_mem_bytes": peak, "peak_reserved_bytes": reserved[name]}
+                     "peak_mem_bytes": peak, "peak_reserved_bytes": reserved[name],
+                     "capture_s": captures[name]}
         print(f"{what} {name}: {ms:.3f} ms/step (CUDA events, median of {2 * rounds} windows "
               f"of {steps} steps in turns), host {host_ms:.3f} ms/step to issue, device busy "
               f"{busy:.3f} ms/step (torch.profiler over {n} steps), of which rdb_level kernels "
@@ -1780,7 +1797,7 @@ def replay_check(what, make, window, windows, limits, ckpt_dir, gpu):
     the largest parameter difference of each comparison, and the capture
     seconds."""
     from dasr_tpu_torch.train.checkpoints import load_train_state, save_train_state
-    from dasr_tpu_torch.train.step_graph import StepGraphs
+    from dasr_tpu_torch.utils import trace
 
     def after(tr):
         return {name: (flat(ns).clone(), flat(ns, True).clone())
@@ -1796,16 +1813,18 @@ def replay_check(what, make, window, windows, limits, ckpt_dir, gpu):
                 boundary = {name: p for name, (p, _) in after(tr).items()}
         return (traj, init, after(tr)), boundary
 
-    before = StepGraphs.replays
+    before = trace.counters().get("graph.replays", 0)
+    trace.enable()
     straight, eager = make(), make()
     replayed, boundary = run(straight, False, windows, save=True)
     looped, _ = run(eager, True, windows)
     resumed = make()
     load_train_state(ckpt_dir, resumed.state)
     again, _ = run(resumed, False, windows[1:])
-    n_replays = StepGraphs.replays - before
+    trace.disable()
+    n_replays = trace.counters()["graph.replays"] - before
     want_replays = 3 * GRAPH_K - 2  # each trainer's first step of its key is its warm-up
-    capture_s = list(straight.graphs.capture_s.values()) + list(resumed.graphs.capture_s.values())
+    capture_s = capture_seconds(trace.drain())
     out = {}
     for name, run_a, run_b in (("replay_vs_eager", replayed, looped),
                                ("resume_vs_straight", again,
@@ -2103,7 +2122,6 @@ def phase_bank(gpu, root, checked, checked_grad):
                   "bank eager": (lambda: tr.train_banked_step_eager(model._banks, rows[:1], 0,
                                                                     128), 1),
                   "bank replayed": (lambda: model.train_banked_window_async(window[:2], 0), 2)})
-    srn["bank replayed"]["capture_s"] = list(tr.graphs.capture_s.values())
     print(f"dasr step bank replayed: capture {srn['bank replayed']['capture_s']} s (once a "
           f"key; the warm-up step before it is a real step) [{gpu}]", flush=True)
     print(f"dasr bank: {bank.nbytes(model._banks) / 2**30:.6f} GiB resident for the 12-image "
@@ -2124,7 +2142,6 @@ def phase_bank(gpu, root, checked, checked_grad):
         "bank eager": lambda: trainer.train_banked_step_eager(clean, noisy, nwin, 0, 256),
         "bank replayed": lambda: trainer.train_banked_step(clean, noisy, nwin, 0, 256)},
         DSN_BANK_K, gpu)
-    dsn["bank replayed"]["capture_s"] = list(trainer.graphs.capture_s.values())
     print(f"dsn step bank replayed: capture {dsn['bank replayed']['capture_s']} s [{gpu}]",
           flush=True)
     del trainer, batches, clean, noisy

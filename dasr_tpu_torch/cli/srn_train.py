@@ -24,7 +24,10 @@ The JAX package's fast path, with its semantics:
   ``drop_last``;
 * ``val_device_metrics`` (and ``val_metrics_pad_bucket``): the validation
   PSNR/SSIM (+Y, LPIPS) on the card, one image behind the forward;
-* ``--profile DIR``: a ``torch.profiler`` trace of steps 10-20 (rank 0's);
+* ``--profile DIR``: a ``torch.profiler`` trace of steps 10-20 (rank 0's),
+  ``DIR/trace.json``, and the port's spans of those steps on its clock,
+  ``DIR/spans.json`` (``utils/trace.py``); the run logs the port's counters
+  at its end;
 * ``resume_state``: the port's own ``{iter}.pt``, or a reference
   ``{iter}.state`` (``check_resume`` points the pretrain paths at its
   ``{iter}_G.pth`` / ``_D_target.pth`` / ``_D_source.pth``; its Adam states
@@ -101,7 +104,7 @@ def main(argv=None):
     from dasr_tpu_torch.data.datasets import create_dataset
     from dasr_tpu_torch.data.pipeline import Loader
     from dasr_tpu_torch.models.registry import create_model
-    from dasr_tpu_torch.utils import guards
+    from dasr_tpu_torch.utils import guards, trace
     from dasr_tpu_torch.utils.metrics_writer import MetricsWriter
 
     opt = parse_srn_options(args.opt, is_train=True)
@@ -340,6 +343,7 @@ def main(argv=None):
         if world.is_main:
             _save(model, opt, logger_opt, current_step, logger)
         world.barrier()
+        logger.info(f"counters: {trace.counters()}")
         logger.info("End of training.")
     finally:
         if writer:

@@ -65,6 +65,7 @@ from dasr_tpu_torch.train.depatch_trainer import (
 )
 from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
+from dasr_tpu_torch.utils import trace
 
 logger = logging.getLogger("base")
 
@@ -265,13 +266,17 @@ class _InferenceModel:
     def _g_in_eval_mode(self):
         """G in eval mode for the block, then back in its own mode: a
         BatchNorm G serves and validates on its running statistics and
-        leaves them, as the reference's ``test`` runs ``netG.eval()``."""
+        leaves them, as the reference's ``test`` runs ``netG.eval()``. Each
+        switch walks every module of G: with tracing on, a span
+        ``serve.eval_mode``."""
         was_training = self.g.training
-        self.g.eval()
+        with trace.span("serve.eval_mode"):
+            self.g.eval()
         try:
             yield
         finally:
-            self.g.train(was_training)
+            with trace.span("serve.eval_mode"):
+                self.g.train(was_training)
 
     def test(self, lr_img: np.ndarray) -> np.ndarray:
         """One LR image (HWC, float [0, 1] or uint8) -> SR image (HWC float32)."""
@@ -280,32 +285,47 @@ class _InferenceModel:
     @torch.no_grad()
     def test_async(self, lr_img: np.ndarray) -> torch.Tensor:
         """``test``'s SR image as an f32 HWC tensor on the device, without
-        waiting for it (the CLIs read it back one image later)."""
+        waiting for it (the CLIs read it back one image later). Counts
+        ``serve.images``, the LR pixels served (``serve.image_lr_px``) and
+        those forwarded, tile halos and pads included
+        (``serve.tile_lr_px``); with tracing on (``utils/trace.py``) its
+        parts are spans of the image's count: ``serve.upload`` (the copy to
+        the card, the cast and the bucket pad), ``serve.forward`` (each
+        forward's issue) and ``serve.crop``."""
         h0, w0 = lr_img.shape[0], lr_img.shape[1]
-        x = torch.from_numpy(np.ascontiguousarray(lr_img))[None].permute(0, 3, 1, 2)
-        x = x.to(self.device)
-        if x.dtype == torch.uint8:
-            x = x.float() / 255.0
+        n = trace.count("serve.images")
+        trace.count("serve.image_lr_px", h0 * w0)
         scale = self.opt.get("scale", 4)
-        bucket = int(self.opt.get("pad_bucket") or 0)
-        if bucket:
-            bh = math.ceil(h0 / bucket) * bucket
-            bw = math.ceil(w0 / bucket) * bucket
-            x = pad_reflect(x, 0, bh - h0, 0, bw - w0)
+        with trace.span("serve.upload", n):
+            x = torch.from_numpy(np.ascontiguousarray(lr_img))[None].permute(0, 3, 1, 2)
+            x = x.to(self.device)
+            if x.dtype == torch.uint8:
+                x = x.float() / 255.0
+            bucket = int(self.opt.get("pad_bucket") or 0)
+            if bucket:
+                bh = math.ceil(h0 / bucket) * bucket
+                bw = math.ceil(w0 / bucket) * bucket
+                x = pad_reflect(x, 0, bh - h0, 0, bw - w0)
+
+        def forward(t):
+            trace.count("serve.tile_lr_px", t.shape[0] * t.shape[2] * t.shape[3])
+            with trace.span("serve.forward", n):
+                return self._apply_g(t)
+
         world = self._world
         with self._g_in_eval_mode():
             if self._spatial_shard and -(-x.shape[2] // world.size) >= SHARD_HALO:
-                out = spatially_sharded_apply(x, self._apply_g, scale, SHARD_HALO, world)
+                out = spatially_sharded_apply(x, forward, scale, SHARD_HALO, world)
             elif self.opt.get("chop") and h0 * w0 >= self.chop_threshold:
                 if self.opt.get("chop_parity"):
-                    out = forward_chop(x, scale, self._apply_g, min_size=320000)
+                    out = forward_chop(x, scale, forward, min_size=320000)
                 else:
-                    out = tiled_apply(x, self._apply_g, scale=scale, tile=128, halo=16,
-                                      world=world)
+                    out = tiled_apply(x, forward, scale=scale, tile=128, halo=16, world=world)
             else:
-                out = self._apply_g(x)
-        out = out[0, :, : scale * h0, : scale * w0]
-        return out.permute(1, 2, 0).float()
+                out = forward(x)
+        with trace.span("serve.crop", n):
+            out = out[0, :, : scale * h0, : scale * w0]
+            return out.permute(1, 2, 0).float()
 
     @torch.no_grad()
     def test_batch_async(self, lr_imgs) -> torch.Tensor:
@@ -738,12 +758,15 @@ class DASRModel(_InferenceModel):
     def train_banked_window_async(self, fake_idx: np.ndarray, seed: int) -> Dict[str, torch.Tensor]:
         """One (K, B) window of fake-LR indices on the device banks; ``seed``:
         the window's first iteration (a resumed run replays the stream).
-        Returns the last step's device metrics, unsynchronised."""
-        idx = torch.from_numpy(np.ascontiguousarray(fake_idx, np.int64))
-        if self.device.type == "cuda":
-            idx = idx.pin_memory()
-        idx = idx.to(self.device, non_blocking=True)
-        return self._trainer().train_banked_step(self._banks, idx, seed, *self._bank_args)
+        Returns the last step's device metrics, unsynchronised. With tracing
+        on, the index row's pin and copy is the span ``window.upload``."""
+        tr = self._trainer()
+        with trace.span("window.upload", tr.state.step):
+            idx = torch.from_numpy(np.ascontiguousarray(fake_idx, np.int64))
+            if self.device.type == "cuda":
+                idx = idx.pin_memory()
+            idx = idx.to(self.device, non_blocking=True)
+        return tr.train_banked_step(self._banks, idx, seed, *self._bank_args)
 
     def save_reference_formats(self, out_dir: str, iter_step: int) -> str:
         return checkpoints.save_reference_formats(out_dir, self._trainer().state, iter_step)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from dasr_tpu_torch.core.dist import World
+from dasr_tpu_torch.utils import trace
 
 
 def reflect_index(n: int, before: int, after: int) -> np.ndarray:
@@ -114,36 +115,38 @@ def tiled_apply(
     outputs, so a model whose receptive influence is < halo gives seam-free
     results. ``tile*scale`` and ``halo*scale`` must be integers; the output
     is cropped to (ceil(H*scale), ceil(W*scale)). With ``world`` the tiles
-    fan out over its ranks, and every rank returns the whole image."""
+    fan out over its ranks, and every rank returns the whole image. With
+    tracing on the call is the span ``serve.tiles``."""
     th = int(round(scale * halo))
     st = int(round(scale * tile))
     if abs(th - scale * halo) > 1e-9 or abs(st - scale * tile) > 1e-9:
         raise ValueError("tile*scale and halo*scale must be integers")
-    b, _, h, w = img.shape
-    ph = (tile - h % tile) % tile
-    pw = (tile - w % tile) % tile
-    img_p = pad_reflect(img, 0, ph, 0, pw) if (ph or pw) else img
-    nh, nw = (h + ph) // tile, (w + pw) // tile
+    with trace.span("serve.tiles"):
+        b, _, h, w = img.shape
+        ph = (tile - h % tile) % tile
+        pw = (tile - w % tile) % tile
+        img_p = pad_reflect(img, 0, ph, 0, pw) if (ph or pw) else img
+        nh, nw = (h + ph) // tile, (w + pw) // tile
 
-    padded = pad_reflect(img_p, halo, halo, halo, halo)
-    t = tile + 2 * halo
-    tiles = torch.cat(
-        [padded[:, :, rs : rs + t, cs : cs + t]
-         for rs in range(0, nh * tile, tile) for cs in range(0, nw * tile, tile)],
-        0,
-    )
-    if world is not None and world.size > 1:
-        n_tiles = tiles.shape[0]
-        # wrap-repeat the tile batch to a multiple of the ranks (the pad may
-        # exceed n_tiles when there are fewer tiles than ranks), as JAX's
-        padded = -(-n_tiles // world.size) * world.size
-        tiles = tiles[torch.arange(padded, device=tiles.device) % n_tiles]
-        out_tiles = torch.cat(world.all_gather(model(world.shard(tiles))), 0)[:n_tiles]
-    else:
-        out_tiles = model(tiles)
-    inner = out_tiles[:, :, th : th + st, th : th + st]
-    co = inner.shape[1]
-    # (nh*nw*b, co, st, st) -> (b, co, nh, st, nw, st) -> image
-    grid = inner.reshape(nh, nw, b, co, st, st).permute(2, 3, 0, 4, 1, 5)
-    out = grid.reshape(b, co, nh * st, nw * st)
-    return out[:, :, : math.ceil(scale * h), : math.ceil(scale * w)]
+        padded = pad_reflect(img_p, halo, halo, halo, halo)
+        t = tile + 2 * halo
+        tiles = torch.cat(
+            [padded[:, :, rs : rs + t, cs : cs + t]
+             for rs in range(0, nh * tile, tile) for cs in range(0, nw * tile, tile)],
+            0,
+        )
+        if world is not None and world.size > 1:
+            n_tiles = tiles.shape[0]
+            # wrap-repeat the tile batch to a multiple of the ranks (the pad may
+            # exceed n_tiles when there are fewer tiles than ranks), as JAX's
+            padded = -(-n_tiles // world.size) * world.size
+            tiles = tiles[torch.arange(padded, device=tiles.device) % n_tiles]
+            out_tiles = torch.cat(world.all_gather(model(world.shard(tiles))), 0)[:n_tiles]
+        else:
+            out_tiles = model(tiles)
+        inner = out_tiles[:, :, th : th + st, th : th + st]
+        co = inner.shape[1]
+        # (nh*nw*b, co, st, st) -> (b, co, nh, st, nw, st) -> image
+        grid = inner.reshape(nh, nw, b, co, st, st).permute(2, 3, 0, 4, 1, 5)
+        out = grid.reshape(b, co, nh * st, nw * st)
+        return out[:, :, : math.ceil(scale * h), : math.ceil(scale * w)]

@@ -38,6 +38,11 @@ In a world of several ranks (``core/dist.py``) each rank steps on its rows
 of the global batch: the RaGAN batch mean (``FSDiscriminator``), the
 WGAN-GP draws and the metrics are the global batch's, a banked window draws
 for the global row, and ``NetState.step`` averages the gradients.
+
+With tracing on (``utils/trace.py``) a step marks its device phases: a
+banked step's ``batch`` (the gather, the layout, the uint8 cast and the
+bicubic), then ``g_forward`` (G and its losses), ``g_backward``, ``d`` (D's
+losses and gradients, with the GP) and ``adam``, closed at its end.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from dasr_tpu_torch.ops.resize import imresize
 from dasr_tpu_torch.train import step_graph
 from dasr_tpu_torch.train.schedules import dsn_linear_decay
 from dasr_tpu_torch.train.state import GANTrainState, NetState, net_state
+from dasr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +225,7 @@ class DSNTrainer:
         g, d = st.g.net, st.d_target.net
 
         # G's gradient, through D at its current parameters
+        trace.phase("g_forward")
         fake = g(g_input)
         l_tex = dsn_generator_adv_loss(d(fake, disc) if c.ragan else d(fake), wasserstein=c.wgan)
         l_col = self._color_loss(fake, target)
@@ -227,9 +234,11 @@ class DSNTrainer:
         if c.use_per_loss:
             l_per = self.lpips(fake, target, normalize=True).mean()
             loss = loss + c.w_per * l_per
+        trace.phase("g_backward")
         g_grads = torch.autograd.grad(loss, st.g.params())
 
         # D's gradient at the same parameters, on the detached fake
+        trace.phase("d")
         fake_det = fake.detach()
         if c.ragan:
             real_tex, fake_tex = d(disc, fake_det), d(fake_det, disc)
@@ -241,6 +250,7 @@ class DSNTrainer:
         d_loss = dsn_discriminator_loss(real_tex, fake_tex, wasserstein=c.wgan, grad_penalty=gp)
         d_grads = torch.autograd.grad(d_loss, st.d_target.params())
 
+        trace.phase("adam")
         if do_g:
             st.g.update(g_grads)
         if do_d:
@@ -262,7 +272,9 @@ class DSNTrainer:
             "disc_score/real": real_tex.float().mean(),
             "disc_score/fake": fake_tex.float().mean(),
         }
-        return dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
+        out = dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
+        trace.end_phases()
+        return out
 
     def train_multi_step(self, batches, do_g: bool = True,
                          do_d: bool = True) -> Dict[str, torch.Tensor]:
@@ -301,6 +313,7 @@ class DSNTrainer:
             # the global row's draws, then this rank's items of it
             sl = world.batch_slice(row.shape[0])
             draws = shard_draws(draw_dsn(gen, row.shape[0], clean.data.shape[0]), sl)
+            trace.phase("batch")
             batch = gather_dsn(clean, noisy, row[sl], draws, crop, self.cfg.upscale_factor,
                                flips, rotations)
             metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
@@ -318,6 +331,7 @@ class DSNTrainer:
         gen = window_generator(c.seed, seed, self.device)
 
         def step(row, draws, alpha):
+            trace.phase("batch")
             batch = gather_dsn(clean, noisy, row, draws, crop, c.upscale_factor, flips,
                                rotations)
             return self.device_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
@@ -339,7 +353,7 @@ class DSNTrainer:
 
         key = ("dsn", noisy_idx.shape[1], crop, flips, rotations, c.dtype, do_g, do_d)
         return self.graphs.window(key, tensors, step, inputs(),
-                                  lambda: self.host_step(do_g, do_d))
+                                  lambda: self.host_step(do_g, do_d), self.state.step)
 
     @torch.no_grad()
     def generate(self, x: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,11 @@ against, it is ``train_banked_step_eager``, a Python loop of
 In a world of several ranks (``core/dist.py``) each rank steps on its rows
 of the global batch: the RaGAN batch means and the metrics are the global
 batch's, and ``NetState.step`` averages the gradients.
+
+With tracing on (``utils/trace.py``) a step marks its device phases: a
+banked step's ``batch`` (the gather and the layout), then ``_gan_step``'s
+``g_forward`` (G and its losses), ``g_backward``, ``d`` (the
+discriminators' losses and gradients) and ``adam``, closed at its end.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from dasr_tpu_torch.ops.filters import filter_high, filter_low
 from dasr_tpu_torch.ops.resize import bilinear_resize
 from dasr_tpu_torch.train import step_graph
 from dasr_tpu_torch.train.state import GANTrainState, make_net_state
+from dasr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +238,7 @@ class SRNTrainer:
         pixel-loss weights at HR size, or None for the plain pixel loss;
         ``metrics``: those the caller already took."""
         c = self.cfg
+        trace.phase("g_forward")
         real_ll, real_hc = self._fs(var_h)
         hr_src, hr_ll_src = var_h[:b], real_ll[:b]
         hf_src_real, hf_tgt_real = real_hc[:b], real_hc[b:]
@@ -290,10 +297,12 @@ class SRNTrainer:
             metrics["loss/l_g_gan_source_H"] = l_gan_s
 
         # G's gradients w.r.t. G's parameters only: nothing reaches D here
+        trace.phase("g_backward")
         g_grads = torch.autograd.grad(total, st.g.params())
 
         # each D on the detached SR halves, at its parameters from before
         # any update
+        trace.phase("d")
         updates = []
         if c.gan_H_target > 0:
             loss, r, f = self._d_loss(st.d_target.net, hf_tgt_real, hf_tgt_fake.detach())
@@ -305,13 +314,16 @@ class SRNTrainer:
             updates.append((st.d_source, torch.autograd.grad(loss, st.d_source.params())))
             metrics.update({"loss/l_d_total": loss, "disc_Score/D_real_source_H": r,
                             "disc_Score/D_fake_source_H": f})
+        trace.phase("adam")
         if do_d:
             for net_state, grads in updates:
                 net_state.update(grads)
         if do_g:
             st.g.update(g_grads)
         metrics["loss/l_g_total"] = total
-        return dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
+        out = dist.current().mean_metrics({k: v.detach().float() for k, v in metrics.items()})
+        trace.end_phases()
+        return out
 
     def train_banked_step(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
                           hr_size: int, use_flip: bool = True, use_rot: bool = True,
@@ -342,6 +354,7 @@ class SRNTrainer:
             # the global row's draws, then this rank's items of it
             sl = world.batch_slice(row.shape[0])
             draws = shard_draws(draw_dasr(gen, row.shape[0], n_real, n_hr), sl)
+            trace.phase("batch")
             batch = gather_dasr(banks, row[sl], draws, hr_size, self.cfg.scale, use_flip,
                                 use_rot)
             metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
@@ -359,6 +372,7 @@ class SRNTrainer:
         n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
 
         def step(row, draws):
+            trace.phase("batch")
             batch = gather_dasr(banks, row, draws, hr_size, c.scale, use_flip, use_rot)
             return self.device_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
                                     do_g, do_d)
@@ -380,7 +394,7 @@ class SRNTrainer:
         return self.graphs.window(
             key, tensors, step,
             ((row, draw_dasr(gen, row.shape[0], n_real, n_hr)) for row in fake_idx),
-            lambda: self.host_step(do_g, do_d))
+            lambda: self.host_step(do_g, do_d), self.state.step)
 
     # -- inference ----------------------------------------------------------------
 

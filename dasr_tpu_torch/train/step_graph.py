@@ -29,20 +29,30 @@ on the device.
   capture recorded, and the capture itself adds none.
 * The graph bakes in the addresses of the parameters, Adam's state, the LR
   tensors and the banks. Loading a train state replaces Adam's state
-  tensors, so a key is captured again when any of those addresses moved.
+  tensors, so a key is captured again when any of those addresses moved
+  (counted as ``graph.recaptures``, beside ``graph.captures`` and
+  ``graph.replays``: ``utils/trace.py``).
+* With tracing on, each step's host work is a span of the step's id:
+  ``graph.draw`` (taking the next item of ``inputs``: the eager draws),
+  ``graph.stage`` (the copies into the static buffers), ``graph.replay``
+  (``replay()``, which waits while the launch queue is full),
+  ``graph.host_step``, and once a key ``graph.warmup`` and
+  ``graph.capture``. A step captured with tracing on also carries the
+  trainer's device phase marks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import time
+import itertools
 from typing import Callable, Dict, Hashable, Iterable, Optional
 
 import torch
 
 from dasr_tpu_torch.core import dist
 from dasr_tpu_torch.ops.rdb import fused_rdb
+from dasr_tpu_torch.utils import trace
 
 _COUNTS = ("launches", "launches_f32")
 
@@ -107,12 +117,9 @@ class StepGraphs:
     """One trainer's captured steps, by static key. ``capture``: how a step
     is captured (``cuda_capture``; the CPU tests pass an eager stand-in)."""
 
-    replays = 0  # replays in this process since the last reset, of every instance
-
     def __init__(self, device: torch.device, capture: Callable = cuda_capture):
         self.device = torch.device(device)
         self.capture = capture
-        self.capture_s: Dict[Hashable, float] = {}
         self._graphs: Dict[Hashable, _Graph] = {}
         self._stream: Optional[torch.cuda.Stream] = None
 
@@ -127,45 +134,61 @@ class StepGraphs:
         return torch.cuda.stream(self._stream)
 
     def window(self, key: Hashable, tensors: Callable[[], Iterable[torch.Tensor]],
-               step: Callable, inputs: Iterable, host_step: Callable[[], None]):
+               step: Callable, inputs: Iterable, host_step: Callable[[], None],
+               first: int = 0):
         """Run one step per item of ``inputs`` (each a tuple of the step's
         per-step tensors, made when the item is taken): ``step(*item)``, the
         device part, then ``host_step()``. The first step of a new ``key``
         runs eagerly and is then captured; every later one writes its item
         into the static inputs and replays. ``tensors()``: every tensor
-        whose address the step bakes in. Returns the last step's outputs (a
-        dict of tensors) as tensors of their own."""
+        whose address the step bakes in; ``first``: the id of the window's
+        first step (the trainer's ``state.step``), the spans' ids. Returns
+        the last step's outputs (a dict of tensors) as tensors of their
+        own."""
         graph = self._graphs.get(key)
         if graph is not None and graph.fingerprint != _fingerprint(tensors()):
             graph = None  # a train state was loaded under it
         out, replayed = None, False
-        for args in inputs:
+        items = iter(inputs)
+        for i in itertools.count(first):
+            with trace.span("graph.draw", i):
+                args = next(items, None)
+            if args is None:
+                break
             if graph is None:
-                with self._on_stream():
-                    out = step(*args)
-                if self._stream is not None:
-                    torch.cuda.current_stream(self.device).wait_stream(self._stream)
-                host_step()
-                graph = self._graphs[key] = self._capture(key, step, args, tensors)
+                with trace.span("graph.warmup", i):
+                    with self._on_stream():
+                        out = step(*args)
+                    if self._stream is not None:
+                        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+                with trace.span("graph.host_step", i):
+                    host_step()
+                with trace.span("graph.capture", i):
+                    graph = self._capture(key, step, args, tensors)
                 replayed = False
                 continue
-            for buf, value in zip(_flat(graph.static), _flat(args)):
-                buf.copy_(value)
-            out = graph.replay()
-            StepGraphs.replays += 1
+            with trace.span("graph.stage", i):
+                for buf, value in zip(_flat(graph.static), _flat(args)):
+                    buf.copy_(value)
+            with trace.span("graph.replay", i):
+                out = graph.replay()
+            trace.count("graph.replays")
             for name, n in zip(_COUNTS, graph.launches):
                 setattr(fused_rdb, name, getattr(fused_rdb, name) + n)
-            host_step()
+            with trace.span("graph.host_step", i):
+                host_step()
             replayed = True
         return {k: v.clone() for k, v in out.items()} if replayed else out
 
     def _capture(self, key, step, args, tensors) -> _Graph:
         static = _static_like(args)
         before = tuple(getattr(fused_rdb, name) for name in _COUNTS)
-        t0 = time.perf_counter()
         replay = self.capture(step, static, self._stream)
-        self.capture_s[key] = time.perf_counter() - t0
         launches = tuple(getattr(fused_rdb, name) - n for name, n in zip(_COUNTS, before))
         for name, n in zip(_COUNTS, before):
             setattr(fused_rdb, name, n)
-        return _Graph(replay, static, _fingerprint(tensors()), launches)
+        trace.count("graph.captures")
+        if key in self._graphs:
+            trace.count("graph.recaptures")
+        graph = self._graphs[key] = _Graph(replay, static, _fingerprint(tensors()), launches)
+        return graph

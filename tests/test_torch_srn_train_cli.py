@@ -234,15 +234,27 @@ def test_resumed_banked_run_ends_where_the_straight_run_ends(fast, caplog):
 
 def test_profile_writes_a_trace(tmp_path, caplog):
     """A torch.profiler trace of steps 10-20 (windows of 4: from the window
-    that reaches step 10 to the one that reaches step 20)."""
+    that reaches step 10 to the one that reaches step 20), and beside it
+    the port's spans of those windows on the trace's clock (each window's
+    index upload, ``window.upload``, with the window's first step); the run
+    logs the port's counters."""
     dirs = write_corpus(str(tmp_path), n=2)
     path = _fast_config(str(tmp_path), dirs, "prof", niter=20)
     trace = str(tmp_path / "trace")
     with caplog.at_level("INFO", logger="base"):
         steps, _, _ = _run(path, "--device_bank", "--steps_per_call", "4", "--profile", trace)
     assert steps == 20 and f"wrote the profiler trace to {trace}" in caplog.text
+    assert "counters: {" in caplog.text
     with open(os.path.join(trace, "trace.json")) as f:
-        assert "traceEvents" in json.load(f)
+        prof = json.load(f)
+    with open(os.path.join(trace, "spans.json")) as f:
+        spans = json.load(f)
+    assert spans["baseTimeNanoseconds"] == prof.get("baseTimeNanoseconds", 0)
+    uploads = [e for e in spans["traceEvents"] if e["name"] == "window.upload"]
+    assert [e["args"]["id"] for e in uploads] == [8, 12, 16]
+    timed = [e for e in prof["traceEvents"] if e.get("ph") == "X"]
+    t0, t1 = min(e["ts"] for e in timed), max(e["ts"] + e["dur"] for e in timed)
+    assert all(t0 <= e["ts"] <= e["ts"] + e["dur"] <= t1 for e in uploads)
 
 
 def _gate_case(root, case):

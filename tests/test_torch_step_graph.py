@@ -9,7 +9,9 @@ is expected), which tests/test_torch_banked_step.py holds against
 the LR a tensor-LR ``NetState`` is given each step equals the float
 ``LambdaLR``'s across a multistep milestone and a ``dsn_linear_decay``
 step; a window's metrics do not change when the next window runs; a
-replay is credited with the kernel launches its capture recorded."""
+replay is credited with the kernel launches its capture recorded; with
+tracing on, each step's host work is a span of its step's id, and the
+captures, recaptures and replays are counted (``utils/trace.py``)."""
 
 import copy
 import gc
@@ -26,6 +28,7 @@ from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
 from dasr_tpu_torch.train.schedules import dsn_linear_decay, multistep
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 from dasr_tpu_torch.train.state import NetState, keep_form, net_state
+from dasr_tpu_torch.utils import trace
 
 RTOL = 1e-6
 HR_SIZE = 32
@@ -70,6 +73,22 @@ def _bank(rng, n, hw, c=3, f32=False):
     data = (rng.random((n, *hw, c), dtype=np.float32) if f32
             else rng.integers(0, 256, (n, *hw, c)).astype(np.uint8))
     return bank.ImageBank(torch.from_numpy(data), torch.tensor([hw] * n, dtype=torch.int32))
+
+
+@pytest.fixture
+def tracing():
+    """The recorder on for one test, from an empty list; off after it."""
+    trace.drain()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.drain()
+
+
+def _replays():
+    return trace.counters().get("graph.replays", 0)
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +194,7 @@ def test_srn_window_metrics_survive_the_next_window(srn_banks):
     assert not all(torch.equal(outputs[k], kept[k]) for k in kept)
 
 
-def test_replay_is_credited_with_its_captures_launches():
+def test_replay_is_credited_with_its_captures_launches(tracing):
     """A stub step that counts five launches a call as the kernel wrapper
     does: the warm-up counts 5, the capture nets 0, each replay 5."""
     def step(x):
@@ -184,28 +203,57 @@ def test_replay_is_credited_with_its_captures_launches():
         return {"m": x.sum()}
 
     graphs = step_graph.StepGraphs("cpu", capture=recording_capture)
-    before = (fused_rdb.launches, fused_rdb.launches_f32, step_graph.StepGraphs.replays)
+    before = (fused_rdb.launches, fused_rdb.launches_f32, _replays())
     hosts = []
     xs = [(torch.full((2,), float(i)),) for i in range(4)]
     graphs.window("k", lambda: [], step, iter(xs), lambda: hosts.append(1))
     assert fused_rdb.launches - before[0] == 20
     assert fused_rdb.launches_f32 - before[1] == 20
-    assert step_graph.StepGraphs.replays - before[2] == 3
-    assert len(hosts) == 4 and "k" in graphs.capture_s
+    assert _replays() - before[2] == 3
+    assert len(hosts) == 4
+    assert [s.id for s in trace.drain() if s.name == "graph.capture"] == [0]
     # the static input holds the last step's item
     assert torch.equal(graphs._graphs["k"].static[0], xs[-1][0])
 
 
-def test_state_moved_under_the_graph_is_captured_again(srn_banks):
-    """Loading a train state replaces Adam's state tensors, whose addresses
-    the graph holds: the next window captures the key again."""
+def test_replayed_steps_are_spans_of_their_step(srn_banks, tracing):
+    """Two windows of the DASR step (steps 0-2, 3-4): the first step is the
+    warm-up and the capture, every later one a draw, a stage, a replay and
+    a host step, each span with its step's id; a second window of the key
+    captures nothing."""
     tr = _srn_trainer()
     tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    captures, replays = (trace.counters().get(k, 0) for k in ("graph.captures",
+                                                              "graph.replays"))
+    _windows(lambda s, idx: tr.train_banked_step_graphed(srn_banks, idx, s, HR_SIZE), WINDOWS)
+    spans = trace.drain()
+    ids = {}
+    for s in spans:
+        ids.setdefault(s.name, []).append(s.id)
+    # each window also draws once past its last row: the loop's end
+    assert ids["graph.draw"] == [0, 1, 2, 3, 3, 4, 5]
+    assert ids["graph.warmup"] == ids["graph.capture"] == [0]
+    assert ids["graph.stage"] == ids["graph.replay"] == [1, 2, 3, 4]
+    assert ids["graph.host_step"] == [0, 1, 2, 3, 4]
+    assert all(s.parent is None and s.start_ns <= s.end_ns for s in spans)
+    got = trace.counters()
+    assert got["graph.captures"] - captures == 1 and got["graph.replays"] - replays == 4
+
+
+def test_state_moved_under_the_graph_is_captured_again(srn_banks):
+    """Loading a train state replaces Adam's state tensors, whose addresses
+    the graph holds: the next window captures the key again, and counts a
+    recapture (the counters are on with tracing off)."""
+    tr = _srn_trainer()
+    tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    recaptures = trace.counters().get("graph.recaptures", 0)
     tr.train_banked_step_graphed(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
     graph = tr.graphs._graphs[next(iter(tr.graphs._graphs))]
+    assert trace.counters().get("graph.recaptures", 0) == recaptures
     tr.state.g.opt.load_state_dict(copy.deepcopy(tr.state.g.opt.state_dict()))
     tr.train_banked_step_graphed(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
     assert tr.graphs._graphs[next(iter(tr.graphs._graphs))] is not graph
+    assert trace.counters()["graph.recaptures"] == recaptures + 1
 
 
 def _tensor_lr_state(schedule):

@@ -22,7 +22,7 @@ from dasr_tpu_torch.data import device_bank as bank
 from dasr_tpu_torch.ops.rdb import TOLERANCES, fused_rdb
 from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
-from dasr_tpu_torch.train.step_graph import StepGraphs
+from dasr_tpu_torch.utils import trace
 
 K = 4
 
@@ -83,13 +83,13 @@ def test_replayed_windows_equal_the_eager_loop(kind):
                                                                                    "d_target")}
     launches, got, want = [], [], []
     for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
-        before, replays = fused_rdb.launches, StepGraphs.replays
+        before, replays = fused_rdb.launches, trace.counters().get("graph.replays", 0)
         for w in range(2):
             sink.append(window(tr, is_eager, w * K, idx[w]))
         torch.cuda.synchronize()
         launches.append(fused_rdb.launches - before)
         if not is_eager:
-            assert StepGraphs.replays - replays == 2 * K - 1
+            assert trace.counters()["graph.replays"] - replays == 2 * K - 1
     # nb 1: three RDBs of five launches a generator forward; DeResnet has none
     assert launches[0] == launches[1] == (2 * K * 3 * 5 if kind == "dasr" else 0)
     atol, rtol = TOLERANCES["train_loss_f32"]
