@@ -42,11 +42,16 @@ CPU or to a plain version):
             information, the same forward replayed from a CUDA graph, in
             turns with the eager one. It needs phase 2, which it then runs
             too.
-4. grad   - fused_rdb's autograd Function on the card (kernel forward, VJP
-            of the stock dense chain) vs autograd through the plain version
-            on the same tensors: the output, dL/dx and the ten parameter
-            gradients, f32 and bf16, at the three test shapes and every
-            shape the train phase gives the kernel; fwd+bwd times.
+4. grad   - fused_rdb's autograd Function on the card (kernel forward;
+            backward: the backward kernels at bf16, bit-equal on a rerun,
+            the VJP of the stock dense chain at f32) vs autograd through
+            the plain version on the same tensors: the output, dL/dx and
+            the ten parameter gradients, f32 and bf16, at the three test
+            shapes and every shape the train phase gives the kernel, with
+            the forward and backward launches counted; fwd+bwd times, and
+            the bf16 backward's times (dgrad and wgrad apart, the plain
+            version, the cuDNN/ATen VJP of the chain) at (12, 32, 32) and
+            (8, 128, 128).
 5. train  - the port's srn_train CLI on a synthetic DASR corpus written from
             the seed, at the full width of
             dasr_tpu/configs/train_DASR_auto_reproduce.json (nf 64, nb 23,
@@ -888,12 +893,66 @@ def serve_graph_ms(net, x):
 GRAD_NAMES = ["x"] + [f"kernel{k + 1}" for k in range(5)] + [f"bias{k + 1}" for k in range(5)]
 
 
+BACKWARD_TIMED = ((12, 32, 32), (8, 128, 128))  # the train step's crops, the kernel report's
+
+
+def backward_times(gpu, x, kernels, biases, dy):
+    """The bf16 backward at x's shape: the kernels alone (``_launch_backward``
+    on the forward's growth buffer, by CUDA events), their dgrad and wgrad
+    launches apart (the union of each group's device spans, torch.profiler:
+    the launches overlap by programmatic dependent launch), their bounds,
+    the plain version (``rdb_backward_reference``) and, as the yardstick,
+    the cuDNN/ATen VJP of ``rdb_chain`` that the backward was before."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import dasr_tpu_torch.ops.rdb as rdb
+
+    b, h, w, _ = x.shape
+    ks = [k.bfloat16() for k in kernels]
+    with torch.no_grad():
+        _, growth = rdb._launch(x, ks, biases)
+
+    def kernels_bwd():
+        return rdb._launch_backward(x, growth, ks, dy)
+
+    def chain_vjp():
+        leaves = [t.detach().requires_grad_() for t in [x, *ks, *biases]]
+        return torch.autograd.grad(rdb.rdb_chain(leaves[0], leaves[1:6], leaves[6:]), leaves, dy)
+
+    out = {"kernel_ms": cuda_ms(kernels_bwd),
+           "plain_ms": cuda_ms(lambda: rdb.rdb_backward_reference(x, growth, ks, dy)),
+           "chain_vjp_ms": cuda_ms(chain_vjp)}
+    calls = 10
+    kernels_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernels_bwd()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    flop, _ = rdb.rdb_cost(b, h, w)  # the dgrad and the wgrad each do the forward's products
+    for part in ("dgrad", "wgrad"):
+        sel = [sp for sp in spans if f"rdb_{part}" in sp[2]]
+        out[f"{part}_ms"] = union_us(sel) / calls / 1e3 if sel else None
+        out[f"{part}_bound_ms"] = flop / rdb.PEAK_FLOPS[torch.bfloat16] * 1e3
+    print(f"time bwd bf16 {(b, h, w)}: kernels {out['kernel_ms']:.4f} ms (dgrad "
+          f"{out['dgrad_ms']} ms, wgrad {out['wgrad_ms']} ms; bound each "
+          f"{out['dgrad_bound_ms']:.4f} ms, operations), plain version {out['plain_ms']:.4f} ms, "
+          f"cuDNN/ATen VJP of rdb_chain {out['chain_vjp_ms']:.4f} ms [{gpu}]", flush=True)
+    return out
+
+
 def phase_grad(gpu):
-    """fused_rdb under autograd vs autograd through the plain version."""
+    """fused_rdb under autograd vs autograd through the plain version: at
+    bf16 its backward is the kernels (launches and backward calls counted),
+    at f32 the VJP of rdb_chain; then the bf16 backward's times."""
     import torch
 
     from dasr_tpu_torch.ops.rdb import (
-        LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference, rdb_chain)
+        BACKWARD_LAUNCHES, LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference, rdb_chain)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 1)
@@ -919,11 +978,22 @@ def phase_grad(gpu):
             # version's autograd with cuDNN off, whose f32 backward of these
             # convs measured up to 4.7e-3 off the f64 gradient on the H100
             # (TF32 off), the native path 4e-7
-            before = fused_rdb.launches
+            names = ("launches", "backward_launches", "bwd_kernel", "bwd_chain")
+            before = [getattr(fused_rdb, n) for n in names]
             out, grads = fwd_bwd(fused_rdb, leaves())
             torch.cuda.synchronize()
-            if fused_rdb.launches - before != LAUNCHES_PER_RDB:
-                fail(f"fused_rdb under autograd did not launch the kernel at {(b, h, w)}")
+            counts = tuple(getattr(fused_rdb, n) - c for n, c in zip(names, before))
+            bf16 = dt == torch.bfloat16
+            want_counts = (LAUNCHES_PER_RDB, BACKWARD_LAUNCHES if bf16 else 0, int(bf16),
+                           int(not bf16))
+            if counts != want_counts:
+                fail(f"fused_rdb under autograd at {(b, h, w)} {dt}: counted {counts} "
+                     f"(launches, backward launches, kernel and chain backwards), "
+                     f"want {want_counts}")
+            if bf16:
+                _, again = fwd_bwd(fused_rdb, leaves())
+                if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+                    fail(f"the bf16 backward kernels at {(b, h, w)} gave other bits on a rerun")
             with torch.backends.cudnn.flags(enabled=False):
                 out_p, grads_p = fwd_bwd(fused_rdb_reference, leaves())
             atol, rtol = TOLERANCES["kernel_f32" if dt == torch.float32 else "kernel_bf16"]
@@ -950,9 +1020,11 @@ def phase_grad(gpu):
                          for name, fn in (("kernel", fused_rdb), ("plain", fused_rdb_reference),
                                           ("chain", rdb_chain))}
                 report["grad_ms"], report["plain_grad_ms"] = times["kernel"], times["plain"]
-                print(f"time fwd+bwd bf16 {(b, h, w)}: kernel + chain VJP {times['kernel']:.4f} ms, "
-                      f"plain version {times['plain']:.4f} ms, stock bf16 chain (context) "
-                      f"{times['chain']:.4f} ms [{gpu}]", flush=True)
+                print(f"time fwd+bwd bf16 {(b, h, w)}: kernels {times['kernel']:.4f} ms, "
+                      f"plain version {times['plain']:.4f} ms, stock bf16 chain and its VJP "
+                      f"(context) {times['chain']:.4f} ms [{gpu}]", flush=True)
+            if (b, h, w) in BACKWARD_TIMED and dt == torch.bfloat16:
+                report[f"bwd_{b}x{h}x{w}"] = backward_times(gpu, base[0], base[1:6], base[6:], g)
     return report, checked
 
 
@@ -4348,14 +4420,18 @@ def main(argv=None):
 
     gpu = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
-    backward = ("autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), as "
-                "JAX's custom VJP; checked against the plain version in phase grad")
+    backward = ("autograd Function: the backward kernels on the saved growth buffer "
+                "(csrc/rdb.cu dasr_rdb_backward: rdb_dgrad_weights, rdb_dgrad_wgmma x 5, "
+                "rdb_wgrad_mma, rdb_wgrad_reduce); checked against the plain version in phase grad")
+    backward32 = ("autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), as "
+                  "JAX's custom VJP; checked against the plain version in phase grad")
     entry = {
         "name": "fused_rdb", "kernel": "rdb_level_wgmma", "dtype": "bfloat16", "route": "cuda",
         "source": "dasr_tpu_torch/csrc/rdb.cu", "replaces": "dasr_tpu/ops/pallas_rdb.py:61",
         "launches": 0, "backward": backward,
     }
-    entry32 = dict(entry, name="fused_rdb_f32", kernel="rdb_level_tf32x3", dtype="float32")
+    entry32 = dict(entry, name="fused_rdb_f32", kernel="rdb_level_tf32x3", dtype="float32",
+                   backward=backward32)
     if phases & {"serve", "lpips"}:
         phases.add("kernel")  # serve and parity check their shapes against phase 2's
     if phases & {"train", "pipeline", "bank", "tools", "adaptive", "paired", "ablation", "dist"}:

@@ -1,4 +1,5 @@
-// Residual Dense Block (RDB5C) forward for Hopper (sm_90a).
+// Residual Dense Block (RDB5C) forward, and its bf16 backward, for Hopper
+// (sm_90a).
 //
 // Replaces dasr_tpu/ops/pallas_rdb.py:_rdb_kernel (built by
 // _fused_rdb_impl). The tolerances and the Python wrapper are in
@@ -100,6 +101,42 @@
 //     no warp waits for another to release a stage.
 // The C entry point launches the five levels and returns
 // cudaGetLastError() after each launch.
+//
+// Backward, bf16 (dasr_rdb_backward: eight launches an RDB). It replaces
+// no TPU kernel: JAX's custom VJP of the Pallas kernel is XLA's stock
+// convolution chain, whose counterpart (ops/rdb.py:rdb_chain, recomputed
+// and differentiated through cuDNN and ~220 ATen ops an RDB) the f32 path
+// keeps. This backward reads what the forward kept, x and the growth
+// buffer x_1..x_4, and recomputes nothing. With dv_k the gradient of
+// level k's pre-activation (dv_5 = 0.2 dY):
+//   dx_s = sum_{k > s} conv3x3^T(dv_k, W_k[., slice s]),
+//   dv_s = dx_s * (x_s > 0 ? 1 : 0.2)   (s = 4 .. 1; the slope 0.2 > 0, so
+//          x_s > 0 exactly where the pre-activation is: no mask is kept),
+//   dx   = dY + sum_k conv3x3^T(dv_k, W_k[., slice x]),
+//   dW_k[tap, ci, co] = sum_p in_k[p + tap, ci] dv_k[p, co], db_k = sum_p dv_k[p].
+// What bounds it: at the train step's (12, 32, 32) one RDB's backward is
+// 11.8 GFLOP and ~15 MB, ~12 us at the card's peaks, so launches and their
+// set-up bound it, not the tensor cores; at (8, 128, 128) it is 126 GFLOP,
+// 127 us of bf16 products. The design keeps the launches few and the
+// bytes near what is read once:
+//   * rdb_dgrad_weights (one launch): the five dgrad weight images, taps
+//     flipped and in/out channels swapped (ops/rdb.py:dgrad_weights), the
+//     0.2 of dv_5 folded into level 5's rows, so dY is read as it is.
+//   * rdb_dgrad_wgmma (five launches): the reverse chain is the forward's
+//     dense chain in reverse, with the forward's shapes: level j reads
+//     [dv_5 | dv_4 | .. | dv_{5-j}], nc + j gc = 64 .. 192 channels, dY as
+//     "x" and a gradient growth buffer [dv_4 | dv_3 | dv_2 | dv_1] as the
+//     growth buffer, and writes gc channels into it (nc into dx at the
+//     last). So it is the forward's kernel (TMA, mbarrier ring, wgmma,
+//     tile_plan, PDL) on another weight image with its own epilogue: no
+//     bias; the slope read from the sign of the saved x_s, or + dY for dx;
+//     each output the sum of every later level's terms in one f32
+//     accumulator, rounded once.
+//   * rdb_wgrad_mma (one launch) and rdb_wgrad_reduce (one launch): the
+//     weight and bias gradients of all five levels, below.
+// Left for later: fusing the dgrad and the wgrad per tile (the wgrad reads
+// back the dv_k that the dgrad has just written), and an f32 (split-TF32)
+// backward.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -116,12 +153,16 @@ struct Level {
   const void* g;      // (B, H, W, gstride) growth buffer holding x1..x4
   const void* w;      // bf16: (9 * cin, cout), rows ordered (dy, dx, ci); f32: the
                       // split image of ops/rdb.py:split_weights, (cin / 8, 2, 9, cout, 8)
-  const float* bias;  // (cout,)
+  const float* bias;  // (cout,); none in the backward
   void* out;          // output pixels of out_stride elements
   int B, H, W;
   int nc, gstride, cin, cout;
   int out_stride, out_off;
   int final_level;    // 0: lrelu epilogue; 1: residual epilogue
+  // the backward's levels 1-4: the forward's growth buffer, whose channel
+  // act_off + n holds x_s for output channel n (the leaky ReLU's slope)
+  const void* act;
+  int act_off;
 };
 
 // ---------------------------------------------------------------------------
@@ -499,11 +540,14 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&t)[8]) {
 // The level's epilogue on a consumer warpgroup's accumulators, sub-blocks
 // wg * KMT .. wg * KMT + KMT - 1 of the tile at (y0, x0): accumulator
 // d[4q + 2h + e] is row 16 warp + lane / 4 + 8 h, column 8q + 2 (lane % 4) + e
-// (the layout of m64nNk16 bf16 and m64nNk8 tf32 alike).
-template <typename T, int COUT, int TW, int KMT>
+// (the layout of m64nNk16 bf16 and m64nNk8 tf32 alike). BWD: the
+// backward's epilogue, with no bias: dx = dY + acc at the last level (dY
+// in L.x), else acc times the leaky ReLU's slope at x_s (L.act).
+template <typename T, int COUT, int TW, int KMT, bool BWD = false>
 __device__ __forceinline__ void epilogue(const Level& L, float (&acc)[KMT][COUT / 2], int wg,
                                          int warp, int lane, int x0, int y0, int b) {
   const T* xin = static_cast<const T*>(L.x);
+  const T* act = static_cast<const T*>(L.act);
   T* out = static_cast<T*>(L.out);
 #pragma unroll
   for (int mt = 0; mt < KMT; ++mt) {
@@ -528,19 +572,39 @@ __device__ __forceinline__ void epilogue(const Level& L, float (&acc)[KMT][COUT 
         const int n0 = 8 * (4 * set + (lane & 3));
         if (!inside) continue;
         float t[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          t[2 * i] = v[i].x + __ldg(L.bias + n0 + 2 * i);
-          t[2 * i + 1] = v[i].y + __ldg(L.bias + n0 + 2 * i + 1);
-        }
-        if (L.final_level) {
+        if constexpr (BWD) {
+          // no bias: dx = dY + acc, or acc times the slope at x_s
           float r[8];
-          load8(xin + pix * L.nc + n0, r);
+          if (L.final_level) {
+            load8(xin + pix * L.nc + n0, r);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) t[i] = r[i] + 0.2f * t[i];
+            for (int i = 0; i < 4; ++i) {
+              t[2 * i] = r[2 * i] + v[i].x;
+              t[2 * i + 1] = r[2 * i + 1] + v[i].y;
+            }
+          } else {
+            load8(act + pix * L.gstride + L.act_off + n0, r);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              t[2 * i] = r[2 * i] > 0.f ? v[i].x : 0.2f * v[i].x;
+              t[2 * i + 1] = r[2 * i + 1] > 0.f ? v[i].y : 0.2f * v[i].y;
+            }
+          }
         } else {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) t[i] = t[i] >= 0.f ? t[i] : 0.2f * t[i];
+          for (int i = 0; i < 4; ++i) {
+            t[2 * i] = v[i].x + __ldg(L.bias + n0 + 2 * i);
+            t[2 * i + 1] = v[i].y + __ldg(L.bias + n0 + 2 * i + 1);
+          }
+          if (L.final_level) {
+            float r[8];
+            load8(xin + pix * L.nc + n0, r);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) t[i] = r[i] + 0.2f * t[i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) t[i] = t[i] >= 0.f ? t[i] : 0.2f * t[i];
+          }
         }
         store8(out + pix * L.out_stride + L.out_off + n0, t);
       }
@@ -548,11 +612,11 @@ __device__ __forceinline__ void epilogue(const Level& L, float (&acc)[KMT][COUT 
   }
 }
 
-template <int COUT, int TH, int TW>
-__global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
-    rdb_level_wgmma(const __grid_constant__ CUtensorMap tm_x,
-                    const __grid_constant__ CUtensorMap tm_g,
-                    const __grid_constant__ CUtensorMap tm_w, Level L) {
+// One level on the bf16 machinery: the forward's (BWD false) or the
+// backward's reverse chain (BWD true: the dgrad weight image, its epilogue).
+template <int COUT, int TH, int TW, bool BWD>
+__device__ __forceinline__ void wgmma_level(const CUtensorMap* tm_x, const CUtensorMap* tm_g,
+                                            const CUtensorMap* tm_w, const Level& L) {
   using P = Plan<COUT, TH, TW>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -589,14 +653,17 @@ __global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
         mbar_expect_tx(full, P::kTxBytes);
         const uint32_t dst = base + s * P::kStageBytes;
         const int c0 = it * kKc;
-        tma_load_3d(dst + P::b_offset(0), &tm_w, full, 0, c0, 0);
+        // the backward's weight image is made by the launch just before
+        // its first level, so nothing is read before that one finishes
+        if (BWD && it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        tma_load_3d(dst + P::b_offset(0), tm_w, full, 0, c0, 0);
         // the weights were written before the first level began; x and
         // the growth buffer only once the previous launch has finished
-        if (it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        if (!BWD && it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
         if (c0 < L.nc) {
-          tma_load_4d(dst, &tm_x, full, c0, x0 - 1, y0 - 1, b);
+          tma_load_4d(dst, tm_x, full, c0, x0 - 1, y0 - 1, b);
         } else {
-          tma_load_4d(dst, &tm_g, full, c0 - L.nc, x0 - 1, y0 - 1, b);
+          tma_load_4d(dst, tm_g, full, c0 - L.nc, x0 - 1, y0 - 1, b);
         }
       }
     }
@@ -640,7 +707,26 @@ __global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
 #pragma unroll
   for (int mt = 0; mt < P::kMt; ++mt) fence_regs(acc[mt]);
 
-  epilogue<__nv_bfloat16, COUT, TW, P::kMt>(L, acc, wg, warp, lane, x0, y0, b);
+  epilogue<__nv_bfloat16, COUT, TW, P::kMt, BWD>(L, acc, wg, warp, lane, x0, y0, b);
+}
+
+template <int COUT, int TH, int TW>
+__global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
+    rdb_level_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const __grid_constant__ CUtensorMap tm_w, Level L) {
+  wgmma_level<COUT, TH, TW, false>(&tm_x, &tm_g, &tm_w, L);
+}
+
+// The backward's reverse dense chain, one level a launch (see the note at
+// the top): named apart from the forward, whose device time the serving
+// benchmark reads by the name rdb_level.
+template <int COUT, int TH, int TW>
+__global__ void __launch_bounds__(Plan<COUT, TH, TW>::kThreads, 2)
+    rdb_dgrad_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const __grid_constant__ CUtensorMap tm_w, Level L) {
+  wgmma_level<COUT, TH, TW, true>(&tm_x, &tm_g, &tm_w, L);
 }
 
 template <int COUT, int TH, int TW>
@@ -796,6 +882,305 @@ __global__ void __launch_bounds__(F32Plan<COUT, TH, TW>::kThreads, F32Plan<COUT,
 }
 
 // ---------------------------------------------------------------------------
+// The backward's weight images and weight gradients (bf16).
+
+// Element offset of level k's weight gradient in the backward's f32
+// gradient buffer, levels in order, each its OIHW kernel (cout, cin, 3, 3)
+// then its bias (cout): the parameters' own layout, so that no copy or cast
+// follows. ops/rdb.py:grad_layout states the same.
+__host__ __device__ inline int grad_offset(int k, int nc, int gc) {
+  int off = 0;
+  for (int j = 0; j < k; ++j) {
+    const int cout = j < 4 ? gc : nc;
+    off += (9 * (nc + j * gc) + 1) * cout;
+  }
+  return off;
+}
+
+// The five dgrad weight images, one thread an element (ops/rdb.py:
+// dgrad_weights is the plain version). Image j (cin nc + j gc, cout gc, or
+// nc at j = 4) is HWIO, as a forward kernel: its input channels are dv_5
+// (nc) then dv_4 .. dv_{5-j} (gc each), the sources' order in the gradient
+// growth buffer; its output channels are source s of the forward
+// (x_{4-j}, or x at j = 4). Element (tap, c, o) is W_k[8 - tap][lo_s + o][co]
+// for the level k and output channel co that c names, times 0.2 for k = 5.
+struct Images {
+  const __nv_bfloat16* w[5];  // the forward's HWIO kernels
+  __nv_bfloat16* img;         // the five images, one after another
+  int nc, gc;
+};
+
+__global__ void rdb_dgrad_weights(Images P) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nc = P.nc, gc = P.gc;
+  __nv_bfloat16* out = P.img + e;
+  int j = 0;
+  for (; j < 5; ++j) {
+    const int n = 9 * (nc + j * gc) * (j < 4 ? gc : nc);
+    if (e < n) break;
+    e -= n;
+  }
+  if (j == 5) return;
+  const int cin_j = nc + j * gc, cout_j = j < 4 ? gc : nc;
+  const int o = e % cout_j;
+  const int c = (e / cout_j) % cin_j;
+  const int tap = e / (cout_j * cin_j);
+  const int k = c < nc ? 4 : 3 - (c - nc) / gc;
+  const int co = c < nc ? c : (c - nc) % gc;
+  const int lo = j < 4 ? nc + (3 - j) * gc : 0;
+  const int cin_k = nc + k * gc, cout_k = k < 4 ? gc : nc;
+  float v = __bfloat162float(P.w[k][((8 - tap) * cin_k + lo + o) * cout_k + co]);
+  if (k == 4) v *= 0.2f;
+  *out = __float2bfloat16(v);
+}
+
+// The weight and bias gradients of all five levels, mma.sync. dW_k[tap, ci,
+// co] = sum over output pixels p of in_k[p + tap, ci] dv_k[p, co]: per tap a
+// product of M = 32 input channels by N = 32 output channels by K = pixels.
+// A block owns one 32-channel chunk of one level's input, one 32-channel
+// group of its output (level 5, cout 64, has two), and a contiguous range
+// of 8x8 pixel tiles (a split of K), so every block does the same work;
+// nine consumer warps own a tap each and keep their tap's 32 x 32 sums in
+// registers over the whole range, and a producer warp stages each tile
+// with two TMA boxes into a ring of stages: the input window (tile + 1-px
+// halo, 32 channels, zeros outside the image) from x or the forward's
+// growth buffer, and the tile's 32 channels of dv_k from dY or the
+// gradient growth buffer. The nine taps read the one staged window at
+// shifted pixel rows. Blocks of a level's first input chunk also sum dv_k
+// over their pixels for db_k, in the producer warp. Each block writes its
+// sums to its split's slice of a partial buffer; rdb_wgrad_reduce adds the
+// splits in a fixed order. No float atomics, so two runs give the same
+// bits.
+//
+// Why mma.sync (m16n8k16 with ldmatrix.trans) and not wgmma: both operands
+// are pixel-major in shared memory (a window pixel's 32 channels, a dv
+// pixel's 32), and K runs over pixels, so both are MN-major, and each tap
+// shifts A by whole pixels. ldmatrix takes a row address per lane, so a tap
+// is an address and the swizzle is computed per row; at the train step's
+// 12k pixels a level the products are a small part of this kernel's time
+// beside its launch and staging, so the lower issue rate of mma.sync costs
+// little.
+
+constexpr int kWKc = 32;           // input channels of a block (M)
+constexpr int kWN = 32;            // output channels of a block (N)
+constexpr int kWWin = 10;          // window side: an 8x8 tile and its halo
+constexpr int kWWarps = 9;         // consumer warps, one a tap
+constexpr int kWThreads = 32 * (kWWarps + 1);
+constexpr int kWWinBytes = align1024(kWWin * kWWin * kWKc * 2);  // 64-byte pixels
+constexpr int kWDvBytes = 64 * kWN * 2;                          // 64-byte pixels
+constexpr int kWStageBytes = kWWinBytes + kWDvBytes;
+constexpr int kWStages = 4;
+constexpr int kWSmemBytes = kWStages * kWStageBytes + 16 * kWStages + 1024;
+constexpr int kWTx = kWWin * kWWin * kWKc * 2 + 64 * kWN * 2;  // bytes a stage expects
+
+struct Wgrad {
+  float* ws;  // (splits, total) f32 partial sums, laid out as grad_offset
+  int B, H, W, nc, gc;
+  int tiles_x, tiles_y, splits, total;
+};
+
+// The byte at `byte` of a region of 64-byte rows, as TMA's 64-byte swizzle
+// lays it out in a 1024-byte-aligned region.
+__device__ __forceinline__ uint32_t swz64(uint32_t byte) {
+  return byte ^ (((byte >> 7) & 3) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16) * B (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (blocks of all five levels, splits); blockIdx.x walks level 1's
+// input chunks, then level 2's, .., then level 5's chunks for its first
+// and then its second output group.
+__global__ void __launch_bounds__(kWThreads, 2)
+    rdb_wgrad_mma(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_g,
+                  const __grid_constant__ CUtensorMap tm_dy,
+                  const __grid_constant__ CUtensorMap tm_gg, Wgrad P) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + kWStages * kWStageBytes;
+  const uint32_t empty0 = full0 + 8 * kWStages;
+  int k = 0, chunk = blockIdx.x;
+  // a level's blocks: its input chunks times its output groups
+  while (chunk >= (P.nc + k * P.gc) / kWKc * ((k < 4 ? P.gc : P.nc) / kWN)) {
+    chunk -= (P.nc + k * P.gc) / kWKc * ((k < 4 ? P.gc : P.nc) / kWN);
+    ++k;
+  }
+  const int cin = P.nc + k * P.gc;
+  const int cout = k < 4 ? P.gc : P.nc;
+  const int co0 = chunk / (cin / kWKc) * kWN;  // the block's output group
+  chunk %= cin / kWKc;
+  const int c0 = chunk * kWKc;
+  const CUtensorMap* tm_in = c0 < P.nc ? &tm_x : &tm_g;
+  const int in_c0 = c0 < P.nc ? c0 : c0 - P.nc;
+  // dv_5 is read as dY (its 0.2 is applied in rdb_wgrad_reduce); dv_k,
+  // k < 5, is channel (4 - k) gc of the gradient growth buffer
+  const CUtensorMap* tm_dv = k < 4 ? &tm_gg : &tm_dy;
+  const int dv_c0 = (k < 4 ? (3 - k) * P.gc : 0) + co0;
+
+  const int split = blockIdx.y;
+  const int tiles = P.B * P.tiles_y * P.tiles_x;
+  const int t0 = static_cast<int>(static_cast<long long>(tiles) * split / P.splits);
+  const int n = static_cast<int>(static_cast<long long>(tiles) * (split + 1) / P.splits) - t0;
+  float* ws = P.ws + static_cast<size_t>(split) * P.total + grad_offset(k, P.nc, P.gc);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kWWarps);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // dv_1 .. dv_4 come from the launches just before; nothing is read, and
+  // nothing written, before they have finished
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  if (warp == kWWarps) {
+    // producer: lane 0 stages tile `it` once the consumers are done with
+    // tile it - kWStages in its stage; in a level's first input chunk the
+    // warp first adds that tile's dv into db (lane 2l, 2l + 1 of its 32
+    // channels, pixels in order), so that it reads the stage before it is
+    // refilled
+    const bool bias = chunk == 0 && lane < kWN / 2;
+    float db0 = 0.f, db1 = 0.f;
+    for (int it = 0; it < n + kWStages; ++it) {
+      const int j = it - kWStages;
+      if (j >= 0) {
+        const int s = j % kWStages;
+        const uint32_t parity = (j / kWStages) & 1;
+        if (chunk == 0) {
+          mbar_wait(full0 + 8 * s, parity);
+          if (bias) {
+            const uint32_t dv = base + s * kWStageBytes + kWWinBytes;
+            for (int p = 0; p < 64; ++p) {
+              uint32_t v;
+              asm volatile("ld.shared.b32 %0, [%1];\n"
+                           : "=r"(v)
+                           : "r"(dv + swz64(p * 2 * kWN + 4 * lane))
+                           : "memory");
+              const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+              db0 += f.x;
+              db1 += f.y;
+            }
+          }
+        }
+        if (it < n && lane == 0) mbar_wait(empty0 + 8 * s, parity);
+      }
+      __syncwarp();
+      if (it < n && lane == 0) {
+        const int s = it % kWStages;
+        const uint32_t stage = base + s * kWStageBytes;
+        const uint32_t full = full0 + 8 * s;
+        const int t = t0 + it;
+        const int tx = t % P.tiles_x;
+        const int ty = (t / P.tiles_x) % P.tiles_y;
+        const int b = t / (P.tiles_x * P.tiles_y);
+        mbar_expect_tx(full, kWTx);
+        tma_load_4d(stage, tm_in, full, in_c0, 8 * tx - 1, 8 * ty - 1, b);
+        tma_load_4d(stage + kWWinBytes, tm_dv, full, dv_c0, 8 * tx, 8 * ty, b);
+      }
+    }
+    if (bias) {
+      float* db = ws + 9 * cin * cout + co0;
+      db[2 * lane] = db0;
+      db[2 * lane + 1] = db1;
+    }
+    return;
+  }
+
+  // consumer warp `warp` owns tap (dy, dx) = (warp / 3, warp % 3): for each
+  // 16-pixel step (two tile rows) A is 32 channels x 16 window pixels
+  // (ldmatrix.trans of 8-pixel rows, 16-byte channel groups) and B 16
+  // pixels x 32 channels of dv. Lane l gives the row address of matrix l / 8.
+  const int dy = warp / 3, dx = warp % 3;
+  const int mat = lane >> 3, row = lane & 7;
+  float acc[2][kWN / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nj = 0; nj < kWN / 8; ++nj) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
+    }
+  }
+  for (int it = 0; it < n; ++it) {
+    const int s = it % kWStages;
+    mbar_wait(full0 + 8 * s, (it / kWStages) & 1);
+    const uint32_t win = base + s * kWStageBytes;
+    const uint32_t dv = win + kWWinBytes;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A: matrix m holds pixels (2 kk + m / 2, 0..7) of the tile, shifted
+      // by the tap, and channels 8 (m % 2) .. + 7 of the m16 tile
+      uint32_t a[2][4];
+      const int q = (2 * kk + (mat >> 1) + dy) * kWWin + row + dx;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldsm_x4_trans(a[mi], win + swz64(q * 64 + (2 * mi + (mat & 1)) * 16));
+      }
+      // B: matrix m holds pixels (2 kk + m % 2, 0..7) and output channels
+      // 16 np + 8 (m / 2) .. + 7
+      const int p = (2 * kk + (mat & 1)) * 8 + row;
+#pragma unroll
+      for (int np = 0; np < kWN / 16; ++np) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, dv + swz64(p * 64 + (2 * np + (mat >> 1)) * 16));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], bf[2], bf[3]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  // the sums in the parameter's OIHW layout: acc[mi][nj][2 h + e] is input
+  // channel 16 mi + lane / 4 + 8 h of the chunk, output channel
+  // 8 nj + 2 (lane % 4) + e of the group
+  const int ci0 = c0 + lane / 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nj = 0; nj < kWN / 8; ++nj) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ci = ci0 + 16 * mi + 8 * (i >> 1);
+        const int co = co0 + 8 * nj + 2 * (lane % 4) + (i & 1);
+        ws[(co * cin + ci) * 9 + warp] = acc[mi][nj][i];
+      }
+    }
+  }
+}
+
+// grads[e] = the splits' partial sums of e added in order, times 0.2 from
+// `scaled` on (level 5's, whose dv_5 = 0.2 dY was read as dY).
+__global__ void rdb_wgrad_reduce(const float* ws, float* grads, int total, int splits,
+                                 int scaled) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  float sum = 0.f;
+  for (int i = 0; i < splits; ++i) sum += ws[static_cast<size_t>(i) * total + e];
+  grads[e] = e >= scaled ? 0.2f * sum : sum;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 // Above 48 KB a block's shared memory must be asked for. The setting is
@@ -882,10 +1267,10 @@ CUtensorMapSwizzle tma_swizzle(int span) {
                       : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-template <int COUT, int TH, int TW>
+template <int COUT, int TH, int TW, bool BWD>
 cudaError_t launch_wgmma(const Level& L, cudaStream_t s) {
   using P = Plan<COUT, TH, TW>;
-  constexpr auto kernel = rdb_level_wgmma<COUT, TH, TW>;
+  constexpr auto kernel = BWD ? rdb_dgrad_wgmma<COUT, TH, TW> : rdb_level_wgmma<COUT, TH, TW>;
   const cudaError_t err = allow_smem<kernel>(P::kSmemBytes);
   if (err != cudaSuccess) return err;
   // the window boxes of kKc channels; the weights as (cout, cin, 9), boxes
@@ -905,11 +1290,11 @@ cudaError_t launch_wgmma(const Level& L, cudaStream_t s) {
   return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, tm_x, tm_g, tm_w, L);
 }
 
-template <int COUT>
+template <int COUT, bool BWD = false>
 cudaError_t launch_wgmma_tile(const Level& L, int tile, cudaStream_t s) {
   switch (tile) {
-    case 0: return launch_wgmma<COUT, 8, 8>(L, s);
-    case 1: return launch_wgmma<COUT, 16, 16>(L, s);
+    case 0: return launch_wgmma<COUT, 8, 8, BWD>(L, s);
+    case 1: return launch_wgmma<COUT, 16, 16, BWD>(L, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -938,6 +1323,45 @@ cudaError_t launch_tf32x3_tile(const Level& L, int tile, cudaStream_t s) {
     case 1: return launch_tf32x3<COUT, 16, 16>(L, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// A 4-D map of a (B, H, W, C) bf16 tensor as (C, W, H, B), boxes of
+// (box_c, box_w, box_h, 1) in the swizzle of box_c * 2 bytes.
+bool map_nhwc(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int box_c,
+              int box_w, int box_h) {
+  const cuuint64_t e = 2;
+  const cuuint32_t box[4] = {cuuint32_t(box_c), cuuint32_t(box_w), cuuint32_t(box_h), 1};
+  const cuuint64_t dims[4] = {cuuint64_t(C), cuuint64_t(W), cuuint64_t(H), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {C * e, cuuint64_t(W) * C * e, cuuint64_t(H) * W * C * e};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
+                tma_swizzle(box_c * 2));
+}
+
+// The weight and bias gradients: rdb_wgrad_mma's partial sums into ws,
+// then rdb_wgrad_reduce's into grads. x and g the forward's input and
+// growth buffer, dy the output's gradient, gg the gradient growth buffer.
+cudaError_t launch_wgrad(const void* x, const void* g, const void* dy, const void* gg, float* ws,
+                         float* grads, int B, int H, int W, int nc, int gc, int splits,
+                         cudaStream_t s) {
+  cudaError_t err = allow_smem<rdb_wgrad_mma>(kWSmemBytes);
+  if (err != cudaSuccess) return err;
+  Wgrad P{ws, B, H, W, nc, gc, (W + 7) / 8, (H + 7) / 8, splits, grad_offset(5, nc, gc)};
+  CUtensorMap tm_x, tm_g, tm_dy, tm_gg;
+  if (!map_nhwc(&tm_x, x, B, H, W, nc, kWKc, kWWin, kWWin) ||
+      !map_nhwc(&tm_g, g, B, H, W, 4 * gc, kWKc, kWWin, kWWin) ||
+      !map_nhwc(&tm_dy, dy, B, H, W, nc, kWN, 8, 8) ||
+      !map_nhwc(&tm_gg, gg, B, H, W, 4 * gc, kWN, 8, 8)) {
+    return cudaErrorInvalidValue;
+  }
+  int blocks = 0;
+  for (int k = 0; k < 5; ++k) blocks += (nc + k * gc) / kWKc * ((k < 4 ? gc : nc) / kWN);
+  err = launch_pdl(rdb_wgrad_mma, dim3(blocks, splits), kWThreads, kWSmemBytes, s, tm_x, tm_g,
+                   tm_dy, tm_gg, P);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rdb_wgrad_reduce<<<(P.total + 255) / 256, 256, 0, s>>>(ws, grads, P.total, splits,
+                                                        grad_offset(4, nc, gc));
+  return cudaGetLastError();
 }
 
 // Plan<COUT, TH, TW> as ints, in the order of ops/rdb.py:WgmmaPlan.vector:
@@ -1021,6 +1445,49 @@ int dasr_rdb_forward(int kernel, const void* x, void* g, const void* const* w,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// The backward of one bf16 RDB, eight launches in order on `stream`: the
+// dgrad weight images (into img, the five after one another), the reverse
+// chain's five levels (dv_4 .. dv_1 into the gradient growth buffer gg,
+// (B, H, W, 4 gc), then dx, (B, H, W, nc)), and the weight gradients (the
+// splits' partial sums into ws, (splits, total), then their sum into
+// grads, laid out as grad_offset). x, g, w: the forward's input, growth
+// buffer and HWIO kernels; dy the output's gradient, (B, H, W, nc). tile as
+// in dasr_rdb_forward. Takes nc 32 or 64 and gc 32; returns a cudaError_t
+// as dasr_rdb_forward does.
+int dasr_rdb_backward(const void* x, const void* g, const void* const* w, const void* dy,
+                      void* img, void* gg, void* dx, void* ws, void* grads, int B, int H, int W,
+                      int nc, int gc, int tile, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((nc != 32 && nc != 64) || gc != 32 || splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Images images{{}, static_cast<__nv_bfloat16*>(img), nc, gc};
+  int elems = 0;
+  for (int k = 0; k < 5; ++k) {
+    images.w[k] = static_cast<const __nv_bfloat16*>(w[k]);
+    elems += 9 * (nc + k * gc) * (k < 4 ? gc : nc);
+  }
+  rdb_dgrad_weights<<<(elems + 255) / 256, 256, 0, s>>>(images);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const __nv_bfloat16* level_img = images.img;
+  for (int k = 0; k < 5; ++k) {
+    const bool final_level = k == 4;
+    const int cin = nc + k * gc;
+    const int cout = final_level ? nc : gc;
+    Level L{dy, gg, level_img, nullptr, final_level ? dx : gg, B, H, W,
+            nc, 4 * gc, cin, cout, final_level ? nc : 4 * gc, final_level ? 0 : k * gc,
+            final_level ? 1 : 0, g, (3 - k) * gc};
+    level_img += 9 * cin * cout;
+    err = cout == 64 ? launch_wgmma_tile<64, true>(L, tile, s)
+                     : launch_wgmma_tile<32, true>(L, tile, s);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(launch_wgrad(x, g, dy, gg, static_cast<float*>(ws),
+                                       static_cast<float*>(grads), B, H, W, nc, gc, splits, s));
 }
 
 // The bf16 kernel's shared-memory plan for cout (32 or 64) and tile (as in

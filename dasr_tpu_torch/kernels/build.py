@@ -92,6 +92,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     vp, i, vpp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     lib.dasr_rdb_forward.argtypes = [i, vp, vp, vpp, vpp, vp] + [i] * 6 + [vp]
     lib.dasr_rdb_forward.restype = i
+    lib.dasr_rdb_backward.argtypes = [vp, vp, vpp] + [vp] * 6 + [i] * 7 + [vp]
+    lib.dasr_rdb_backward.restype = i
     for plan in (lib.dasr_rdb_wgmma_plan, lib.dasr_rdb_f32_plan):
         plan.argtypes = [i, i, ctypes.POINTER(i), i]
         plan.restype = i

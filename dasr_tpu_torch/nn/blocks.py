@@ -66,10 +66,11 @@ class RDB5C(nn.Module):
 
     ``conv{k}`` are reference-named conv blocks (OIHW f32 weights). The
     kernel path takes the same weights as HWIO in the working dtype. Under
-    grad mode they are differentiable casts of the parameters, made on
-    every call, so autograd routes the gradients back to them; otherwise
-    they are prepared once per parameter version (an optimizer step bumps
-    ``_version``) and cached here."""
+    grad mode it takes the parameters' HWIO views, which ``fused_rdb``'s
+    autograd Function casts itself, so the gradients reach the parameters
+    with no cast recorded around it; otherwise they are prepared once per
+    parameter version (an optimizer step bumps ``_version``) and cached
+    here."""
 
     def __init__(self, nc: int = 64, gc: int = 32, norm_type: Optional[str] = None,
                  act_type: str = "leakyrelu", mode: str = "CNA"):
@@ -89,11 +90,12 @@ class RDB5C(nn.Module):
         return [getattr(self, f"conv{k + 1}")[0] for k in range(5)]
 
     def kernel_weights(self, dtype):
-        """(HWIO kernels in ``dtype``, f32 biases) for ``fused_rdb``."""
+        """(HWIO kernels in ``dtype``, f32 biases) for ``fused_rdb``; under
+        grad mode the parameters' HWIO views and biases as they are."""
         convs = self.convs()
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             return (
-                tuple(c.weight.permute(2, 3, 1, 0).to(dtype).contiguous() for c in convs),
+                tuple(c.weight.permute(2, 3, 1, 0) for c in convs),
                 tuple(c.bias.float() for c in convs),
             )
         key = (dtype,) + tuple(

@@ -11,11 +11,22 @@ Which TPU kernel it replaces: ``dasr_tpu/ops/pallas_rdb.py:_rdb_kernel``,
 launched by ``_fused_rdb_impl`` (the one ``pl.pallas_call`` of the JAX
 package), and the custom VJP around it (``pallas_rdb.py:276-294``).
 
-Backward: as in JAX, the VJP of the stock dense chain (``rdb_chain``, the
-counterpart of ``_scatter_reference`` in the working type: convs in the
-working type, f32 sums of the level terms, rounding where it rounds),
-recomputed from the saved input and weights. On the card its convs run on
-cuDNN. The JAX package has no backward kernel, so neither has the port.
+Backward, two paths that share no logic, chosen by the input's device and type:
+
+* bf16 on the card: hand-written kernels (``dasr_rdb_backward`` in
+  ``csrc/rdb.cu``, eight launches an RDB) that read what the forward kept,
+  x and the growth buffer x_1..x_4, and recompute nothing: the dgrad
+  weight images, the reverse dense chain on the forward's machinery
+  (dv_4..dv_1 into a gradient growth buffer, then dx), and the weight and
+  bias gradients of all five levels, written in f32 in the parameters'
+  OIHW layout. ``rdb_backward_reference`` is its plain version. The TPU
+  kernel had no backward kernel (JAX's custom VJP is XLA's stock chain), so
+  this one replaces none; the source note says what bounds it.
+* f32 on the card, and the CPU: as in JAX, the VJP of the stock dense chain
+  (``rdb_chain``, the counterpart of ``_scatter_reference`` in the working
+  type: convs in the working type, f32 sums of the level terms, rounding
+  where it rounds), recomputed from the saved input and weights; on the
+  card its convs run on cuDNN. A split-TF32 backward is later work.
 
 What bounds it on the H100: arithmetic. One RDB (nc 64, gc 32) does
 2 * 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64) = 479,232 FLOP
@@ -141,14 +152,15 @@ grad_f32            0       1e-2    the Function (kernel forward, VJP of the f32
                                     of the plain version's convs by up to 4.7e-3 (TF32
                                     off), so it runs with cuDNN off. A wrong gradient
                                     is off by O(1).
-grad_bf16           0       1e-1    the same at bf16: two bf16 computations of one
-                                    gradient, neither exact. The chain rounds every conv
-                                    output and every level's gradient to bf16 (2^-9
-                                    relative each), the plain version only where the
+grad_bf16           0       1e-1    the same at bf16 (the Function's backward there is
+                                    the kernels): two bf16 computations of one gradient,
+                                    neither exact. The backward rounds every level's
+                                    gradient to bf16 (2^-9 relative each; the chain also
+                                    every conv output), the plain version only where the
                                     forward rounds; against the f64 gradient of the
                                     unrounded function both are off by 1-5% (CPU,
-                                    oneDNN bf16 convs), and they differed from each
-                                    other by 0.4-4.9%.
+                                    oneDNN bf16 convs), and the chain and the plain
+                                    version differed from each other by 0.4-4.9%.
 train_loss_f32      2e-5    2e-3    three f32 DASR steps at nb 2, full width, on the
                                     card with the kernel vs with the plain version: the
                                     limits of the CPU check against the JAX trainer.
@@ -199,6 +211,9 @@ TOLERANCES = {
 }
 
 LAUNCHES_PER_RDB = 5  # one kernel launch per level
+# the bf16 backward: the dgrad weight images, five reverse-chain levels,
+# the weight gradients' partial sums and their reduction
+BACKWARD_LAUNCHES = 8
 # kernel codes of the C entry point: f32 split-TF32 wgmma, bf16 wgmma
 _KERNEL_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -216,6 +231,29 @@ PEAK_BYTES_PER_S = 3.35e12
 # (rows, columns) of output pixels a block of the bf16 kernel owns, by the
 # tile code the C entry point takes
 TILES = ((8, 8), (16, 16))
+
+
+def wgrad_splits(b, h, w, nc=64, gc=32, sms=132):
+    """Splits of the pixels (8x8 tiles) among which the weight-gradient
+    kernel divides the work of each of its blocks (32 input by 32 output
+    channels of one level): as many as keep all five levels' blocks in one
+    wave of two an SM, and never more than there are tiles. A second launch
+    adds the splits' partial sums in order."""
+    blocks = sum((nc + k * gc) // 32 * ((gc if k < 4 else nc) // 32) for k in range(5))
+    tiles = b * -(-h // 8) * -(-w // 8)
+    return max(1, min(tiles, 2 * sms // blocks))
+
+
+def grad_layout(nc=64, gc=32):
+    """[(weight offset, bias offset)] of each level in the backward's f32
+    gradient buffer and its total length: each level's OIHW kernel
+    (cout, cin, 3, 3), then its bias (``grad_offset`` in ``csrc/rdb.cu``)."""
+    out, off = [], 0
+    for k in range(5):
+        cin, cout = nc + k * gc, gc if k < 4 else nc
+        out.append((off, off + 9 * cin * cout))
+        off += (9 * cin + 1) * cout
+    return out, off
 
 
 def tile_plan(b, h, w, sms=132):
@@ -464,12 +502,9 @@ def prepare_weights(kernels, biases, dtype):
     return ks, bs
 
 
-def fused_rdb_reference(x, kernels, biases):
-    """Plain PyTorch version: ``F.conv2d`` over the concatenated prefix.
-
-    x (B, H, W, nc) NHWC; kernels HWIO; biases (cout,). Convs run in f32 (in
-    f64 for an f64 x, which makes this the f64 RDB the f32 kernel is held
-    against) on working-type-rounded inputs; returns NHWC in x's dtype."""
+def reference_levels(x, kernels, biases):
+    """The plain version's output and growth buffer (x_1..x_4 in x's dtype,
+    (B, H, W, 4 gc) NHWC): what the kernel's forward computes and keeps."""
     dt = x.dtype
     ct = torch.promote_types(dt, torch.float32)
     feats = [x.permute(0, 3, 1, 2).to(ct)]
@@ -481,7 +516,75 @@ def fused_rdb_reference(x, kernels, biases):
             feats.append(F.leaky_relu(v, 0.2).to(dt).to(ct))
         else:
             out = (feats[0] + 0.2 * v).to(dt)
-    return out.permute(0, 2, 3, 1)
+    growth = torch.cat(feats[1:], 1).to(dt)
+    return out.permute(0, 2, 3, 1), growth.permute(0, 2, 3, 1)
+
+
+def fused_rdb_reference(x, kernels, biases):
+    """Plain PyTorch version: ``F.conv2d`` over the concatenated prefix.
+
+    x (B, H, W, nc) NHWC; kernels HWIO; biases (cout,). Convs run in f32 (in
+    f64 for an f64 x, which makes this the f64 RDB the f32 kernel is held
+    against) on working-type-rounded inputs; returns NHWC in x's dtype."""
+    return reference_levels(x, kernels, biases)[0]
+
+
+def dgrad_weights(kernels):
+    """The reverse chain's five weight images from the forward's HWIO
+    kernels (the plain version of ``csrc/rdb.cu:rdb_dgrad_weights``).
+
+    Level j of the reverse chain (j = 0..4) convolves [dv_5 | dv_4 | ..
+    | dv_{5-j}] (nc + j gc channels, the gradient growth buffer's order)
+    into the gradient of the forward's source x_{4-j} (gc channels), or of
+    x (nc) at j = 4. A transposed SAME 3x3 conv is a conv with the taps
+    flipped and the in and out channels swapped, so image j is HWIO
+    (3, 3, nc + j gc, cout): level 5's rows times 0.2 (dv_5 = 0.2 dY, so
+    the chain reads dY), then levels 4, 3, .. 5-j, each the slice of its
+    kernel that reads the source, in x's dtype."""
+    dt = kernels[0].dtype
+    nc, gc = kernels[4].shape[-1], kernels[0].shape[-1]
+    out = []
+    for j in range(5):
+        lo, width = (nc + (3 - j) * gc, gc) if j < 4 else (0, nc)
+        parts = [(kernels[4][:, :, lo:lo + width].float() * 0.2).to(dt)]
+        parts += [kernels[k][:, :, lo:lo + width] for k in range(3, 3 - j, -1)]
+        out.append(torch.cat([p.flip(0, 1).transpose(2, 3) for p in parts], 2).contiguous())
+    return out
+
+
+def rdb_backward_reference(x, growth, kernels, dy):
+    """Plain PyTorch version of the bf16 backward: the reverse dense chain
+    over the saved growth buffer. Returns (dx NHWC in x's dtype, the five
+    HWIO kernel gradients and five bias gradients, f32, or f64 for an f64 x).
+
+    dv_5 = 0.2 dY; for s = 4..1, dx_s sums the transposed convs of every
+    later level's dv_k, and dv_s = dx_s times the leaky ReLU's slope, read
+    from the sign of x_s and rounded to x's dtype where the kernels round
+    it; dx = dY + the transposed convs into x, rounded once;
+    dW_k = in_k (x) dv_k and db_k = sum dv_k, with in_k = [x, x_1..x_{k-1}]."""
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    nc, gc = x.shape[-1], kernels[0].shape[-1]
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).to(ct)
+
+    src = [nchw(x)] + [nchw(growth[..., s * gc:(s + 1) * gc]) for s in range(4)]
+    d_src = [torch.zeros_like(t) for t in src]
+    weights = [k.to(dt).to(ct).permute(3, 2, 0, 1) for k in kernels]  # OIHW
+    dks, dbs = [None] * 5, [None] * 5
+    dv = 0.2 * nchw(dy)
+    for k in range(4, -1, -1):
+        if k < 4:
+            dv = torch.where(src[k + 1] > 0, d_src[k + 1], 0.2 * d_src[k + 1]).to(dt).to(ct)
+        dks[k] = torch.nn.grad.conv2d_weight(torch.cat(src[:k + 1], 1), weights[k].shape, dv,
+                                             padding=1).permute(2, 3, 1, 0)
+        dbs[k] = dv.sum((0, 2, 3))
+        for s, part in enumerate(F.conv_transpose2d(dv, weights[k], padding=1)
+                                 .split([nc] + [gc] * k, 1)):
+            d_src[s] = d_src[s] + part
+    dx = (nchw(dy) + d_src[0]).to(dt)
+    return dx.permute(0, 2, 3, 1), dks, dbs
 
 
 def rdb_chain(x, kernels, biases):
@@ -492,16 +595,17 @@ def rdb_chain(x, kernels, biases):
     block (the concatenated input-channel slices of every later level), in
     x's dtype; the level terms are summed in f32 with the bias, and x_1..x_4
     and the output are rounded to the working type where JAX rounds them.
-    x (B, H, W, nc) NHWC; kernels HWIO in x's dtype; biases f32 (cout,).
-    This is what the backward differentiates; on the card its convs run on
-    cuDNN (channels_last)."""
+    x (B, H, W, nc) NHWC; kernels HWIO (cast to x's dtype); biases f32
+    (cout,). This is what the f32 and CPU backward differentiates; on the
+    card its convs run on cuDNN (channels_last)."""
     dt = x.dtype
     nc, gc = x.shape[-1], kernels[0].shape[-1]
     lo = [0] + [nc + s * gc for s in range(4)]
     width = [nc] + [gc] * 4
 
     def conv(v, s):
-        w = torch.cat([kernels[j][:, :, lo[s]:lo[s] + width[s], :] for j in range(s, 5)], -1)
+        w = torch.cat([kernels[j][:, :, lo[s]:lo[s] + width[s], :] for j in range(s, 5)],
+                      -1).to(dt)
         w = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         return F.conv2d(v, w, padding=1).float()
 
@@ -526,29 +630,56 @@ def _forward(x, kernels, biases):
         return fused_rdb_reference(x, kernels, biases)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rdb: no kernel for device {x.device}")
-    return _launch(x, kernels, biases)
+    return _launch(x, kernels, biases)[0]
 
 
 class _FusedRDB(torch.autograd.Function):
-    """``jax.custom_vjp`` of ``pallas_rdb.fused_rdb``: the forward runs the
-    kernel (its plain version on the CPU) and keeps x and the ten weights,
-    as JAX's ``_fwd`` does; the backward recomputes ``rdb_chain`` from them
-    and returns its VJP, as JAX's ``_bwd`` does."""
+    """``jax.custom_vjp`` of ``pallas_rdb.fused_rdb``. The kernels may come
+    in any float type (RDB5C hands over its f32 parameters' HWIO views); the
+    forward casts them to x's dtype itself, so autograd records no cast.
+
+    bf16 on the card: the forward keeps x, the growth buffer it filled and
+    the cast kernels; the backward launches the backward kernels on them
+    and returns the kernel gradients in f32 (cast to a kernel's own type
+    where that is not f32). Elsewhere, as JAX's ``_fwd`` and ``_bwd``: the
+    forward keeps x and the ten weights, and the backward recomputes
+    ``rdb_chain`` from them and returns its VJP."""
 
     @staticmethod
     def forward(ctx, x, *weights):
-        ctx.save_for_backward(x, *weights)
-        return _forward(x, weights[:5], weights[5:])
+        kernels, biases = weights[:5], weights[5:]
+        ctx.on_kernels = x.is_cuda and x.dtype == torch.bfloat16
+        if x.is_cuda:
+            kernels = tuple(k.contiguous() if k.dtype == x.dtype
+                            else torch.empty(k.shape, dtype=x.dtype, device=k.device).copy_(k)
+                            for k in kernels)
+        if not ctx.on_kernels:
+            ctx.save_for_backward(x, *weights)
+            return _forward(x, kernels, biases)
+        y, growth = _launch(x, kernels, biases)
+        ctx.save_for_backward(x, growth, *kernels)
+        ctx.kernel_dtypes = [k.dtype for k in weights[:5]]
+        return y
 
     @staticmethod
     def backward(ctx, grad):
+        # grad may arrive as a permuted view of an NCHW gradient
+        grad = grad.contiguous()
+        if ctx.on_kernels:
+            fused_rdb.bwd_kernel += 1
+            x, growth, *kernels = ctx.saved_tensors
+            dx, dks, dbs = _launch_backward(x, growth, kernels, grad)
+            dks = [d.to(dt) for d, dt in zip(dks, ctx.kernel_dtypes)]
+            return tuple(g if need else None
+                         for g, need in zip((dx, *dks, *dbs), ctx.needs_input_grad))
+        if grad.is_cuda:
+            fused_rdb.bwd_chain += 1
         saved = ctx.saved_tensors
         leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [t for t in leaves if t.requires_grad]
         with torch.enable_grad():
             out = rdb_chain(leaves[0], leaves[1:6], leaves[6:])
-            # grad may arrive as a permuted view of an NCHW gradient
-            got = iter(torch.autograd.grad(out, wanted, grad.contiguous()))
+            got = iter(torch.autograd.grad(out, wanted, grad))
         return tuple(next(got) if t.requires_grad else None for t in leaves)
 
 
@@ -560,7 +691,9 @@ def fused_rdb(x, kernels, biases):
     ``fused_rdb_reference``. A CUDA tensor launches the kernel, once per
     level, or raises on what the kernel does not take: there is no
     fallback. When a gradient is wanted, the call goes through
-    ``_FusedRDB``, whose backward is the VJP of ``rdb_chain``.
+    ``_FusedRDB`` (whose kernels may then be of another float type, such as
+    the f32 parameters): its backward is the backward kernels at bf16 on
+    the card, else the VJP of ``rdb_chain``.
     """
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *kernels, *biases)
@@ -570,9 +703,14 @@ def fused_rdb(x, kernels, biases):
 
 
 # forward kernel launches on the card since the last reset: of either kernel,
-# and of the f32 one (rdb_level_tf32x3) alone
+# and of the f32 one (rdb_level_tf32x3) alone; the backward kernels'
+# launches; and backward calls on the card, through the kernels and through
+# rdb_chain (utils/trace.py:counters reports all five)
 fused_rdb.launches = 0
 fused_rdb.launches_f32 = 0
+fused_rdb.backward_launches = 0
+fused_rdb.bwd_kernel = 0
+fused_rdb.bwd_chain = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -616,7 +754,8 @@ def _check(x, kernels, biases):
 def _launch(x, kernels, biases):
     """The five level launches of one RDB on x's current stream, in one call
     into the library: level k reads x and the growth buffer and writes its
-    slice of the buffer (levels 1-4) or y (level 5)."""
+    slice of the buffer (levels 1-4) or y (level 5). Returns (y, the growth
+    buffer)."""
     from dasr_tpu_torch.kernels import build
 
     _check(x, kernels, biases)
@@ -639,4 +778,46 @@ def _launch(x, kernels, biases):
     build.check(lib, rc, "fused_rdb")
     fused_rdb.launches += LAUNCHES_PER_RDB
     fused_rdb.launches_f32 += LAUNCHES_PER_RDB if f32 else 0
-    return y
+    return y, growth
+
+
+def _launch_backward(x, growth, kernels, dy):
+    """The bf16 backward's eight launches on x's current stream, in one call
+    into the library, from the forward's x, growth buffer and HWIO kernels
+    (as ``_launch`` took them) and the output's contiguous gradient ``dy``.
+    Returns (dx, the five kernel gradients as HWIO views of their OIHW f32
+    buffers, the five f32 bias gradients)."""
+    from dasr_tpu_torch.kernels import build
+
+    lib = build.load()
+    b, h, w, nc = x.shape
+    gc = kernels[0].shape[-1]
+    if nc not in (32, 64) or gc != 32:
+        raise ValueError(f"fused_rdb: the bf16 backward takes nc 32 or 64 and gc 32 "
+                         f"(nc {nc}, gc {gc})")
+    if dy.data_ptr() % 32:
+        dy = dy.clone()  # TMA reads from 16-byte-aligned rows
+    sms = _sm_count(x.device.index)
+    splits = wgrad_splits(b, h, w, nc, gc, sms)
+    layout, total = grad_layout(nc, gc)
+    img = torch.empty(sum(k.numel() for k in kernels), dtype=x.dtype, device=x.device)
+    dv = torch.empty_like(growth)  # the gradient growth buffer: dv_4 | dv_3 | dv_2 | dv_1
+    dx = torch.empty_like(x)
+    ws = torch.empty((splits, total), dtype=torch.float32, device=x.device)
+    grads = torch.empty(total, dtype=torch.float32, device=x.device)
+    ptrs = ctypes.c_void_p * 5
+    with torch.cuda.device(x.device):
+        rc = lib.dasr_rdb_backward(
+            x.data_ptr(), growth.data_ptr(), ptrs(*(k.data_ptr() for k in kernels)),
+            dy.data_ptr(), img.data_ptr(), dv.data_ptr(), dx.data_ptr(), ws.data_ptr(),
+            grads.data_ptr(), b, h, w, nc, gc, tile_plan(b, h, w, sms), splits,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, rc, "fused_rdb backward")
+    fused_rdb.backward_launches += BACKWARD_LAUNCHES
+    dks, dbs = [], []
+    for k, (w_off, b_off) in enumerate(layout):
+        cin, cout = nc + k * gc, gc if k < 4 else nc
+        dks.append(grads[w_off:b_off].view(cout, cin, 3, 3).permute(2, 3, 1, 0))
+        dbs.append(grads[b_off:b_off + cout])
+    return dx, dks, dbs

@@ -24,9 +24,10 @@ on the device.
   loop on the card.
 * The graph's outputs (the metrics) live in its pool and the next replay
   overwrites them, so a window returns clones of its last step's.
-* The RDB kernel's launch counts (``ops/rdb.py:fused_rdb``) count at
-  Python call time, which a replay skips: each replay adds the launches its
-  capture recorded, and the capture itself adds none.
+* The RDB kernels' counts (``ops/rdb.py:fused_rdb``: forward and backward
+  launches, backward calls) count at Python call time, which a replay
+  skips: each replay adds the counts its capture recorded, and the capture
+  itself adds none.
 * The graph bakes in the addresses of the parameters, Adam's state, the LR
   tensors and the banks. Loading a train state replaces Adam's state
   tensors, so a key is captured again when any of those addresses moved
@@ -54,7 +55,7 @@ from dasr_tpu_torch.core import dist
 from dasr_tpu_torch.ops.rdb import fused_rdb
 from dasr_tpu_torch.utils import trace
 
-_COUNTS = ("launches", "launches_f32")
+_COUNTS = ("launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")
 
 
 def replays_on(device: torch.device) -> bool:

@@ -109,12 +109,15 @@ def count(name: str, n: int = 1) -> int:
 
 
 def counters() -> Dict[str, int]:
-    """Every counter of the process, with ``fused_rdb.launches`` and
-    ``fused_rdb.launches_f32``."""
+    """Every counter of the process, with the RDB kernels' counts:
+    ``fused_rdb.launches`` and ``fused_rdb.launches_f32`` (forward
+    launches), ``fused_rdb.backward_launches``, and the backward calls on
+    the card that took the kernels (``fused_rdb.bwd_kernel``) or
+    ``rdb_chain`` (``fused_rdb.bwd_chain``)."""
     from dasr_tpu_torch.ops.rdb import fused_rdb
 
-    return dict(_counts, **{"fused_rdb.launches": fused_rdb.launches,
-                            "fused_rdb.launches_f32": fused_rdb.launches_f32})
+    return dict(_counts, **{f"fused_rdb.{name}": getattr(fused_rdb, name) for name in (
+        "launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")})
 
 
 def write_chrome_trace(spans: List[Span], path: str, base_ns: int = 0) -> None:

@@ -13,6 +13,8 @@ import torch
 
 from dasr_tpu_torch.core.device import resolve_device
 from dasr_tpu_torch.ops.rdb import (
+    BACKWARD_LAUNCHES,
+    LAUNCHES_PER_RDB,
     TILES,
     TOLERANCES,
     fused_rdb,
@@ -111,3 +113,45 @@ def test_f32_kernel_within_twice_the_plain_error_against_f64(rng, shape, tile):
     e_kernel = (got.double() - want).abs().max().item()
     e_plain = (plain.double() - want).abs().max().item()
     assert e_kernel <= ratio * e_plain, (e_kernel, e_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, tile", [((12, 32, 32), (8, 8)), ((4, 100, 90), (16, 16))])
+def test_backward_kernels_match_autograd_through_plain(rng, shape, tile):
+    """bf16, the train step's shape and a ragged one: the Function's
+    backward (the kernels, on f32 kernel leaves as RDB5C hands them)
+    against autograd through the plain version on the same tensors (cuDNN
+    off), dL/dx and the ten parameter gradients each within ``grad_bf16``
+    in the Frobenius norm; a second run gives the same bits; one forward
+    and backward count the forward's five launches, the backward's eight
+    and one backward through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    assert TILES[tile_plan(*shape)] == tile
+    kernels, biases = _params(rng)
+    resolve_device("cuda")
+    base = ([torch.from_numpy(rng.random(shape + (64,), dtype=np.float32)).cuda().bfloat16()]
+            + [torch.from_numpy(k).cuda() for k in kernels]
+            + [torch.from_numpy(b).cuda() for b in biases])
+    g = torch.from_numpy(rng.normal(0, 1, shape + (64,)).astype(np.float32)).cuda().bfloat16()
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in base]
+        return torch.autograd.grad(fn(leaves[0], leaves[1:6], leaves[6:]), leaves, g)
+
+    names = ("launches", "backward_launches", "bwd_kernel", "bwd_chain")
+    before = [getattr(fused_rdb, n) for n in names]
+    got = run(fused_rdb)
+    torch.cuda.synchronize()
+    counts = [getattr(fused_rdb, n) - c for n, c in zip(names, before)]
+    assert counts == [LAUNCHES_PER_RDB, BACKWARD_LAUNCHES, 1, 0]
+    again = run(fused_rdb)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = run(fused_rdb_reference)
+    _, rtol = TOLERANCES["grad_bf16"]
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        rel = ((a.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= rtol, (i, rel)

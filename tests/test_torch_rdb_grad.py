@@ -2,9 +2,11 @@
 (``jax.vjp`` of ``_scatter_reference``), f32 on the CPU, and the routing of
 ``RDB5C``'s gradients to its OIHW parameters.
 
-On the CPU the Function's forward is the kernel's plain version; its
-backward is the VJP of ``rdb_chain`` on every device. The card's check of
-the kernel under autograd is in chip_smoke.py (phase ``grad``)."""
+On the CPU the Function's forward is the kernel's plain version and its
+backward the VJP of ``rdb_chain``. The bf16 backward kernels' plain
+version, the reverse dense chain ``rdb_backward_reference``, is held here
+against both; the card's checks of the kernels under autograd are in
+tests/test_torch_rdb_card.py and chip_smoke.py (phase ``grad``)."""
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +20,9 @@ from dasr_tpu_torch.ops.rdb import (
     TOLERANCES,
     fused_rdb,
     fused_rdb_reference,
+    rdb_backward_reference,
     rdb_chain,
+    reference_levels,
 )
 
 ATOL, _ = TOLERANCES["jax_rdb"]
@@ -57,6 +61,34 @@ def test_grads_match_jax_vjp_of_scatter_reference(rng, shape):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(2, 32, 32, 64)])
+def test_reverse_chain_matches_chain_vjp_and_jax_vjp(rng, shape):
+    """The bf16 backward's plain version, the reverse dense chain over
+    x_1..x_4 from the plain forward, against the VJP of ``rdb_chain`` and
+    JAX's ``jax.vjp`` of ``_scatter_reference``: dx and the ten parameter
+    gradients, f32."""
+    kernels, biases = _params(rng, nc=shape[-1])
+    x = rng.random(shape, dtype=np.float32)
+    g = rng.normal(0, 1, shape).astype(np.float32)
+    _, vjp = jax.vjp(_scatter_reference, jnp.asarray(x), tuple(map(jnp.asarray, kernels)),
+                     tuple(map(jnp.asarray, biases)))
+    jx, jks, jbs = vjp(jnp.asarray(g))
+
+    tx = torch.from_numpy(x).requires_grad_()
+    tks = [torch.from_numpy(k).requires_grad_() for k in kernels]
+    tbs = [torch.from_numpy(b).requires_grad_() for b in biases]
+    chain = torch.autograd.grad(rdb_chain(tx, tks, tbs), [tx, *tks, *tbs], torch.from_numpy(g))
+
+    with torch.no_grad():
+        _, growth = reference_levels(tx, tks, tbs)
+        dx, dks, dbs = rdb_backward_reference(tx, growth, tks, torch.from_numpy(g))
+    names = ["x"] + [f"k{k}" for k in range(5)] + [f"b{k}" for k in range(5)]
+    for name, got, want, jwant in zip(names, [dx, *dks, *dbs], chain, [jx, *jks, *jbs]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), atol=ATOL, rtol=0,
+                                   err_msg=name)
+
+
 def test_chain_matches_plain_version_forward(rng):
     """``rdb_chain`` (what the backward differentiates) computes the
     forward the kernel computes, at f32 and, rounding where it rounds, at
@@ -89,9 +121,9 @@ def test_backward_takes_a_permuted_gradient(rng):
 
 
 def test_rdb5c_gradients_reach_its_parameters(rng):
-    """Under grad mode RDB5C hands the Function differentiable casts of its
-    OIHW parameters: their gradients equal those of the literal dense chain
-    of nn layers, and the no_grad weight cache sees the optimizer's step."""
+    """Under grad mode RDB5C hands the Function HWIO views of its OIHW
+    parameters: their gradients equal those of the literal dense chain of
+    nn layers, and the no_grad weight cache sees the optimizer's step."""
     torch.manual_seed(0)
     fused = RDB5C(nc=32, gc=16)
     literal = RDB5C(nc=32, gc=16)

@@ -24,9 +24,12 @@ from dasr_tpu_torch.ops.rdb import (
     TOLERANCES,
     WgmmaPlan,
     bound_ms,
+    dgrad_weights,
     fused_rdb_reference,
     level_costs,
+    rdb_backward_reference,
     rdb_cost,
+    reference_levels,
     tile_plan,
 )
 
@@ -76,9 +79,10 @@ def _land(stage, region, box, span):
     stage[swizzle(logical, span) // 2] = box.reshape(-1)
 
 
-def _emulate_level(plan, x, growth, wmat, bias, k, out):
-    """Level k + 1 as the kernel computes it, f32, written into ``out``
-    (the growth slice or y)."""
+def _emulate_products(plan, x, growth, wmat, store):
+    """One level's products as the kernel computes them, f32, from x's
+    channels and then the growth buffer's: ``store(b, gy, gx, acc)`` takes
+    each output pixel's (cout,) sums, the epilogue."""
     b_, h, w, nc = x.shape
     cin, cout = wmat.shape[2], wmat.shape[3]
     w9 = wmat.reshape(9, cin, cout)
@@ -107,13 +111,22 @@ def _emulate_level(plan, x, growth, wmat, bias, k, out):
                     r0, c0 = plan.sub_block(sb)
                     for m in range(64):
                         gy, gx = y0 + r0 + m // 8, x0 + c0 + m % 8
-                        if gy >= h or gx >= w:
-                            continue
-                        v = acc[sb, m] + bias
-                        if k == 4:
-                            out[b, gy, gx] = x[b, gy, gx] + 0.2 * v
-                        else:
-                            out[b, gy, gx, k * GC:(k + 1) * GC] = np.where(v >= 0, v, 0.2 * v)
+                        if gy < h and gx < w:
+                            store(b, gy, gx, acc[sb, m])
+
+
+def _emulate_level(plan, x, growth, wmat, bias, k, out):
+    """Level k + 1 as the kernel computes it, f32, written into ``out``
+    (the growth slice or y)."""
+
+    def store(b, gy, gx, acc):
+        v = acc + bias
+        if k == 4:
+            out[b, gy, gx] = x[b, gy, gx] + 0.2 * v
+        else:
+            out[b, gy, gx, k * GC:(k + 1) * GC] = np.where(v >= 0, v, 0.2 * v)
+
+    _emulate_products(plan, x, growth, wmat, store)
 
 
 def _emulate_rdb(tile, x, kernels, biases):
@@ -141,6 +154,58 @@ def test_emulated_kernel_matches_plain_version(rng, tile, shape):
     jax_want = np.asarray(_scatter_reference(
         jnp.asarray(x), tuple(map(jnp.asarray, kernels)), tuple(map(jnp.asarray, biases))))
     np.testing.assert_allclose(got, jax_want, atol=TOLERANCES["jax_rdb"][0], rtol=0)
+
+
+def _emulate_dgrad(tile, dy, growth, images):
+    """The backward's reverse chain as its kernel computes it: the forward's
+    products (the same plan) on the dgrad weight images, reading dY as x and
+    the gradient growth buffer as the growth buffer, with the backward's
+    epilogue: no bias; dv_{4-j} = acc times the slope at x_{4-j} into the
+    buffer's slice j, and dx = dY + acc at the last level."""
+    grown = np.zeros_like(growth)
+    dx = np.zeros_like(dy)
+    for j in range(5):
+        def store(b, gy, gx, acc, j=j):
+            if j == 4:
+                dx[b, gy, gx] = dy[b, gy, gx] + acc
+            else:
+                xs = growth[b, gy, gx, (3 - j) * GC:(4 - j) * GC]
+                grown[b, gy, gx, j * GC:(j + 1) * GC] = np.where(xs > 0, acc, 0.2 * acc)
+
+        _emulate_products(WgmmaPlan(GC if j < 4 else NC, tile), dy, grown, images[j], store)
+    return dx
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_emulated_dgrad_on_its_weight_images_matches_reverse_chain(rng, tile):
+    """The dgrad weight images (taps flipped, in and out channels swapped,
+    level 5's rows times 0.2), read through the forward kernel's plan with
+    the backward's epilogue, give the plain reverse chain's dx (f32, ragged
+    H and W, B > 1); and the images are what the image kernel's index
+    arithmetic in csrc/rdb.cu:rdb_dgrad_weights reads, element by element."""
+    kernels, biases = _params(rng)
+    ks = [torch.from_numpy(k) for k in kernels]
+    x = torch.from_numpy(rng.random((2, 11, 19, NC), dtype=np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1, (2, 11, 19, NC)).astype(np.float32))
+    _, growth = reference_levels(x, ks, [torch.from_numpy(b) for b in biases])
+    images = dgrad_weights(ks)
+    for j, img in enumerate(images):
+        cin_j, cout_j = NC + j * GC, GC if j < 4 else NC
+        e = np.arange(9 * cin_j * cout_j)
+        o, c, tap = e % cout_j, (e // cout_j) % cin_j, e // (cout_j * cin_j)
+        k = np.where(c < NC, 4, 3 - (c - NC) // GC)
+        co = np.where(c < NC, c, (c - NC) % GC)
+        lo = NC + (3 - j) * GC if j < 4 else 0
+        want = np.empty(e.size, np.float32)
+        for kk in range(5):
+            at = k == kk
+            cin_k, cout_k = NC + kk * GC, GC if kk < 4 else NC
+            flat = kernels[kk].reshape(-1)[((8 - tap[at]) * cin_k + lo + o[at]) * cout_k + co[at]]
+            want[at] = flat * (0.2 if kk == 4 else 1.0)
+        np.testing.assert_array_equal(img.numpy().reshape(-1), want, err_msg=f"image {j}")
+    got = _emulate_dgrad(tile, dy.numpy(), growth.numpy(), [img.numpy() for img in images])
+    want_dx, _, _ = rdb_backward_reference(x, growth, ks, dy)
+    np.testing.assert_allclose(got, want_dx.numpy(), atol=TOLERANCES["kernel_f32"][0], rtol=0)
 
 
 @pytest.mark.parametrize("cout", [GC, NC])

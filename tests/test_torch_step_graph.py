@@ -196,20 +196,25 @@ def test_srn_window_metrics_survive_the_next_window(srn_banks):
 
 def test_replay_is_credited_with_its_captures_launches(tracing):
     """A stub step that counts five launches a call as the kernel wrapper
-    does: the warm-up counts 5, the capture nets 0, each replay 5."""
+    does, and a backward's eight through the kernels: the warm-up counts
+    them, the capture nets 0, each replay counts them again."""
+    names = ("launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")
+    per_step = (5, 5, 8, 1, 0)
+
     def step(x):
-        fused_rdb.launches += 5
-        fused_rdb.launches_f32 += 5
+        for name, n in zip(names, per_step):
+            setattr(fused_rdb, name, getattr(fused_rdb, name) + n)
         return {"m": x.sum()}
 
     graphs = step_graph.StepGraphs("cpu", capture=recording_capture)
-    before = (fused_rdb.launches, fused_rdb.launches_f32, _replays())
+    before = [getattr(fused_rdb, name) for name in names]
+    replays = _replays()
     hosts = []
     xs = [(torch.full((2,), float(i)),) for i in range(4)]
     graphs.window("k", lambda: [], step, iter(xs), lambda: hosts.append(1))
-    assert fused_rdb.launches - before[0] == 20
-    assert fused_rdb.launches_f32 - before[1] == 20
-    assert _replays() - before[2] == 3
+    assert [getattr(fused_rdb, name) - n for name, n in zip(names, before)] == [
+        4 * n for n in per_step]
+    assert _replays() - replays == 3
     assert len(hosts) == 4
     assert [s.id for s in trace.drain() if s.name == "graph.capture"] == [0]
     # the static input holds the last step's item

@@ -64,13 +64,20 @@ def test_counters_add_up():
     assert trace.count("test.things") == base.get("test.things", 0) + 1
     assert trace.count("test.things", 4) == base.get("test.things", 0) + 5
     fused_rdb.launches += 2
+    fused_rdb.backward_launches += 8
+    fused_rdb.bwd_kernel += 1
     try:
         got = trace.counters()
         assert got["test.things"] - base.get("test.things", 0) == 5
         assert got["fused_rdb.launches"] == base["fused_rdb.launches"] + 2
         assert got["fused_rdb.launches_f32"] == base["fused_rdb.launches_f32"]
+        assert got["fused_rdb.backward_launches"] == base["fused_rdb.backward_launches"] + 8
+        assert got["fused_rdb.bwd_kernel"] == base["fused_rdb.bwd_kernel"] + 1
+        assert got["fused_rdb.bwd_chain"] == base["fused_rdb.bwd_chain"]
     finally:
         fused_rdb.launches -= 2
+        fused_rdb.backward_launches -= 8
+        fused_rdb.bwd_kernel -= 1
 
 
 def test_span_holds_its_record_function_block(tracing):
