@@ -2552,7 +2552,8 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
     """The DASR Adaptive model at the full width of train_DASR_Adaptive.json
     (RRDB_Residual_conv nf 64 nb 19 ada_nb 4, batch 2 + 2, HR 192, bf16), its
     patch D from the dsn phase's .tar: srn_train on the host loader and on
-    the device bank, srn_test plain and chopped, each counted (345 kernel
+    the device bank (every step but the first replayed from the step graph),
+    srn_test plain and chopped, each counted (345 kernel
     launches per generator forward); the step's times, host loader and
     device bank in turns; three f32 steps with the kernel against the plain
     version (resconv, and concat with the patch D trained), and banked
@@ -2573,6 +2574,7 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
     from dasr_tpu_torch.ops.rdb import (
         LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference)
     from dasr_tpu_torch.train.checkpoints import load_dsn_tar
+    from dasr_tpu_torch.utils import trace
 
     t_phase = time.perf_counter()
     laps = [t_phase]
@@ -2651,6 +2653,7 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
     # the main path, 2: srn_train on the device bank, windows of 8, uint8
     cfg_bank = adaptive_config(base, dirs, "ada_bank", ADAPTIVE_BANK_STEPS, tar, patchd,
                                print_freq=ADAPTIVE_BANK_K)
+    before = trace.counters()
     (steps, _), secs, out = counted(
         "bank", lambda: run_cli(srn_train.main, [
             "-opt", cfg_bank, "--device", "cuda", "--device_bank", "--steps_per_call",
@@ -2658,9 +2661,17 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
     if (steps != ADAPTIVE_BANK_STEPS or "device bank: " not in out
             or "using the host loader" in out):
         fail(f"adaptive bank: {steps} steps, or srn_train did not train on the device bank")
+    replays = read_replays()
+    grown = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+             if k in ("graph.captures", "fused_rdb.bwd_kernel", "fused_rdb.bwd_chain")}
+    if (replays != ADAPTIVE_BANK_STEPS - 1 or grown["graph.captures"] != 1
+            or not grown["fused_rdb.bwd_kernel"] or grown["fused_rdb.bwd_chain"]):
+        fail(f"adaptive bank: {replays} steps replayed from the step graph, expected "
+             f"{ADAPTIVE_BANK_STEPS - 1} (the first is the warm-up), and one capture with the "
+             f"backward through the kernels alone: {grown}")
     losses, _ = losses_of("ada_bank", ADAPTIVE_BANK_STEPS, ADAPTIVE_BANK_K)
     print(f"adaptive bank: srn_train --device_bank --steps_per_call {ADAPTIVE_BANK_K} "
-          f"--transfer_uint8: {steps} steps in {secs:.2f} s; l_g_total "
+          f"--transfer_uint8: {steps} steps in {secs:.2f} s, {replays} replayed, {grown}; l_g_total "
           + " -> ".join(f"{r['loss/l_g_total']:.4e}" for r in losses) + "; "
           + [ln for ln in out.splitlines() if ln.startswith("device bank: ")][0], flush=True)
     lap("bank")

@@ -19,16 +19,23 @@ DASR step (``train/srn_trainer.py``, whose ``_gan_step`` it shares):
 * the patch D runs in eval mode (BatchNorm on its running statistics) and
   its Adam keeps a constant LR, as JAX's ``optax.adam(lr_patchd)``.
 
-``train_banked_step`` is the DASR trainer's eager loop: the device-bank
-window draws and gathers its batches by the same law, with no DDM bank (the
-gather's all-ones ``fake_w`` is unused here). The online-DDM step is not
-replayed from a CUDA graph yet (ROADMAP).
+``train_banked_step`` is the DASR trainer's: the device-bank window draws
+and gathers its batches by the same law, with no DDM bank (the gather's
+all-ones ``fake_w`` is unused here). On CUDA in a world of one rank without
+a process group each step is replayed from a CUDA graph of ``device_step``
+(the patch D's forward, with ``use_patchD_opt`` its gradient and capturable
+Adam step, the resize, then the DASR step's device part), whose tensors
+include the patch D's and its Adam's (``graph_tensors``); elsewhere it is
+the eager loop. ``host_step`` adds the patch D's LR schedule where it
+steps. With tracing on, the online DDM is the device phase ``ddm``, from
+the patch D's forward through the resize, between the banked step's
+``batch`` and ``g_forward``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -40,6 +47,7 @@ from dasr_tpu_torch.nn.layers import init_lecun_
 from dasr_tpu_torch.ops.resize import bilinear_resize
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 from dasr_tpu_torch.train.state import GANTrainState, NetState, make_net_state
+from dasr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +91,8 @@ class DASRAdaptiveTrainer(SRNTrainer):
     """``SRNTrainer`` with the online DDM, training the modules it is given
     (the registry builds them: ``define_G``, ``define_patchD``)."""
 
+    graph_name = "adaptive"
+
     def __init__(self, cfg: AdaptiveConfig, g_model: RRDBNetResidualConv,
                  patchd: FSDiscriminator, device: torch.device = torch.device("cpu"),
                  lpips: Optional[LPIPS] = None):
@@ -103,13 +113,15 @@ class DASRAdaptiveTrainer(SRNTrainer):
         self.state = AdaptiveState(base=base, patchd=patchd)
         return self.state
 
-    def train_step(self, batch: Dict[str, torch.Tensor], do_g: bool = True,
-                   do_d: bool = True) -> Dict[str, torch.Tensor]:
-        """One step on a batch of NCHW device tensors (keys LR_fake, LR_real,
-        HR, HR_unpair; a ``fake_w`` is ignored). Returns the metrics as 0-d
-        f32 tensors; ``do_g``/``do_d`` as in ``SRNTrainer.train_step`` (the
-        patch D steps whenever ``use_patchD_opt`` is on, as in JAX)."""
+    def device_step(self, batch: Dict[str, torch.Tensor], do_g: bool,
+                    do_d: bool) -> Dict[str, torch.Tensor]:
+        """``train_step`` without its host part, what a CUDA graph captures:
+        the online DDM on a batch of NCHW device tensors (keys LR_fake,
+        LR_real, HR, HR_unpair; a ``fake_w`` is ignored), then the DASR
+        step's device part. The patch D steps whenever ``use_patchD_opt`` is
+        on, as in JAX, whatever ``do_g``/``do_d`` say."""
         c, st = self.cfg, self.state
+        trace.phase("ddm")
         var_l = torch.cat([batch["LR_fake"], batch["LR_real"]])
         var_h = torch.cat([batch["HR"], batch["HR_unpair"]])
         b = batch["LR_fake"].shape[0]
@@ -117,19 +129,28 @@ class DASRAdaptiveTrainer(SRNTrainer):
         if c.use_patchD_opt:
             scores = st.patchd.net(var_l)
             loss = dsn_discriminator_loss(scores[b:], scores[:b])
-            st.patchd.step(torch.autograd.grad(loss, st.patchd.params()))
+            st.patchd.update(torch.autograd.grad(loss, st.patchd.params()))
             metrics["loss/patch_D_gan_loss"] = loss
             ada_w = scores.detach()
         else:
             with torch.no_grad():
                 ada_w = st.patchd.net(var_l)
         ddm = bilinear_resize(ada_w[:b], var_h.shape[-2], var_h.shape[-1])
-        metrics = self._gan_step(st.base, var_l, var_h, b, (ada_w,),
-                                 ddm if c.use_domain_distance_map else None, metrics, do_g, do_d)
-        self.host_step(do_g, do_d)
-        return metrics
+        return self._gan_step(st.base, var_l, var_h, b, (ada_w,),
+                              ddm if c.use_domain_distance_map else None, metrics, do_g, do_d)
 
-    train_banked_step = SRNTrainer.train_banked_step_eager
+    def host_step(self, do_g: bool, do_d: bool) -> None:
+        """The DASR step's host part, and the patch D's LR schedule where it
+        steps."""
+        if self.cfg.use_patchD_opt:
+            self.state.patchd.advance()
+        super().host_step(do_g, do_d)
+
+    def graph_tensors(self) -> Iterator[torch.Tensor]:
+        """The DASR trainer's tensors and the patch D's: its parameters,
+        buffers, Adam state and LR tensor."""
+        yield from super().graph_tensors()
+        yield from self.state.patchd.tensors()
 
     @torch.no_grad()
     def sr(self, lr_img: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,7 @@ discriminators' losses and gradients) and ``adam``, closed at its end.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -117,6 +117,9 @@ class SRNTrainer:
     """Holds the networks and their optimizers (``self.state``) and runs the
     step. ``lpips`` / ``vgg``: frozen feature nets to use instead of the
     seeded defaults (the tests pass the JAX package's, carried across)."""
+
+    # the name of the captured step in its key (``train_banked_step_graphed``)
+    graph_name = "dasr"
 
     def __init__(self, cfg: SRNConfig, device: torch.device = torch.device("cpu"),
                  g_model: Optional[RRDBNet] = None, lpips: Optional[LPIPS] = None,
@@ -361,12 +364,27 @@ class SRNTrainer:
                                       do_g=do_g, do_d=do_d)
         return metrics
 
+    def graph_tensors(self) -> Iterator[torch.Tensor]:
+        """Every tensor of the trainer whose address a captured step bakes in:
+        each network's parameters, buffers, Adam state and LR tensor, and the
+        frozen feature nets' parameters and buffers."""
+        st = self.state
+        for ns in (st.g, st.d_target, st.d_source):
+            if ns is not None:
+                yield from ns.tensors()
+        for m in (self.lpips, self.vgg):
+            if m is not None:
+                yield from m.parameters()
+                yield from m.buffers()
+
     def train_banked_step_graphed(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
                                   hr_size: int, use_flip: bool = True, use_rot: bool = True,
                                   do_g: bool = True,
                                   do_d: bool = True) -> Dict[str, torch.Tensor]:
         """``train_banked_step`` through ``self.graphs``: the draws stay
-        eager, the gather and ``device_step`` are the graph. One rank."""
+        eager, the gather and ``device_step`` are the graph, keyed by
+        ``graph_name``; ``graph_tensors`` and the banks are the tensors it
+        bakes in. One rank."""
         c = self.cfg
         gen = window_generator(c.seed, seed, self.device)
         n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
@@ -378,19 +396,13 @@ class SRNTrainer:
                                     do_g, do_d)
 
         def tensors():
-            st = self.state
-            for ns in (st.g, st.d_target, st.d_source):
-                if ns is not None:
-                    yield from ns.tensors()
-            for m in (self.lpips, self.vgg):
-                if m is not None:
-                    yield from m.parameters()
-                    yield from m.buffers()
+            yield from self.graph_tensors()
             for b in banks:
                 if b is not None:
                     yield from b
 
-        key = ("dasr", fake_idx.shape[1], hr_size, use_flip, use_rot, c.dtype, do_g, do_d)
+        key = (self.graph_name, fake_idx.shape[1], hr_size, use_flip, use_rot, c.dtype, do_g,
+               do_d)
         return self.graphs.window(
             key, tensors, step,
             ((row, draw_dasr(gen, row.shape[0], n_real, n_hr)) for row in fake_idx),

@@ -4,7 +4,8 @@ per-step inputs written the way a replay writes them, equals the eager
 ``train_banked_step`` for the DASR step (RRDBNet nf 16 nb 1) and the DSN
 step (DeResnet nb 1, vanilla and WGAN-GP) in losses, params and Adam's
 moments (f32, RTOL 1e-6 as tests/test_torch_banked_step.py; exact equality
-is expected), which tests/test_torch_banked_step.py holds against
+is expected), and the DASR Adaptive step bit for bit (with and without the
+patch D's Adam step), which tests/test_torch_banked_step.py holds against
 ``train_step`` and tests/test_torch_{srn,dsn}_step_*.py against JAX. Also:
 the LR a tensor-LR ``NetState`` is given each step equals the float
 ``LambdaLR``'s across a multistep milestone and a ``dsn_linear_decay``
@@ -22,8 +23,11 @@ import pytest
 import torch
 
 from dasr_tpu_torch.data import device_bank as bank
+from dasr_tpu_torch.nn.discriminators import FSDiscriminator
+from dasr_tpu_torch.nn.generators import RRDBNetResidualConv
 from dasr_tpu_torch.ops.rdb import fused_rdb
 from dasr_tpu_torch.train import step_graph
+from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
 from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
 from dasr_tpu_torch.train.schedules import dsn_linear_decay, multistep
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
@@ -177,6 +181,50 @@ def test_dsn_replayed_window_equals_eager(dsn_banks, wgan):
         for k in w:
             _assert_close(g[k], w[k])
     _assert_same_state(a, b, ("g", "d_target"))
+
+
+def _adaptive_trainer(use_patchd_opt):
+    """The Adaptive trainer at a small width: RRDB_Residual_conv nf 16 nb 1
+    ada_nb 1, the shipped config's patch D (FSD, gau, kernel 5,
+    InstanceNorm)."""
+    g = RRDBNetResidualConv(nf=16, nb=1, gc=8, nb_ada=1)
+    patchd = FSDiscriminator(d_arch="FSD", filter_type="gau", kernel_size=5,
+                             norm_layer="Instance")
+    tr = DASRAdaptiveTrainer(AdaptiveConfig(nf=16, nb=1, gc=8, d_nf=16, d_n_layers=2, seed=5,
+                                            lr_steps=(2,), use_patchD_opt=use_patchd_opt),
+                             g, patchd)
+    tr.init_state()
+    return tr
+
+
+@pytest.mark.parametrize("use_patchd_opt", [False, True])
+def test_adaptive_replayed_window_equals_eager(srn_banks, tracing, use_patchd_opt):
+    """The DASR Adaptive step (the online DDM, with ``use_patchD_opt`` the
+    patch D's Adam step first) on banks with no DDM bank, over the DASR
+    case's two windows: the replayed window equals the eager loop bit for
+    bit in the metrics, every network's params and Adam moments (the patch
+    D's among them where it steps); the captured step marks the phase
+    ``ddm`` between ``batch`` and ``g_forward``."""
+    banks = srn_banks._replace(ddm=None)
+    a, b = _adaptive_trainer(use_patchd_opt), _adaptive_trainer(use_patchd_opt)
+    a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    got = _windows(lambda s, idx: a.train_banked_step_graphed(banks, idx, s, HR_SIZE), WINDOWS)
+    assert list(trace.phase_ms()) == ["batch", "ddm", "g_forward", "g_backward", "d", "adam"]
+    want = _windows(lambda s, idx: b.train_banked_step(banks, idx, s, HR_SIZE), WINDOWS)
+    for g, w in zip(got, want):
+        assert set(g) == set(w) and ("loss/patch_D_gan_loss" in w) == use_patchd_opt
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    names = ("g", "d_target") + (("patchd",) if use_patchd_opt else ())
+    assert a.state.step == b.state.step == 5 and len(a.graphs._graphs) == 1
+    for name in names:
+        na, nb = getattr(a.state, name), getattr(b.state, name)
+        for what in ("params", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(_flat(na, what), _flat(nb, what)), (name, what)
+        assert na.opt.param_groups[0]["lr"] == nb.opt.param_groups[0]["lr"]
+    # the patch D's own tensors are among those the graph bakes in
+    assert {t.data_ptr() for t in a.state.patchd.net.parameters()} <= {
+        t.data_ptr() for t in a.graph_tensors()}
 
 
 def test_srn_window_metrics_survive_the_next_window(srn_banks):

@@ -2,7 +2,9 @@
 eager loop, at a small size: the DASR step (RRDBNet nf 32 nb 1 gc 32, so
 the RDB kernel runs; LPIPS alex; HR 32) and the DSN step (DeResnet nb 1,
 FSD, LPIPS alex, crop 128), f32, two windows of 4 steps from one state;
-and a dropped graphed trainer leaves no device memory behind.
+the DASR Adaptive step (nf 32 nb 1 ada_nb 1, the gau patch D, bf16, with
+and without the patch D's Adam step) bit for bit; and a dropped graphed
+trainer leaves no device memory behind.
 
 Imports neither jax nor the JAX package, so it runs where only the port is
 installed, without the suite's conftest:
@@ -19,7 +21,10 @@ import torch
 
 from dasr_tpu_torch.core.device import resolve_device
 from dasr_tpu_torch.data import device_bank as bank
+from dasr_tpu_torch.nn.discriminators import FSDiscriminator
+from dasr_tpu_torch.nn.generators import RRDBNetResidualConv
 from dasr_tpu_torch.ops.rdb import TOLERANCES, fused_rdb
+from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
 from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 from dasr_tpu_torch.utils import trace
@@ -107,6 +112,69 @@ def test_replayed_windows_equal_the_eager_loop(kind):
             assert ((m - mr).norm() / mr.norm()).item() <= TOLERANCES["train_moment_f32"][1]
         assert float(a.lr) == float(b.lr)
         assert a.opt.param_groups[0]["lr"] is a.lr and a.opt.param_groups[0]["capturable"]
+
+
+def _adaptive_trainers(use_patchd_opt):
+    """Two Adaptive trainers from one seeded state on the card at bf16
+    (RRDB_Residual_conv nf 32 nb 1 ada_nb 1, the shipped config's patch D),
+    banks with no DDM bank, and their window."""
+    rng = np.random.default_rng(0)
+    banks = bank.SrnBanks(_bank(rng, 3, (12, 14)), _bank(rng, 3, (48, 56)),
+                          _bank(rng, 2, (10, 9)), None)
+    cfg = AdaptiveConfig(nf=32, nb=1, gc=32, d_nf=16, seed=5, lr_steps=(3,),
+                         use_patchD_opt=use_patchd_opt, dtype=torch.bfloat16)
+    out = []
+    for _ in range(2):
+        g = RRDBNetResidualConv(nf=32, nb=1, gc=32, nb_ada=1, dtype=torch.bfloat16)
+        patchd = FSDiscriminator(d_arch="FSD", filter_type="gau", kernel_size=5,
+                                 norm_layer="Instance", dtype=torch.bfloat16)
+        tr = DASRAdaptiveTrainer(cfg, g, patchd, "cuda")
+        tr.init_state()
+        out.append(tr)
+
+    def window(tr, eager, start, idx):
+        run = tr.train_banked_step_eager if eager else tr.train_banked_step
+        return run(banks, idx, start, 32)
+
+    return out, window, torch.from_numpy(rng.integers(0, 3, (2, K, 2))).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_patchd_opt", [False, True])
+def test_adaptive_replayed_windows_equal_the_eager_loop_bit_for_bit(use_patchd_opt):
+    """The DASR Adaptive step at bf16 (the online DDM; with
+    ``use_patchD_opt`` the patch D's Adam step first): two replayed windows
+    of 4 steps equal the eager loop's bit for bit in the metrics, every
+    network's params and Adam moments, with the same kernel launches (30 a
+    generator forward), the bf16 backward through the kernels, and every
+    step but the first replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+    (graphed, eager), window, idx = _adaptive_trainers(use_patchd_opt)
+    counts, got, want = [], [], []
+    for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
+        before, replays = trace.counters(), trace.counters().get("graph.replays", 0)
+        for w in range(2):
+            sink.append(window(tr, is_eager, w * K, idx[w]))
+        torch.cuda.synchronize()
+        counts.append({k: v - before.get(k, 0) for k, v in trace.counters().items()
+                       if k.startswith("fused_rdb.")})
+        if not is_eager:
+            assert trace.counters()["graph.replays"] - replays == 2 * K - 1
+    assert counts[0] == counts[1]
+    assert counts[0]["fused_rdb.launches"] == 2 * K * 3 * 2 * 5
+    assert counts[0]["fused_rdb.bwd_kernel"] > 0 and counts[0]["fused_rdb.bwd_chain"] == 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w) and ("loss/patch_D_gan_loss" in w) == use_patchd_opt
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    assert graphed.state.step == eager.state.step == 2 * K
+    for name in ("g", "d_target") + (("patchd",) if use_patchd_opt else ()):
+        a, b = getattr(graphed.state, name), getattr(eager.state, name)
+        for what in ("params", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(_flat(a, what), _flat(b, what)), (name, what)
+        assert float(a.lr) == float(b.lr)
 
 
 @pytest.mark.cuda
