@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases lpips                     # LPIPS breadth, 2AFC, the tools
     python3 chip_smoke.py --phases ablation                  # the experiment tools
     python3 chip_smoke.py --phases dist                      # one NCCL rank, two ranks
+    python3 chip_smoke.py --phases adam                      # the Adam kernel alone
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -222,6 +223,19 @@ CPU or to a plain version):
             256x256 LR image, chopped and --spatial_shard, against one
             process's chopped and plain forwards (0.01 dB, 1e-4 SSIM). It
             needs phases 2 and 4, which it then runs too.
+18. adam   - the Adam kernel (csrc/adam.cu, ops/adam.py) at dasr_srn's G
+            (RRDBNet nf 64 nb 23 gc 32, channels_last) and D (NLayer, 668,737
+            parameters), on real gradients of a bf16 forward and backward:
+            one step against torch.optim.Adam(capturable=True) on the same
+            gradients (params within 1e-3 x lr, moments 1e-6 relative, the
+            counts exact); the update of both networks captured in a CUDA
+            graph and timed by CUDA events and by the device trace (its
+            kernels' time and count), against its byte bound (28 bytes a
+            parameter at 3.35 TB/s) and in turns with torch's capturable
+            foreach Adam captured alike; the host's time to issue one eager
+            update of both against torch's (it fails if the kernel's is
+            longer, or if the kernel is not the faster on the card). Needs
+            phase 1, which it then runs too.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -4398,13 +4412,162 @@ def phase_dist(gpu, checked, checked_grad):
     return report
 
 
+def adam_grads(nets, seed):
+    """Each network's gradients of a seeded bf16 forward's weighted sum (G's
+    RDB kernels' as the backward kernels write them)."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    out = []
+    for net, shape in zip(nets, ((2, 3, 24, 24), (2, 9, 64, 64))):
+        x = torch.rand(shape, device="cuda", generator=gen, dtype=torch.bfloat16)
+        y = net(x.contiguous(memory_format=torch.channels_last)).float()
+        loss = (y * torch.randn(y.shape, device="cuda", generator=gen)).mean()
+        out.append(list(torch.autograd.grad(loss, list(net.parameters()))))
+    return out
+
+
+def graph_of(fn):
+    """``fn`` captured in a CUDA graph on a side stream after one eager
+    call; returns the replay."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    torch.cuda.synchronize()
+    return graph.replay
+
+
+def kernel_trace(fn, calls, names=None):
+    """(device ms a call summed over the kernels, kernels a call) of ``calls``
+    calls of ``fn`` by torch.profiler; ``names``: only kernels whose name
+    holds one of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and (names is None or any(n in e.name for n in names))]
+    total = sum(e.time_range.end - e.time_range.start for e in evs)
+    return total / calls / 1e3, len(evs) / calls
+
+
+def phase_adam(gpu):
+    import torch
+
+    from dasr_tpu_torch.nn.discriminators import NLayerDiscriminator
+    from dasr_tpu_torch.nn.generators import RRDBNet
+    from dasr_tpu_torch.ops import adam
+    from dasr_tpu_torch.train.schedules import multistep
+    from dasr_tpu_torch.train.state import net_state
+
+    print(f"adam: {gpu}; constants {adam.kernel_constants()}", flush=True)
+    torch.manual_seed(SEED)
+    nets = [RRDBNet(nf=NC, nb=NB, gc=GC, upscale=4, dtype=torch.bfloat16),
+            NLayerDiscriminator(in_ch=9, ndf=64, n_layers=2, norm_layer="Instance", stride=2,
+                                use_bias_middle=False)]
+    nets = [n.to("cuda", memory_format=torch.channels_last) for n in nets]
+    refs = [copy.deepcopy(n) for n in nets]
+    lr = 1e-4
+    states = [net_state(n, lr, 0.9, lambda opt: multistep(opt, (), 1.0)) for n in nets]
+    ref_opts = [torch.optim.Adam(r.parameters(), lr=torch.tensor(lr, device="cuda"),
+                                 betas=(0.9, 0.999), eps=1e-8, capturable=True) for r in refs]
+    grads = adam_grads(nets, SEED)
+    n_params = sum(p.numel() for n in nets for p in n.parameters())
+    n_tensors = sum(len(list(n.parameters())) for n in nets)
+    strided = sum(g.stride() != p.stride() for n, gs in zip(nets, grads)
+                  for p, g in zip(n.parameters(), gs))
+
+    def kernel_step():
+        for ns, gs in zip(states, grads):
+            ns.update(gs)
+
+    def torch_step():
+        for opt in ref_opts:
+            opt.step()
+
+    for ref, gs in zip(refs, grads):
+        for p, g in zip(ref.parameters(), gs):
+            p.grad = g.clone()
+    kernel_step()
+    torch_step()
+    torch.cuda.synchronize()
+    worst_p = worst_m = 0.0
+    for ns, ref, opt in zip(states, refs, ref_opts):
+        for p, pr in zip(ns.params(), ref.parameters()):
+            worst_p = max(worst_p, (p - pr).abs().max().item() / lr)
+            st, sr = ns.opt.state[p], opt.state[pr]
+            if float(st["step"]) != float(sr["step"]):
+                fail(f"adam: step count {float(st['step'])} != torch's {float(sr['step'])}")
+            for name in ("exp_avg", "exp_avg_sq"):
+                err = (st[name] - sr[name]).abs()
+                worst_m = max(worst_m, torch.where(err == 0, 0.0, err / sr[name].abs()).max()
+                              .item())
+    if worst_p > 1e-3 or worst_m > 1e-6:
+        fail(f"adam: the kernel's step is off torch's: params {worst_p:.3e} lr, moments "
+             f"{worst_m:.3e} relative")
+
+    host = {"kernel": [], "torch": []}
+    for _ in range(10):  # one eager update of both networks, issue time only
+        for what, fn in (("kernel", kernel_step), ("torch", torch_step),
+                         ("torch", torch_step), ("kernel", kernel_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host[what].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    host = {k: float(np.median(v)) for k, v in host.items()}
+
+    replay = {"kernel": graph_of(kernel_step), "torch": graph_of(torch_step)}
+    times = {"kernel": [], "torch": []}
+    for _ in range(3):
+        for what in ("kernel", "torch", "torch", "kernel"):
+            times[what].append(cuda_ms(replay[what], warmup=2, iters=20))
+    times = {k: float(np.median(v)) for k, v in times.items()}
+    traced = {"kernel": kernel_trace(replay["kernel"], 5, ("adam_update", "adam_count")),
+              "kernel_update": kernel_trace(replay["kernel"], 5, ("adam_update",)),
+              "torch": kernel_trace(replay["torch"], 5)}
+    bound = adam.bound_ms(n_params)
+    report = {
+        "tensors": n_tensors, "params": n_params, "strided_grads": strided,
+        "bound_ms": bound, "graph_ms": times, "roofline": bound / times["kernel"],
+        "trace_ms": {k: v[0] for k, v in traced.items()},
+        "trace_kernels": {k: v[1] for k, v in traced.items()},
+        "trace_roofline": bound / traced["kernel"][0],
+        "host_ms": host, "worst_param_over_lr": worst_p, "worst_moment_rel": worst_m,
+    }
+    print(f"adam (the kernel at dasr_srn's G + D, against torch's capturable Adam): "
+          f"{json.dumps(report)}", flush=True)
+    if times["kernel"] >= times["torch"]:
+        fail(f"adam: the kernel ({times['kernel']:.4f} ms) is not faster than torch's "
+             f"({times['torch']:.4f} ms)")
+    if host["kernel"] > host["torch"]:
+        fail(f"adam: one eager update takes the host {host['kernel']:.3f} ms, torch's "
+             f"{host['torch']:.3f} ms")
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive,paired,depatch,sft,lpips,ablation,dist",
+                            "adaptive,paired,depatch,sft,lpips,ablation,dist,adam",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
-                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,ablation,dist")
+                         "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,ablation,dist,"
+                         "adam")
     ap.add_argument("--dist_child", choices=("nccl", "pair"), default=None,
                     help=argparse.SUPPRESS)  # phase dist starts its children with it
     ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
@@ -4453,8 +4616,10 @@ def main(argv=None):
         phases.add("dataset")  # dsn_test reads stage 1's checkpoint and stage 2's outputs
     if "dataset" in phases:
         phases.add("dsn")  # stage 2 reads stage 1's checkpoint
-    if "build" in phases or "kernel" in phases or "grad" in phases:
+    if phases & {"build", "kernel", "grad", "adam"}:
         phase_build()
+    if "adam" in phases:
+        phase_adam(gpu)
     if "kernel" in phases:
         report, checked = phase_kernel(gpu)
         entry32.update(report.pop("f32"))

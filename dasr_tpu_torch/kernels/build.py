@@ -97,6 +97,14 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     for plan in (lib.dasr_rdb_wgmma_plan, lib.dasr_rdb_f32_plan):
         plan.argtypes = [i, i, ctypes.POINTER(i), i]
         plan.restype = i
+    lib.dasr_adam_count.argtypes = [vp, i, vp]
+    lib.dasr_adam_count.restype = i
+    dbl = ctypes.c_double
+    lib.dasr_adam_update.argtypes = [vp, vp, i, vp, i, vpp, ctypes.POINTER(ctypes.c_ubyte),
+                                     ctypes.POINTER(ctypes.c_uint), i, dbl, dbl, dbl, i, vp]
+    lib.dasr_adam_update.restype = i
+    lib.dasr_adam_plan.argtypes = [ctypes.POINTER(i), i]
+    lib.dasr_adam_plan.restype = i
     lib.dasr_cuda_error_string.argtypes = [i]
     lib.dasr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -12,6 +12,15 @@ step) and a host part (``NetState.advance``: the LR schedule). On CUDA the
 Adam is ``capturable`` and its LR a 0-d device tensor, so a CUDA graph of
 the device part (``train/step_graph.py``) reads Adam's count and each
 step's LR on the card, and ``advance`` writes the LR between replays.
+
+Adam's step takes two paths, by the parameters' device. On the card it is
+the hand-written kernel of ``ops/adam.py`` (one pass over p, g, m and v,
+each gradient read through its own strides), driven by the plan kept in
+``NetState.plan``; ``torch.optim.Adam`` stays the holder of the moments,
+the counts and the param group the schedulers read. On the CPU it is
+``self.opt.step()``. The counters ``adam.kernel_tensors``,
+``adam.torch_tensors`` and ``adam.launches`` (``utils/trace.py``) say which
+path updated how many tensors.
 """
 
 from __future__ import annotations
@@ -23,18 +32,22 @@ import torch
 import torch.nn as nn
 
 from dasr_tpu_torch.core import dist
+from dasr_tpu_torch.ops import adam
 from dasr_tpu_torch.train.schedules import multistep
+from dasr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
 class NetState:
     """One network with its optimizer and LR scheduler; ``lr``: the Adam's
-    LR tensor where it is capturable (CUDA), else None."""
+    LR tensor where it is capturable (CUDA), else None; ``plan``: the Adam
+    kernel's plan on the card, made by the first update there."""
 
     net: nn.Module
     opt: torch.optim.Optimizer
     sched: torch.optim.lr_scheduler.LRScheduler
     lr: Optional[torch.Tensor] = None
+    plan: Optional[adam.AdamPlan] = dataclasses.field(default=None, repr=False, compare=False)
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """Apply ``grads`` (one per trainable parameter, in order), averaged
@@ -43,13 +56,26 @@ class NetState:
         self.advance()
 
     def update(self, grads: Sequence[torch.Tensor]) -> None:
-        """The device part of ``step``: the averaged gradients into
-        ``p.grad``, Adam's step. It changes no host state that a later step
+        """The device part of ``step``: Adam's step on the averaged
+        gradients; on the card the Adam kernel (``ops/adam.py``), which
+        reads each gradient where it lies, elsewhere ``torch.optim.Adam``
+        through ``p.grad``. It changes no host state that a later step
         reads, so a CUDA graph can capture it."""
-        for p, g in zip(self.params(), dist.average_grads(grads)):
+        grads = dist.average_grads(grads)
+        params = self.params()
+        if params and params[0].is_cuda:
+            self.plan = adam.plan_for(self.opt, params, self.plan)
+            trace.count("adam.launches", self.plan.step(grads))
+            trace.count("adam.kernel_tensors", len(params))
+            # what torch's own step sets, so that the first schedule step
+            # does not warn of a schedule stepped before its optimizer
+            self.opt._opt_called = True
+            return
+        for p, g in zip(params, grads):
             p.grad = g
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
+        trace.count("adam.torch_tensors", len(params))
 
     def advance(self) -> None:
         """The host part of ``step``: the schedule's next LR, written into
@@ -68,13 +94,15 @@ class NetState:
 
     def tensors(self) -> Iterator[torch.Tensor]:
         """Every tensor an update reads or writes: the network's parameters
-        and buffers, Adam's state, the LR tensor."""
+        and buffers, Adam's state, the LR tensor, the Adam kernel's table."""
         yield from self.net.parameters()
         yield from self.net.buffers()
         for state in self.opt.state.values():
             yield from (v for v in state.values() if isinstance(v, torch.Tensor))
         if self.lr is not None:
             yield self.lr
+        if self.plan is not None and self.plan.device_table is not None:
+            yield self.plan.device_table
 
 
 def _set_lr(group, lr: Optional[torch.Tensor], value) -> None:

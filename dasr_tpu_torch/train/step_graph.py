@@ -25,9 +25,10 @@ on the device.
 * The graph's outputs (the metrics) live in its pool and the next replay
   overwrites them, so a window returns clones of its last step's.
 * The RDB kernels' counts (``ops/rdb.py:fused_rdb``: forward and backward
-  launches, backward calls) count at Python call time, which a replay
-  skips: each replay adds the counts its capture recorded, and the capture
-  itself adds none.
+  launches, backward calls) and the Adam step's (``adam.kernel_tensors``,
+  ``adam.torch_tensors``, ``adam.launches``: ``train/state.py``) count at
+  Python call time, which a replay skips: each replay adds the counts its
+  capture recorded, and the capture itself adds none.
 * The graph bakes in the addresses of the parameters, Adam's state, the LR
   tensors and the banks. Loading a train state replaces Adam's state
   tensors, so a key is captured again when any of those addresses moved
@@ -56,6 +57,7 @@ from dasr_tpu_torch.ops.rdb import fused_rdb
 from dasr_tpu_torch.utils import trace
 
 _COUNTS = ("launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")
+_PROGRAM_COUNTS = ("adam.kernel_tensors", "adam.torch_tensors", "adam.launches")
 
 
 def replays_on(device: torch.device) -> bool:
@@ -109,9 +111,9 @@ def _fingerprint(tensors: Iterable[torch.Tensor]):
 
 
 class _Graph:
-    def __init__(self, replay, static, fingerprint, launches):
+    def __init__(self, replay, static, fingerprint, launches, counts):
         self.replay, self.static = replay, static
-        self.fingerprint, self.launches = fingerprint, launches
+        self.fingerprint, self.launches, self.counts = fingerprint, launches, counts
 
 
 class StepGraphs:
@@ -176,6 +178,8 @@ class StepGraphs:
             trace.count("graph.replays")
             for name, n in zip(_COUNTS, graph.launches):
                 setattr(fused_rdb, name, getattr(fused_rdb, name) + n)
+            for name, n in zip(_PROGRAM_COUNTS, graph.counts):
+                trace.count(name, n)
             with trace.span("graph.host_step", i):
                 host_step()
             replayed = True
@@ -184,12 +188,20 @@ class StepGraphs:
     def _capture(self, key, step, args, tensors) -> _Graph:
         static = _static_like(args)
         before = tuple(getattr(fused_rdb, name) for name in _COUNTS)
+        before_counts = trace.counters()
         replay = self.capture(step, static, self._stream)
         launches = tuple(getattr(fused_rdb, name) - n for name, n in zip(_COUNTS, before))
         for name, n in zip(_COUNTS, before):
             setattr(fused_rdb, name, n)
+        after_counts = trace.counters()
+        counts = tuple(after_counts.get(name, 0) - before_counts.get(name, 0)
+                       for name in _PROGRAM_COUNTS)
+        for name, n in zip(_PROGRAM_COUNTS, counts):
+            if n:
+                trace.count(name, -n)
         trace.count("graph.captures")
         if key in self._graphs:
             trace.count("graph.recaptures")
-        graph = self._graphs[key] = _Graph(replay, static, _fingerprint(tensors()), launches)
+        graph = self._graphs[key] = _Graph(replay, static, _fingerprint(tensors()), launches,
+                                           counts)
         return graph

@@ -13,7 +13,10 @@
   device trace without a profiler annotation of its own.
 * **Counters** (``count(name, n)``): integers, always on, one dict add a
   call; ``counters()`` is a copy, with the RDB kernel's launch counts read
-  from ``ops/rdb.py:fused_rdb``'s attributes, where they are kept.
+  from ``ops/rdb.py:fused_rdb``'s attributes, where they are kept. The Adam
+  step counts ``adam.kernel_tensors`` (tensors updated by the kernel of
+  ``ops/adam.py``), ``adam.torch_tensors`` (by ``torch.optim.Adam``) and
+  ``adam.launches`` (the kernel's launches) in ``NetState.update``.
 * **Device phases** (``phase(name)``, ``end_phases()``, ``phase_ms()``):
   marks of where each part of a train step starts on the current stream,
   made only while tracing is on. In a process that has initialised CUDA a

@@ -10,7 +10,8 @@ patch D's Adam step), which tests/test_torch_banked_step.py holds against
 the LR a tensor-LR ``NetState`` is given each step equals the float
 ``LambdaLR``'s across a multistep milestone and a ``dsn_linear_decay``
 step; a window's metrics do not change when the next window runs; a
-replay is credited with the kernel launches its capture recorded; with
+replay is credited with the kernel launches and the Adam counts its
+capture recorded; with
 tracing on, each step's host work is a span of its step's id, and the
 captures, recaptures and replays are counted (``utils/trace.py``)."""
 
@@ -291,6 +292,27 @@ def test_replayed_steps_are_spans_of_their_step(srn_banks, tracing):
     assert all(s.parent is None and s.start_ns <= s.end_ns for s in spans)
     got = trace.counters()
     assert got["graph.captures"] - captures == 1 and got["graph.replays"] - replays == 4
+
+
+def test_replay_is_credited_with_its_captures_adam_counts(tracing):
+    """A stub step that counts an Adam update as ``NetState.update`` does
+    (``adam.kernel_tensors``, ``adam.launches``): the warm-up counts it, the
+    capture nets 0, each replay counts it again."""
+    names = ("adam.kernel_tensors", "adam.torch_tensors", "adam.launches")
+    per_step = (702, 0, 2)
+
+    def step(x):
+        for name, n in zip(names, per_step):
+            trace.count(name, n)
+        return {"m": x.sum()}
+
+    graphs = step_graph.StepGraphs("cpu", capture=recording_capture)
+    before = trace.counters()
+    xs = [(torch.full((2,), float(i)),) for i in range(4)]
+    graphs.window("k", lambda: [], step, iter(xs), lambda: None)
+    got = trace.counters()
+    assert [got.get(name, 0) - before.get(name, 0) for name in names] == [
+        4 * n for n in per_step]
 
 
 def test_state_moved_under_the_graph_is_captured_again(srn_banks):
