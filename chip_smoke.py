@@ -1871,10 +1871,23 @@ GRAPH_K = 8  # the replay checks' windows: the CLIs' --steps_per_call
 BF16_STEP_LIMITS = {"loss": (3e-3, 2.0**-7), "update": 5e-2, "moment": 1e-2}
 
 
+def looped(tr, *args):
+    """``tr.train_banked_step(*args)`` by the eager loop (a ``StepGraphs``
+    without a capture), the plain version the replayed window is held
+    against; ``tr`` keeps its captured steps."""
+    from dasr_tpu_torch.train.step_graph import StepGraphs
+
+    graphs, tr.graphs = tr.graphs, StepGraphs(tr.device, capture=None)
+    try:
+        return tr.train_banked_step(*args)
+    finally:
+        tr.graphs = graphs
+
+
 def replay_check(what, make, window, windows, limits, ckpt_dir, gpu):
     """Two windows of GRAPH_K steps from one seeded state, replayed from the
     step's CUDA graph (``train_banked_step``) and by the eager loop
-    (``train_banked_step_eager``), then a run resumed from a train state
+    (``looped``), then a run resumed from a train state
     saved at the window boundary against the straight replayed run: each
     window's last losses, and each network's params and Adam's first
     moments, within ``limits`` ({"loss": (atol, rtol), "update", "moment"}).
@@ -2145,8 +2158,8 @@ def phase_bank(gpu, root, checked, checked_grad):
         return make
 
     def dasr_window(tr, eager, start, rows):
-        run = tr.train_banked_step_eager if eager else tr.train_banked_step
-        return run(dasr_banks, rows, start, 128)
+        args = (dasr_banks, rows, start, 128)
+        return looped(tr, *args) if eager else tr.train_banked_step(*args)
 
     def dsn_trainer(*extra):
         dsn_opt = dsn_train.build_argparser().parse_args(dsn_argv(base, dsn_dirs, *extra))
@@ -2161,8 +2174,8 @@ def phase_bank(gpu, root, checked, checked_grad):
     make_dsn, dsn_opt = dsn_trainer()
 
     def dsn_window(tr, eager, start, rows):
-        run = tr.train_banked_step_eager if eager else tr.train_banked_step
-        return run(*dsn_banks, rows, start, dsn_opt.crop_size, dsn_opt.flips, dsn_opt.rotations)
+        args = (*dsn_banks, rows, start, dsn_opt.crop_size, dsn_opt.flips, dsn_opt.rotations)
+        return looped(tr, *args) if eager else tr.train_banked_step(*args)
 
     f32_limits = {"loss": (atol, rtol), "update": utol, "moment": mtol}
     t0 = time.perf_counter()
@@ -2202,11 +2215,10 @@ def phase_bank(gpu, root, checked, checked_grad):
     # each eager step of ~16k ops (eight of them took 200.89 s on the H100's host)
     srn = time_arms("dasr step", {
         "host loader": lambda: [tr.train_step(model._to_device(b)) for b in batches],
-        "bank eager": lambda: tr.train_banked_step_eager(model._banks, rows, 0, 128),
+        "bank eager": lambda: looped(tr, model._banks, rows, 0, 128),
         "bank replayed": lambda: model.train_banked_window_async(window, 0)}, BANK_K, gpu,
         profiled={"host loader": (lambda: tr.train_step(model._to_device(batches[0])), 1),
-                  "bank eager": (lambda: tr.train_banked_step_eager(model._banks, rows[:1], 0,
-                                                                    128), 1),
+                  "bank eager": (lambda: looped(tr, model._banks, rows[:1], 0, 128), 1),
                   "bank replayed": (lambda: model.train_banked_window_async(window[:2], 0), 2)})
     print(f"dasr step bank replayed: capture {srn['bank replayed']['capture_s']} s (once a "
           f"key; the warm-up step before it is a real step) [{gpu}]", flush=True)
@@ -2225,7 +2237,7 @@ def phase_bank(gpu, root, checked, checked_grad):
     nwin = torch.from_numpy(np.stack(bank.epoch_rows(SEED, 1, 48, 8)[:DSN_BANK_K])).to(dev)
     dsn = time_arms("dsn step", {
         "host loader": lambda: [trainer.train_step(dsn_train.to_device(b, dev)) for b in batches],
-        "bank eager": lambda: trainer.train_banked_step_eager(clean, noisy, nwin, 0, 256),
+        "bank eager": lambda: looped(trainer, clean, noisy, nwin, 0, 256),
         "bank replayed": lambda: trainer.train_banked_step(clean, noisy, nwin, 0, 256)},
         DSN_BANK_K, gpu)
     print(f"dsn step bank replayed: capture {dsn['bank replayed']['capture_s']} s [{gpu}]",

@@ -240,7 +240,10 @@ def draw_dasr(gen: torch.Generator, b: int, n_real: int, n_hr: int) -> DasrDraws
 
 def shard_draws(draws, rows: slice):
     """The draws of items ``rows`` of a batch's (a rank's share of the global
-    row's draws)."""
+    row's draws); ``draws`` itself where ``rows`` is the whole batch (one
+    rank), so a replayed step's inputs cost no views."""
+    if rows == slice(0, draws[0].shape[0]):
+        return draws
     return type(draws)(*(t[rows] for t in draws))
 
 

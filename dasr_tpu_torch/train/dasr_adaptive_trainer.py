@@ -21,15 +21,14 @@ DASR step (``train/srn_trainer.py``, whose ``_gan_step`` it shares):
 
 ``train_banked_step`` is the DASR trainer's: the device-bank window draws
 and gathers its batches by the same law, with no DDM bank (the gather's
-all-ones ``fake_w`` is unused here). On CUDA in a world of one rank without
-a process group each step is replayed from a CUDA graph of ``device_step``
-(the patch D's forward, with ``use_patchD_opt`` its gradient and capturable
-Adam step, the resize, then the DASR step's device part), whose tensors
-include the patch D's and its Adam's (``graph_tensors``); elsewhere it is
-the eager loop. ``host_step`` adds the patch D's LR schedule where it
-steps. With tracing on, the online DDM is the device phase ``ddm``, from
-the patch D's forward through the resize, between the banked step's
-``batch`` and ``g_forward``.
+all-ones ``fake_w`` is unused here), and ``train/step_graph.py`` replays it
+from a CUDA graph of ``device_step`` (the patch D's forward, with
+``use_patchD_opt`` its gradient and Adam step, the resize, then the DASR
+step's device part) or loops it, as it does the DASR step. The captured
+tensors include the patch D's and its Adam's (``graph_tensors``);
+``host_step`` adds the patch D's LR schedule where it steps. With tracing
+on, the online DDM is the device phase ``ddm``, from the patch D's forward
+through the resize, between the banked step's ``batch`` and ``g_forward``.
 """
 
 from __future__ import annotations

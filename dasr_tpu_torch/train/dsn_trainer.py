@@ -28,11 +28,11 @@ target is computed in the step (``ops.resize.imresize``).
 ``train_step`` with no sync, and ``train_banked_step`` K steps on batches
 drawn and gathered on the device from the clean and noisy banks
 (``data/device_bank.py``), uint8 crops cast and the bicubic computed in the
-step. The JAX package scans the banked window; here, on CUDA in a world of
-one rank without a process group, each of its steps is replayed from a
-CUDA graph of ``device_step`` (``train/step_graph.py``), and elsewhere, and
-as the plain version, it is ``train_banked_step_eager``, a loop of
-``train_step``.
+step. The JAX package scans the banked window; here the window is
+``train/step_graph.py:StepGraphs.window``, which replays each step from a
+CUDA graph of ``device_step`` on CUDA in a world of one rank without a
+process group, and elsewhere, and as the plain version, loops
+``device_step`` and ``host_step``.
 
 In a world of several ranks (``core/dist.py``) each rank steps on its rows
 of the global batch: the RaGAN batch mean (``FSDiscriminator``), the
@@ -293,42 +293,14 @@ class DSNTrainer:
         device, each on a batch drawn and gathered there (``draw_dsn``,
         ``gather_dsn``); ``seed``: the window's first iteration. The last
         step's metrics, unsynchronised (counterpart of
-        ``DSNTrainer.train_banked_step``). Replayed from a CUDA graph where
-        ``step_graph.replays_on`` the banks' device, else the eager loop."""
-        args = (clean, noisy, noisy_idx, seed, crop, flips, rotations, do_g, do_d)
-        if step_graph.replays_on(noisy_idx.device):
-            return self.train_banked_step_graphed(*args)
-        return self.train_banked_step_eager(*args)
-
-    def train_banked_step_eager(self, clean: ImageBank, noisy: ImageBank,
-                                noisy_idx: torch.Tensor, seed: int, crop: int,
-                                flips: bool = False, rotations: bool = False, do_g: bool = True,
-                                do_d: bool = True) -> Dict[str, torch.Tensor]:
-        """``train_banked_step`` as a Python loop of ``train_step``: the
-        plain version, and the path of several ranks."""
-        gen = window_generator(self.cfg.seed, seed, self.device)
-        world = dist.current()
-        metrics = {}
-        for row in noisy_idx:
-            # the global row's draws, then this rank's items of it
-            sl = world.batch_slice(row.shape[0])
-            draws = shard_draws(draw_dsn(gen, row.shape[0], clean.data.shape[0]), sl)
-            trace.phase("batch")
-            batch = gather_dsn(clean, noisy, row[sl], draws, crop, self.cfg.upscale_factor,
-                               flips, rotations)
-            metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
-                                      do_g=do_g, do_d=do_d)
-        return metrics
-
-    def train_banked_step_graphed(self, clean: ImageBank, noisy: ImageBank,
-                                  noisy_idx: torch.Tensor, seed: int, crop: int,
-                                  flips: bool = False, rotations: bool = False,
-                                  do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
-        """``train_banked_step`` through ``self.graphs``: the draws and the
-        WGAN-GP draws stay eager, the gather and ``device_step`` are the
-        graph. One rank."""
+        ``DSNTrainer.train_banked_step``). ``self.graphs`` runs the window,
+        replayed or looped; the draws and the WGAN-GP draws are its per-step
+        inputs. Every rank draws for the global row and gathers its own rows
+        of it (``World.batch_slice``)."""
         c = self.cfg
         gen = window_generator(c.seed, seed, self.device)
+        batch_size = noisy_idx.shape[1]
+        rows = dist.current().batch_slice(batch_size)
 
         def step(row, draws, alpha):
             trace.phase("batch")
@@ -338,8 +310,8 @@ class DSNTrainer:
                                     do_g, do_d, alpha)
 
         def inputs():
-            for row in noisy_idx:
-                draws = draw_dsn(gen, row.shape[0], clean.data.shape[0])
+            for row in noisy_idx[:, rows]:
+                draws = shard_draws(draw_dsn(gen, batch_size, clean.data.shape[0]), rows)
                 yield row, draws, self.gp_alpha(row.shape[0]) if c.wgan else None
 
         def tensors():
@@ -351,7 +323,7 @@ class DSNTrainer:
                 yield from self.lpips.buffers()
             yield from (*clean, *noisy)
 
-        key = ("dsn", noisy_idx.shape[1], crop, flips, rotations, c.dtype, do_g, do_d)
+        key = ("dsn", batch_size, crop, flips, rotations, c.dtype, do_g, do_d)
         return self.graphs.window(key, tensors, step, inputs(),
                                   lambda: self.host_step(do_g, do_d), self.state.step)
 

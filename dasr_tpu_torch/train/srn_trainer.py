@@ -26,13 +26,13 @@ on, ``gan_H_target`` is applied twice on the G side (:240-247).
 ``train_banked_step`` runs a window of K steps on batches sampled on the
 device from the stage-3 banks (``data/device_bank.py``), no sync, the
 generator seeded from (``cfg.seed``, the window's first iteration), as the
-JAX package folds the window into its key. On CUDA in a world of one rank
-without a process group each step is replayed from a CUDA graph of
-``device_step`` (``train/step_graph.py``), the counterpart of JAX's ``jit``
-over ``lax.scan``; elsewhere, and as the plain version the card is held
-against, it is ``train_banked_step_eager``, a Python loop of
-``train_step``. A window of host batches is the facade's loop of
-``train_step`` (``models/registry.py:DASRModel.train_multi_step``).
+JAX package folds the window into its key. It hands the step's parts to
+``train/step_graph.py:StepGraphs.window``, which replays each step from a
+CUDA graph of ``device_step`` on CUDA in a world of one rank without a
+process group (the counterpart of JAX's ``jit`` over ``lax.scan``) and
+elsewhere, and as the plain version the card is held against, loops
+``device_step`` and ``host_step``. A window of host batches is the facade's
+loop of ``train_step`` (``models/registry.py:DASRModel.train_multi_step``).
 
 In a world of several ranks (``core/dist.py``) each rank steps on its rows
 of the global batch: the RaGAN batch means and the metrics are the global
@@ -118,7 +118,7 @@ class SRNTrainer:
     step. ``lpips`` / ``vgg``: frozen feature nets to use instead of the
     seeded defaults (the tests pass the JAX package's, carried across)."""
 
-    # the name of the captured step in its key (``train_banked_step_graphed``)
+    # the name of the captured step in its key (``train_banked_step``)
     graph_name = "dasr"
 
     def __init__(self, cfg: SRNConfig, device: torch.device = torch.device("cpu"),
@@ -328,42 +328,6 @@ class SRNTrainer:
         trace.end_phases()
         return out
 
-    def train_banked_step(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
-                          hr_size: int, use_flip: bool = True, use_rot: bool = True,
-                          do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
-        """K steps over a (K, B) window of fake-LR indices on the banks'
-        device, each on a batch drawn and gathered there (``draw_dasr``,
-        ``gather_dasr``); ``seed``: the window's first iteration. Returns the
-        last step's metrics as device tensors, unsynchronised (counterpart of
-        ``SRNTrainer.train_banked_step``). Replayed from a CUDA graph where
-        ``step_graph.replays_on`` the banks' device, else the eager loop."""
-        args = (banks, fake_idx, seed, hr_size, use_flip, use_rot, do_g, do_d)
-        if step_graph.replays_on(fake_idx.device):
-            return self.train_banked_step_graphed(*args)
-        return self.train_banked_step_eager(*args)
-
-    def train_banked_step_eager(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
-                                hr_size: int, use_flip: bool = True, use_rot: bool = True,
-                                do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
-        """``train_banked_step`` as a Python loop of ``train_step``: the
-        plain version. In a world of several ranks every rank draws for the
-        global row, from the same generator, and gathers its own rows of it
-        (``World.batch_slice``)."""
-        gen = window_generator(self.cfg.seed, seed, self.device)
-        n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
-        world = dist.current()
-        metrics = {}
-        for row in fake_idx:
-            # the global row's draws, then this rank's items of it
-            sl = world.batch_slice(row.shape[0])
-            draws = shard_draws(draw_dasr(gen, row.shape[0], n_real, n_hr), sl)
-            trace.phase("batch")
-            batch = gather_dasr(banks, row[sl], draws, hr_size, self.cfg.scale, use_flip,
-                                use_rot)
-            metrics = self.train_step({k: v.permute(0, 3, 1, 2) for k, v in batch.items()},
-                                      do_g=do_g, do_d=do_d)
-        return metrics
-
     def graph_tensors(self) -> Iterator[torch.Tensor]:
         """Every tensor of the trainer whose address a captured step bakes in:
         each network's parameters, buffers, Adam state and LR tensor, and the
@@ -377,17 +341,23 @@ class SRNTrainer:
                 yield from m.parameters()
                 yield from m.buffers()
 
-    def train_banked_step_graphed(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
-                                  hr_size: int, use_flip: bool = True, use_rot: bool = True,
-                                  do_g: bool = True,
-                                  do_d: bool = True) -> Dict[str, torch.Tensor]:
-        """``train_banked_step`` through ``self.graphs``: the draws stay
-        eager, the gather and ``device_step`` are the graph, keyed by
-        ``graph_name``; ``graph_tensors`` and the banks are the tensors it
-        bakes in. One rank."""
+    def train_banked_step(self, banks: SrnBanks, fake_idx: torch.Tensor, seed: int,
+                          hr_size: int, use_flip: bool = True, use_rot: bool = True,
+                          do_g: bool = True, do_d: bool = True) -> Dict[str, torch.Tensor]:
+        """K steps over a (K, B) window of fake-LR indices on the banks'
+        device, each on a batch drawn and gathered there (``draw_dasr``,
+        ``gather_dasr``); ``seed``: the window's first iteration. Returns the
+        last step's metrics as device tensors, unsynchronised (counterpart of
+        ``SRNTrainer.train_banked_step``). ``self.graphs`` runs the window,
+        replayed or looped, keyed by ``graph_name``; ``graph_tensors`` and
+        the banks are the tensors a capture bakes in. Every rank draws for
+        the global row, from the same generator, and gathers its own rows of
+        it (``World.batch_slice``)."""
         c = self.cfg
         gen = window_generator(c.seed, seed, self.device)
         n_real, n_hr = banks.real.data.shape[0], banks.hr.data.shape[0]
+        batch_size = fake_idx.shape[1]
+        rows = dist.current().batch_slice(batch_size)
 
         def step(row, draws):
             trace.phase("batch")
@@ -401,11 +371,11 @@ class SRNTrainer:
                 if b is not None:
                     yield from b
 
-        key = (self.graph_name, fake_idx.shape[1], hr_size, use_flip, use_rot, c.dtype, do_g,
-               do_d)
+        key = (self.graph_name, batch_size, hr_size, use_flip, use_rot, c.dtype, do_g, do_d)
         return self.graphs.window(
             key, tensors, step,
-            ((row, draw_dasr(gen, row.shape[0], n_real, n_hr)) for row in fake_idx),
+            ((row, shard_draws(draw_dasr(gen, batch_size, n_real, n_hr), rows))
+             for row in fake_idx[:, rows]),
             lambda: self.host_step(do_g, do_d), self.state.step)
 
     # -- inference ----------------------------------------------------------------

@@ -1,20 +1,24 @@
-"""A train step captured once as a CUDA graph and replayed once a step.
+"""A banked train window, each step replayed from a CUDA graph or looped.
 
 Counterpart of the compiled window of the JAX package's banked trainers
 (``dasr_tpu.train.srn_trainer._train_banked``, ``dsn_trainer.py:310-341``:
 ``jax.jit`` over ``lax.scan`` of the step, so that a K-step window costs one
-dispatch). Here the graph plays the part of the scan's body: the step's
-device work (the gather from the banks, the forward, the gradients, Adam)
-is captured once and each step of a window is one replay, where the eager
-loop issues some 16k ops from Python. One graph serves any window length.
+dispatch). A trainer hands ``StepGraphs.window`` its step, per-step inputs
+and host step. Where ``replays_on`` the device the graph plays the part of
+the scan's body: the step's device work (the gather from the banks, the
+forward, the gradients, Adam) is captured once and each step of a window is
+one replay, where the eager loop issues some 16k ops from Python. One graph
+serves any window length. Elsewhere (the CPU, torchrun) the window is a
+Python loop of the step and the host step: the plain version the card is
+held against.
 
 What changes from step to step is small and is written into the graph's
 static input buffers, outside the graph, before each replay: the index row
 and the draws (made eagerly on the window's generator, in the eager loop's
 order, so the random stream is bit for bit the loop's), and the DSN's
 WGAN-GP mixing draws. Each network's LR is a device tensor that
-``NetState.advance`` writes between replays; Adam is capturable, its count
-on the device.
+``NetState.advance`` writes between replays; Adam's step is the kernel of
+``ops/adam.py``, its count on the device.
 
 * Warm-up: the first step of a key runs eagerly on the capture stream. It
   is a real step of the run (counted, scheduled), and it is where Adam
@@ -24,23 +28,22 @@ on the device.
   loop on the card.
 * The graph's outputs (the metrics) live in its pool and the next replay
   overwrites them, so a window returns clones of its last step's.
-* The RDB kernels' counts (``ops/rdb.py:fused_rdb``: forward and backward
-  launches, backward calls) and the Adam step's (``adam.kernel_tensors``,
-  ``adam.torch_tensors``, ``adam.launches``: ``train/state.py``) count at
-  Python call time, which a replay skips: each replay adds the counts its
-  capture recorded, and the capture itself adds none.
+* The kernels' and the Adam step's counters (``utils/trace.py``) count at
+  Python call time, which a replay skips. The capture's change of
+  ``trace.counters()`` is kept by name, taken back (a capture adds none)
+  and credited again on every replay, whatever counters the step keeps.
 * The graph bakes in the addresses of the parameters, Adam's state, the LR
   tensors and the banks. Loading a train state replaces Adam's state
   tensors, so a key is captured again when any of those addresses moved
   (counted as ``graph.recaptures``, beside ``graph.captures`` and
-  ``graph.replays``: ``utils/trace.py``).
-* With tracing on, each step's host work is a span of the step's id:
-  ``graph.draw`` (taking the next item of ``inputs``: the eager draws),
+  ``graph.replays``).
+* With tracing on, each replayed step's host work is a span of the step's
+  id: ``graph.draw`` (taking the next item of ``inputs``: the eager draws),
   ``graph.stage`` (the copies into the static buffers), ``graph.replay``
   (``replay()``, which waits while the launch queue is full),
   ``graph.host_step``, and once a key ``graph.warmup`` and
   ``graph.capture``. A step captured with tracing on also carries the
-  trainer's device phase marks.
+  trainer's device phase marks. The eager loop records no span of its own.
 """
 
 from __future__ import annotations
@@ -53,11 +56,7 @@ from typing import Callable, Dict, Hashable, Iterable, Optional
 import torch
 
 from dasr_tpu_torch.core import dist
-from dasr_tpu_torch.ops.rdb import fused_rdb
 from dasr_tpu_torch.utils import trace
-
-_COUNTS = ("launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")
-_PROGRAM_COUNTS = ("adam.kernel_tensors", "adam.torch_tensors", "adam.launches")
 
 
 def replays_on(device: torch.device) -> bool:
@@ -111,20 +110,28 @@ def _fingerprint(tensors: Iterable[torch.Tensor]):
 
 
 class _Graph:
-    def __init__(self, replay, static, fingerprint, launches, counts):
-        self.replay, self.static = replay, static
-        self.fingerprint, self.launches, self.counts = fingerprint, launches, counts
+    def __init__(self, replay, static, fingerprint, credit):
+        self.replay, self.static, self.fingerprint = replay, static, fingerprint
+        self.credit = credit  # the (name, n) a replay adds: its capture's, one graph.replays
 
 
 class StepGraphs:
     """One trainer's captured steps, by static key. ``capture``: how a step
-    is captured (``cuda_capture``; the CPU tests pass an eager stand-in)."""
+    is captured: ``cuda_capture``, which replays where ``replays_on`` the
+    device and loops elsewhere; a stand-in, which always replays (the CPU
+    tests'); None, the eager loop everywhere (the reference the card tests
+    hold the replay against)."""
 
-    def __init__(self, device: torch.device, capture: Callable = cuda_capture):
+    def __init__(self, device: torch.device, capture: Optional[Callable] = cuda_capture):
         self.device = torch.device(device)
         self.capture = capture
         self._graphs: Dict[Hashable, _Graph] = {}
         self._stream: Optional[torch.cuda.Stream] = None
+
+    def _replays(self) -> bool:
+        if self.capture is cuda_capture:
+            return replays_on(self.device)
+        return self.capture is not None
 
     def _on_stream(self):
         if self.device.type != "cuda":
@@ -141,17 +148,23 @@ class StepGraphs:
                first: int = 0):
         """Run one step per item of ``inputs`` (each a tuple of the step's
         per-step tensors, made when the item is taken): ``step(*item)``, the
-        device part, then ``host_step()``. The first step of a new ``key``
-        runs eagerly and is then captured; every later one writes its item
-        into the static inputs and replays. ``tensors()``: every tensor
-        whose address the step bakes in; ``first``: the id of the window's
-        first step (the trainer's ``state.step``), the spans' ids. Returns
-        the last step's outputs (a dict of tensors) as tensors of their
-        own."""
+        device part, then ``host_step()``. Where the window replays, the
+        first step of a new ``key`` runs eagerly and is then captured; every
+        later one writes its item into the static inputs and replays.
+        ``tensors()``: every tensor whose address the step bakes in;
+        ``first``: the id of the window's first step (the trainer's
+        ``state.step``), the spans' ids. Returns the last step's outputs (a
+        dict of tensors) as tensors of their own."""
+        out = {}
+        if not self._replays():
+            for args in inputs:
+                out = step(*args)
+                host_step()
+            return out
         graph = self._graphs.get(key)
         if graph is not None and graph.fingerprint != _fingerprint(tensors()):
             graph = None  # a train state was loaded under it
-        out, replayed = None, False
+        replayed = False
         items = iter(inputs)
         for i in itertools.count(first):
             with trace.span("graph.draw", i):
@@ -175,11 +188,7 @@ class StepGraphs:
                     buf.copy_(value)
             with trace.span("graph.replay", i):
                 out = graph.replay()
-            trace.count("graph.replays")
-            for name, n in zip(_COUNTS, graph.launches):
-                setattr(fused_rdb, name, getattr(fused_rdb, name) + n)
-            for name, n in zip(_PROGRAM_COUNTS, graph.counts):
-                trace.count(name, n)
+            trace.credit(graph.credit)
             with trace.span("graph.host_step", i):
                 host_step()
             replayed = True
@@ -187,21 +196,14 @@ class StepGraphs:
 
     def _capture(self, key, step, args, tensors) -> _Graph:
         static = _static_like(args)
-        before = tuple(getattr(fused_rdb, name) for name in _COUNTS)
-        before_counts = trace.counters()
+        before = trace.counters()
         replay = self.capture(step, static, self._stream)
-        launches = tuple(getattr(fused_rdb, name) - n for name, n in zip(_COUNTS, before))
-        for name, n in zip(_COUNTS, before):
-            setattr(fused_rdb, name, n)
-        after_counts = trace.counters()
-        counts = tuple(after_counts.get(name, 0) - before_counts.get(name, 0)
-                       for name in _PROGRAM_COUNTS)
-        for name, n in zip(_PROGRAM_COUNTS, counts):
-            if n:
-                trace.count(name, -n)
+        counted = tuple((name, n - before.get(name, 0)) for name, n in trace.counters().items()
+                        if n != before.get(name, 0))
+        trace.credit((name, -n) for name, n in counted)
         trace.count("graph.captures")
         if key in self._graphs:
             trace.count("graph.recaptures")
-        graph = self._graphs[key] = _Graph(replay, static, _fingerprint(tensors()), launches,
-                                           counts)
+        graph = self._graphs[key] = _Graph(replay, static, _fingerprint(tensors()),
+                                           counted + (("graph.replays", 1),))
         return graph

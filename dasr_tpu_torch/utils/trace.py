@@ -13,7 +13,8 @@
   device trace without a profiler annotation of its own.
 * **Counters** (``count(name, n)``): integers, always on, one dict add a
   call; ``counters()`` is a copy, with the RDB kernel's launch counts read
-  from ``ops/rdb.py:fused_rdb``'s attributes, where they are kept. The Adam
+  from ``ops/rdb.py:fused_rdb``'s attributes, where they are kept;
+  ``credit`` adds a ``(name, n)`` delta to either store. The Adam
   step counts ``adam.kernel_tensors`` (tensors updated by the kernel of
   ``ops/adam.py``), ``adam.torch_tensors`` (by ``torch.optim.Adam``) and
   ``adam.launches`` (the kernel's launches) in ``NetState.update``.
@@ -37,7 +38,7 @@ import json
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 
 class Span(NamedTuple):
@@ -121,6 +122,20 @@ def counters() -> Dict[str, int]:
 
     return dict(_counts, **{f"fused_rdb.{name}": getattr(fused_rdb, name) for name in (
         "launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")})
+
+
+def credit(counts: Iterable[Tuple[str, int]]) -> None:
+    """Add each ``(name, n)`` of ``counts`` to the counter ``name`` of
+    ``counters()``, in the store it is read from (a replay credits what its
+    capture counted)."""
+    from dasr_tpu_torch.ops.rdb import fused_rdb
+
+    for name, n in counts:
+        if name.startswith("fused_rdb."):
+            attr = name[len("fused_rdb."):]
+            setattr(fused_rdb, attr, getattr(fused_rdb, attr) + n)
+        else:
+            _counts[name] = _counts.get(name, 0) + n
 
 
 def write_chrome_trace(spans: List[Span], path: str, base_ns: int = 0) -> None:

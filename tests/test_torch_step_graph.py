@@ -11,7 +11,8 @@ the LR a tensor-LR ``NetState`` is given each step equals the float
 ``LambdaLR``'s across a multistep milestone and a ``dsn_linear_decay``
 step; a window's metrics do not change when the next window runs; a
 replay is credited with the kernel launches and the Adam counts its
-capture recorded; with
+capture recorded, and with a counter the step graph does not name; a
+window without a capture is the eager loop; with
 tracing on, each step's host work is a span of its step's id, and the
 captures, recaptures and replays are counted (``utils/trace.py``)."""
 
@@ -155,8 +156,7 @@ def test_srn_replayed_window_equals_eager(srn_banks):
     step of the key is the eager warm-up, the other four replay."""
     a, b = _srn_trainer(), _srn_trainer()
     a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
-    got = _windows(lambda s, idx: a.train_banked_step_graphed(srn_banks, idx, s, HR_SIZE),
-                   WINDOWS)
+    got = _windows(lambda s, idx: a.train_banked_step(srn_banks, idx, s, HR_SIZE), WINDOWS)
     want = _windows(lambda s, idx: b.train_banked_step(srn_banks, idx, s, HR_SIZE), WINDOWS)
     for g, w in zip(got, want):
         assert set(g) == set(w)
@@ -174,8 +174,8 @@ def test_dsn_replayed_window_equals_eager(dsn_banks, wgan):
     windows = [(0, torch.tensor([[3, 0], [1, 2], [0, 1]])), (3, torch.tensor([[2, 3], [1, 0]]))]
     a, b = _dsn_trainer(wgan), _dsn_trainer(wgan)
     a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
-    got = _windows(lambda s, idx: a.train_banked_step_graphed(clean, noisy, idx, s, 64, True,
-                                                              True), windows)
+    got = _windows(lambda s, idx: a.train_banked_step(clean, noisy, idx, s, 64, True, True),
+                   windows)
     want = _windows(lambda s, idx: b.train_banked_step(clean, noisy, idx, s, 64, True, True),
                     windows)
     for g, w in zip(got, want):
@@ -209,7 +209,7 @@ def test_adaptive_replayed_window_equals_eager(srn_banks, tracing, use_patchd_op
     banks = srn_banks._replace(ddm=None)
     a, b = _adaptive_trainer(use_patchd_opt), _adaptive_trainer(use_patchd_opt)
     a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
-    got = _windows(lambda s, idx: a.train_banked_step_graphed(banks, idx, s, HR_SIZE), WINDOWS)
+    got = _windows(lambda s, idx: a.train_banked_step(banks, idx, s, HR_SIZE), WINDOWS)
     assert list(trace.phase_ms()) == ["batch", "ddm", "g_forward", "g_backward", "d", "adam"]
     want = _windows(lambda s, idx: b.train_banked_step(banks, idx, s, HR_SIZE), WINDOWS)
     for g, w in zip(got, want):
@@ -233,9 +233,9 @@ def test_srn_window_metrics_survive_the_next_window(srn_banks):
     metrics a window returned (a CLI reads them one window late)."""
     tr = _srn_trainer()
     tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
-    first = tr.train_banked_step_graphed(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
+    first = tr.train_banked_step(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
     kept = {k: v.clone() for k, v in first.items()}
-    tr.train_banked_step_graphed(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
+    tr.train_banked_step(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
     for k in kept:
         assert torch.equal(first[k], kept[k])
     # the graph's own outputs did move: the clone is what kept them
@@ -279,7 +279,7 @@ def test_replayed_steps_are_spans_of_their_step(srn_banks, tracing):
     tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
     captures, replays = (trace.counters().get(k, 0) for k in ("graph.captures",
                                                               "graph.replays"))
-    _windows(lambda s, idx: tr.train_banked_step_graphed(srn_banks, idx, s, HR_SIZE), WINDOWS)
+    _windows(lambda s, idx: tr.train_banked_step(srn_banks, idx, s, HR_SIZE), WINDOWS)
     spans = trace.drain()
     ids = {}
     for s in spans:
@@ -315,6 +315,51 @@ def test_replay_is_credited_with_its_captures_adam_counts(tracing):
         4 * n for n in per_step]
 
 
+def test_replay_credits_a_counter_the_step_graph_does_not_name():
+    """A stub step that counts a name no module of the port keeps: a window
+    of one step (the warm-up, then the capture) raises it by the warm-up's
+    3 alone, so the capture added nothing; a window of K replays raises it
+    by 3 K."""
+    k = 4
+
+    def step(x):
+        trace.count("test.per_step", 3)
+        return {"m": x.sum()}
+
+    graphs = step_graph.StepGraphs("cpu", capture=recording_capture)
+    xs = [(torch.full((2,), float(i)),) for i in range(k + 1)]
+    before = trace.counters().get("test.per_step", 0)
+    graphs.window("k", lambda: [], step, iter(xs[:1]), lambda: None)
+    assert trace.counters()["test.per_step"] - before == 3
+    replays = _replays()
+    graphs.window("k", lambda: [], step, iter(xs[1:]), lambda: None, first=1)
+    assert trace.counters()["test.per_step"] - before == 3 + 3 * k
+    assert _replays() - replays == k
+
+
+def test_window_without_a_capture_is_the_eager_loop(tracing):
+    """``capture=None``: each item is ``step`` then ``host_step``, nothing is
+    captured or replayed, no span is recorded, and the last step's outputs
+    come back as the step gave them."""
+    calls = []
+
+    def step(x):
+        calls.append("step")
+        trace.count("test.eager_step")
+        return {"m": x.sum()}
+
+    graphs = step_graph.StepGraphs("cpu", capture=None)
+    before = trace.counters()
+    xs = [(torch.full((2,), float(i)),) for i in range(3)]
+    out = graphs.window("k", lambda: [], step, iter(xs), lambda: calls.append("host"))
+    assert calls == ["step", "host"] * 3 and float(out["m"]) == 4.0
+    got = trace.counters()
+    assert got["test.eager_step"] - before.get("test.eager_step", 0) == 3
+    for name in ("graph.captures", "graph.replays"):
+        assert got.get(name, 0) == before.get(name, 0)
+    assert not graphs._graphs and trace.drain() == []
+
+
 def test_state_moved_under_the_graph_is_captured_again(srn_banks):
     """Loading a train state replaces Adam's state tensors, whose addresses
     the graph holds: the next window captures the key again, and counts a
@@ -322,11 +367,11 @@ def test_state_moved_under_the_graph_is_captured_again(srn_banks):
     tr = _srn_trainer()
     tr.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
     recaptures = trace.counters().get("graph.recaptures", 0)
-    tr.train_banked_step_graphed(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
+    tr.train_banked_step(srn_banks, WINDOWS[0][1], 0, HR_SIZE)
     graph = tr.graphs._graphs[next(iter(tr.graphs._graphs))]
     assert trace.counters().get("graph.recaptures", 0) == recaptures
     tr.state.g.opt.load_state_dict(copy.deepcopy(tr.state.g.opt.state_dict()))
-    tr.train_banked_step_graphed(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
+    tr.train_banked_step(srn_banks, WINDOWS[1][1], 3, HR_SIZE)
     assert tr.graphs._graphs[next(iter(tr.graphs._graphs))] is not graph
     assert trace.counters()["graph.recaptures"] == recaptures + 1
 

@@ -24,6 +24,7 @@ from dasr_tpu_torch.data import device_bank as bank
 from dasr_tpu_torch.nn.discriminators import FSDiscriminator
 from dasr_tpu_torch.nn.generators import RRDBNetResidualConv
 from dasr_tpu_torch.ops.rdb import TOLERANCES, fused_rdb
+from dasr_tpu_torch.train import step_graph
 from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
 from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
@@ -47,22 +48,21 @@ def _trainers(kind):
         cfg = SRNConfig(nf=32, nb=1, gc=32, d_nf=16, seed=5, lr_steps=(3,))
         make = lambda: SRNTrainer(cfg, "cuda")  # noqa: E731
 
-        def window(tr, eager, start, idx):
-            run = tr.train_banked_step_eager if eager else tr.train_banked_step
-            return run(banks, idx, start, 32)
+        def window(tr, start, idx):
+            return tr.train_banked_step(banks, idx, start, 32)
     else:
         clean, noisy = _bank(rng, 3, (140, 132)), _bank(rng, 4, (40, 44))
         cfg = DSNConfig(num_res_blocks=1, filter="avg_pool", seed=3)
         make = lambda: DSNTrainer(cfg, "cuda", decay=(3, 2, 2))  # noqa: E731
 
-        def window(tr, eager, start, idx):
-            run = tr.train_banked_step_eager if eager else tr.train_banked_step
-            return run(clean, noisy, idx, start, 128, True, True)
+        def window(tr, start, idx):
+            return tr.train_banked_step(clean, noisy, idx, start, 128, True, True)
     out = []
     for _ in range(2):
         tr = make()
         tr.init_state()
         out.append(tr)
+    out[1].graphs = step_graph.StepGraphs(out[1].device, capture=None)  # the eager loop
     n = 3 if kind == "dasr" else 4
     idx = torch.from_numpy(rng.integers(0, n, (2, K, 2))).cuda()
     return out, window, idx
@@ -90,7 +90,7 @@ def test_replayed_windows_equal_the_eager_loop(kind):
     for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
         before, replays = fused_rdb.launches, trace.counters().get("graph.replays", 0)
         for w in range(2):
-            sink.append(window(tr, is_eager, w * K, idx[w]))
+            sink.append(window(tr, w * K, idx[w]))
         torch.cuda.synchronize()
         launches.append(fused_rdb.launches - before)
         if not is_eager:
@@ -131,10 +131,10 @@ def _adaptive_trainers(use_patchd_opt):
         tr = DASRAdaptiveTrainer(cfg, g, patchd, "cuda")
         tr.init_state()
         out.append(tr)
+    out[1].graphs = step_graph.StepGraphs(out[1].device, capture=None)  # the eager loop
 
-    def window(tr, eager, start, idx):
-        run = tr.train_banked_step_eager if eager else tr.train_banked_step
-        return run(banks, idx, start, 32)
+    def window(tr, start, idx):
+        return tr.train_banked_step(banks, idx, start, 32)
 
     return out, window, torch.from_numpy(rng.integers(0, 3, (2, K, 2))).cuda()
 
@@ -156,7 +156,7 @@ def test_adaptive_replayed_windows_equal_the_eager_loop_bit_for_bit(use_patchd_o
     for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
         before, replays = trace.counters(), trace.counters().get("graph.replays", 0)
         for w in range(2):
-            sink.append(window(tr, is_eager, w * K, idx[w]))
+            sink.append(window(tr, w * K, idx[w]))
         torch.cuda.synchronize()
         counts.append({k: v - before.get(k, 0) for k, v in trace.counters().items()
                        if k.startswith("fused_rdb.")})
@@ -189,7 +189,7 @@ def test_dropped_graphed_trainers_leave_no_memory_behind():
 
     def run():
         (tr, _), window, idx = _trainers("dasr")
-        window(tr, False, 0, idx[0])
+        window(tr, 0, idx[0])
         torch.cuda.synchronize()
 
     run()
