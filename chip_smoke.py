@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases ablation                  # the experiment tools
     python3 chip_smoke.py --phases dist                      # one NCCL rank, two ranks
     python3 chip_smoke.py --phases adam                      # the Adam kernel alone
+    python3 chip_smoke.py --phases prep                      # the RDB weight plan alone
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -236,6 +237,15 @@ CPU or to a plain version):
             update of both against torch's (it fails if the kernel's is
             longer, or if the kernel is not the faster on the card). Needs
             phase 1, which it then runs too.
+19. prep   - the RDB weight plan (ops/rdb.py:RDBWeightPlan, csrc/rdb.cu
+            rdb_prep_weights) at dasr_srn's G (69 RDBs, channels_last): its
+            one launch bit for bit the per-call path it replaces (345 casts
+            to bf16 HWIO and 69 rdb_dgrad_weights launches) and the plain
+            version (.to(bf16) and dgrad_weights) on the card, both captured
+            in a CUDA graph and timed in turns by CUDA events and by the
+            device trace, against the launch's byte bound (8 bytes a weight
+            at 3.35 TB/s); it fails if the launch is not the faster. Needs
+            phase 1, which it then runs too.
 
 Every port CLI runs as a user runs it: before each call the TF32 flags are
 set on, and the call must turn them off (core/device.py:f32_numerics).
@@ -396,6 +406,25 @@ def zero_launches(fused_rdb):
     fused_rdb.launches = 0
     fused_rdb.launches_f32 = 0
     REPLAYS_AT_ZERO = trace.counters().get("graph.replays", 0)
+
+
+PLAN_COUNTERS = ("rdb_prep.launches", "fused_rdb.prepared", "fused_rdb.cast")
+
+
+def check_weight_plan(what, before, steps, rdbs):
+    """On a banked bf16 main path, since the counters ``before``: the
+    generator's weight plan launched once a step (replays credited), each of
+    its ``rdbs`` fused RDBs took the plan's kernels every step, and no RDB
+    cast its own. Returns the counts."""
+    from dasr_tpu_torch.utils import trace
+
+    now = trace.counters()
+    grown = {k: now.get(k, 0) - before.get(k, 0) for k in PLAN_COUNTERS}
+    want = {"rdb_prep.launches": steps, "fused_rdb.prepared": rdbs * steps, "fused_rdb.cast": 0}
+    if grown != want:
+        fail(f"{what}: the RDB weight plan counted {grown}, expected {want} (one launch a step, "
+             f"{rdbs} RDBs a step taking its kernels, none casting its own)")
+    return grown
 
 
 def read_replays():
@@ -912,7 +941,8 @@ BACKWARD_TIMED = ((12, 32, 32), (8, 128, 128))  # the train step's crops, the ke
 
 def backward_times(gpu, x, kernels, biases, dy):
     """The bf16 backward at x's shape: the kernels alone (``_launch_backward``
-    on the forward's growth buffer, by CUDA events), their dgrad and wgrad
+    on the forward's growth buffer and dgrad weight images made beforehand,
+    as a weight plan makes them, by CUDA events), their dgrad and wgrad
     launches apart (the union of each group's device spans, torch.profiler:
     the launches overlap by programmatic dependent launch), their bounds,
     the plain version (``rdb_backward_reference``) and, as the yardstick,
@@ -927,9 +957,10 @@ def backward_times(gpu, x, kernels, biases, dy):
     ks = [k.bfloat16() for k in kernels]
     with torch.no_grad():
         _, growth = rdb._launch(x, ks, biases)
+    images = rdb.launch_images(ks)
 
     def kernels_bwd():
-        return rdb._launch_backward(x, growth, ks, dy)
+        return rdb._launch_backward(x, growth, ks, images, dy)
 
     def chain_vjp():
         leaves = [t.detach().requires_grad_() for t in [x, *ks, *biases]]
@@ -966,7 +997,8 @@ def phase_grad(gpu):
     import torch
 
     from dasr_tpu_torch.ops.rdb import (
-        BACKWARD_LAUNCHES, LAUNCHES_PER_RDB, TOLERANCES, fused_rdb, fused_rdb_reference, rdb_chain)
+        BACKWARD_LAUNCHES, IMAGE_LAUNCHES, LAUNCHES_PER_RDB, TOLERANCES, fused_rdb,
+        fused_rdb_reference, rdb_chain)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 1)
@@ -998,8 +1030,9 @@ def phase_grad(gpu):
             torch.cuda.synchronize()
             counts = tuple(getattr(fused_rdb, n) - c for n, c in zip(names, before))
             bf16 = dt == torch.bfloat16
-            want_counts = (LAUNCHES_PER_RDB, BACKWARD_LAUNCHES if bf16 else 0, int(bf16),
-                           int(not bf16))
+            # a bare call: no weight plan, so the backward makes its images
+            want_counts = (LAUNCHES_PER_RDB, BACKWARD_LAUNCHES + IMAGE_LAUNCHES if bf16 else 0,
+                           int(bf16), int(not bf16))
             if counts != want_counts:
                 fail(f"fused_rdb under autograd at {(b, h, w)} {dt}: counted {counts} "
                      f"(launches, backward launches, kernel and chain backwards), "
@@ -1968,6 +2001,7 @@ def phase_bank(gpu, root, checked, checked_grad):
     from dasr_tpu_torch.models.registry import create_model
     from dasr_tpu_torch.nn.blocks import RDB5C
     from dasr_tpu_torch.ops.rdb import LAUNCHES_PER_RDB, TOLERANCES, fused_rdb
+    from dasr_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     report = bank_gather_check(gpu)
@@ -1988,6 +2022,7 @@ def phase_bank(gpu, root, checked, checked_grad):
 
     tee = Tee()
     zero_launches(fused_rdb)
+    before = trace.counters()
     handle = register_module_forward_pre_hook(record)
     try:
         t0 = time.perf_counter()
@@ -2016,6 +2051,8 @@ def phase_bank(gpu, root, checked, checked_grad):
         fail(f"bank: {steps} steps and {launches} launches, expected {BANK_STEPS} and {expected}")
     if replays != BANK_STEPS - 1:
         fail(f"bank: srn_train replayed {replays} steps, expected {BANK_STEPS - 1}")
+    plan = check_weight_plan("bank", before, BANK_STEPS, 3 * NB)
+    print(f"bank: the RDB weight plan on srn_train's main path: {plan}", flush=True)
     missing = {k[:4] for k in seen} - checked
     missing |= {k[:4] for k in seen if k[4]} - checked_grad
     if missing:
@@ -2695,6 +2732,8 @@ def phase_adaptive(gpu, root, checked, checked_grad, dsn_ckpt):
         fail(f"adaptive bank: {replays} steps replayed from the step graph, expected "
              f"{ADAPTIVE_BANK_STEPS - 1} (the first is the warm-up), and one capture with the "
              f"backward through the kernels alone: {grown}")
+    grown.update(check_weight_plan("adaptive bank", before, ADAPTIVE_BANK_STEPS,
+                                   3 * (ADAPTIVE_NB + ADAPTIVE_NB_ADA)))
     losses, _ = losses_of("ada_bank", ADAPTIVE_BANK_STEPS, ADAPTIVE_BANK_K)
     print(f"adaptive bank: srn_train --device_bank --steps_per_call {ADAPTIVE_BANK_K} "
           f"--transfer_uint8: {steps} steps in {secs:.2f} s, {replays} replayed, {grown}; l_g_total "
@@ -4572,14 +4611,86 @@ def phase_adam(gpu):
     return report
 
 
+def phase_prep(gpu):
+    """The RDB weight plan at dasr_srn's G (RRDBNet nf 64 nb 23: 69 RDBs,
+    345 parameters, channels_last): one launch of rdb_prep_weights bit for
+    bit the per-call path it replaces (each RDB's five casts to bf16 HWIO,
+    then rdb_dgrad_weights on them) and the plain version on the card
+    (ops/rdb.py:prepare_reference, .to(bf16) and dgrad_weights), so
+    rdb_dgrad_weights is held to the plain version too; the launch and the
+    per-call path captured in a CUDA graph and timed in turns (CUDA events
+    and the device trace), the launch against its byte bound."""
+    import torch
+
+    from dasr_tpu_torch.nn.blocks import fused_rdbs
+    from dasr_tpu_torch.nn.generators import RRDBNet
+    from dasr_tpu_torch.ops import rdb
+
+    torch.manual_seed(SEED)
+    net = RRDBNet(nf=NC, nb=NB, gc=GC, upscale=4, dtype=torch.bfloat16)
+    net.init_weights(torch.Generator().manual_seed(SEED))
+    net = net.to("cuda", memory_format=torch.channels_last)
+    weights = [tuple(c.weight for c in m.convs()) for m in fused_rdbs(net)]
+    n = sum(w.numel() for ws in weights for w in ws)
+    plan = rdb.RDBWeightPlan(weights)
+
+    def per_call():
+        out = []
+        for ws in weights:
+            ks = [torch.empty((3, 3) + tuple(w.shape[1::-1]), dtype=torch.bfloat16,
+                              device="cuda").copy_(w.permute(2, 3, 1, 0)) for w in ws]
+            out.append((ks, rdb.launch_images(ks)))
+        return out
+
+    plan.prepare()
+    want = per_call()
+    plain = rdb.RDBWeightPlan(weights)
+    rdb.prepare_reference(plain)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    for r, ((ks, img), (ks_w, img_w), (ks_p, img_p)) in enumerate(
+            zip(plan.slots, want, plain.slots)):
+        for what, (k_w, i_w) in (("the per-call path", (ks_w, img_w)),
+                                 ("the plain version", (ks_p, img_p))):
+            if not (all(same(a, b) for a, b in zip(ks, k_w)) and same(img, i_w)):
+                fail(f"prep: RDB {r}'s prepared kernels or images differ from {what}")
+    del plain
+    replay = {"prep": graph_of(plan.prepare), "per_call": graph_of(per_call)}
+    times = {"prep": [], "per_call": []}
+    for _ in range(3):
+        for what in ("prep", "per_call", "per_call", "prep"):
+            times[what].append(cuda_ms(replay[what], warmup=2, iters=20))
+    times = {k: float(np.median(v)) for k, v in times.items()}
+    traced = {"prep": kernel_trace(replay["prep"], 5, ("rdb_prep_weights",)),
+              "per_call": kernel_trace(replay["per_call"], 5),
+              "per_call_images": kernel_trace(replay["per_call"], 5, ("rdb_dgrad_weights",))}
+    bound = rdb.prep_bytes(n) / rdb.PEAK_BYTES_PER_S * 1e3
+    report = {
+        "rdbs": len(weights), "weights": n, "bytes": rdb.prep_bytes(n), "bound_ms": bound,
+        "graph_ms": times, "roofline": bound / times["prep"],
+        "trace_ms": {k: v[0] for k, v in traced.items()},
+        "trace_kernels": {k: v[1] for k, v in traced.items()},
+        "trace_roofline": bound / traced["prep"][0],
+    }
+    print(f"prep (one rdb_prep_weights launch at dasr_srn's G, against the per-call casts and "
+          f"rdb_dgrad_weights) [{gpu}]: {json.dumps(report)}", flush=True)
+    if times["prep"] >= times["per_call"]:
+        fail(f"prep: the launch ({times['prep']:.4f} ms) is not faster than the per-call path "
+             f"({times['per_call']:.4f} ms)")
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernel,serve,grad,train,dsn,dataset,pipeline,bank,tools,"
-                            "adaptive,paired,depatch,sft,lpips,ablation,dist,adam",
+                            "adaptive,paired,depatch,sft,lpips,ablation,dist,adam,prep",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
                          "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,ablation,dist,"
-                         "adam")
+                         "adam,prep")
     ap.add_argument("--dist_child", choices=("nccl", "pair"), default=None,
                     help=argparse.SUPPRESS)  # phase dist starts its children with it
     ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
@@ -4607,8 +4718,10 @@ def main(argv=None):
     gpu = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     backward = ("autograd Function: the backward kernels on the saved growth buffer "
-                "(csrc/rdb.cu dasr_rdb_backward: rdb_dgrad_weights, rdb_dgrad_wgmma x 5, "
-                "rdb_wgrad_mma, rdb_wgrad_reduce); checked against the plain version in phase grad")
+                "(csrc/rdb.cu dasr_rdb_backward: rdb_dgrad_wgmma x 5, rdb_wgrad_mma, "
+                "rdb_wgrad_reduce; the dgrad weight images from the generator's weight plan, "
+                "rdb_prep_weights, or else rdb_dgrad_weights); checked against the plain "
+                "version in phase grad")
     backward32 = ("autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), as "
                   "JAX's custom VJP; checked against the plain version in phase grad")
     entry = {
@@ -4628,10 +4741,12 @@ def main(argv=None):
         phases.add("dataset")  # dsn_test reads stage 1's checkpoint and stage 2's outputs
     if "dataset" in phases:
         phases.add("dsn")  # stage 2 reads stage 1's checkpoint
-    if phases & {"build", "kernel", "grad", "adam"}:
+    if phases & {"build", "kernel", "grad", "adam", "prep"}:
         phase_build()
     if "adam" in phases:
         phase_adam(gpu)
+    if "prep" in phases:
+        phase_prep(gpu)
     if "kernel" in phases:
         report, checked = phase_kernel(gpu)
         entry32.update(report.pop("f32"))

@@ -41,9 +41,11 @@
 //     (tile + 1-px halo) is a 4-D TMA box from x or the growth buffer; TMA
 //     fills the out-of-image part with zeros, which is the SAME padding.
 //     All nine taps read the one staged window at shifted offsets.
-//   * Programmatic dependent launch: each level's blocks start (barrier
-//     set-up) on the SMs the previous level frees, and wait for it to
-//     finish (griddepcontrol.wait) before they read an activation.
+//   * Programmatic dependent launch: each level's blocks but the first
+//     level's start (barrier set-up) on the SMs the previous level frees,
+//     and wait for it to finish (griddepcontrol.wait) before they read an
+//     activation. Level 1 is a plain launch, so early blocks never queue up
+//     across RDBs (dasr_rdb_forward).
 //   * Epilogue in registers: the four lanes of a quad exchange their
 //     column pairs so that each holds 8 consecutive channels of a pixel,
 //     then bias + leaky ReLU (levels 1-4) or the residual (level 5), rounded
@@ -102,7 +104,7 @@
 // The C entry point launches the five levels and returns
 // cudaGetLastError() after each launch.
 //
-// Backward, bf16 (dasr_rdb_backward: eight launches an RDB). It replaces
+// Backward, bf16 (dasr_rdb_backward: seven launches an RDB). It replaces
 // no TPU kernel: JAX's custom VJP of the Pallas kernel is XLA's stock
 // convolution chain, whose counterpart (ops/rdb.py:rdb_chain, recomputed
 // and differentiated through cuDNN and ~220 ATen ops an RDB) the f32 path
@@ -119,9 +121,11 @@
 // set-up bound it, not the tensor cores; at (8, 128, 128) it is 126 GFLOP,
 // 127 us of bf16 products. The design keeps the launches few and the
 // bytes near what is read once:
-//   * rdb_dgrad_weights (one launch): the five dgrad weight images, taps
-//     flipped and in/out channels swapped (ops/rdb.py:dgrad_weights), the
-//     0.2 of dv_5 folded into level 5's rows, so dY is read as it is.
+//   * the five dgrad weight images, taps flipped and in/out channels
+//     swapped (ops/rdb.py:dgrad_weights), the 0.2 of dv_5 folded into level
+//     5's rows, so dY is read as it is: made with the forward's kernels by
+//     rdb_prep_weights, once a generator forward for all its RDBs, or, for
+//     a call with no weight plan, by rdb_dgrad_weights (one launch more).
 //   * rdb_dgrad_wgmma (five launches): the reverse chain is the forward's
 //     dense chain in reverse, with the forward's shapes: level j reads
 //     [dv_5 | dv_4 | .. | dv_{5-j}], nc + j gc = 64 .. 192 channels, dY as
@@ -163,12 +167,17 @@ struct Level {
   // act_off + n holds x_s for output channel n (the leaky ReLU's slope)
   const void* act;
   int act_off;
+  // the backward's levels: 1 where the weight images were written before
+  // the previous launch began (a weight plan made them), so they may be read
+  // before griddepcontrol.wait
+  int weights_ready;
 };
 
 // ---------------------------------------------------------------------------
 // bf16 on Hopper: TMA + mbarriers + wgmma.
 
 constexpr int kKc = 16;  // input channels per pipeline stage (one wgmma K step)
+constexpr uint32_t kPrefetchBytes = 16384;  // bytes of one L2 prefetch of a level's weights
 
 constexpr int align1024(int v) { return (v + 1023) / 1024 * 1024; }
 
@@ -646,6 +655,27 @@ __device__ __forceinline__ void wgmma_level(const CUtensorMap* tm_x, const CUten
   if (wg == P::kWarpgroups) {
     // producer warp: one thread keeps the ring full
     if (threadIdx.x % 32 == 0) {
+      // The forward's weights were written before the first level began,
+      // and so were the backward's weight images where a weight plan made
+      // them (weights_ready): they are read while the previous launch may
+      // still run, so a block launched early has them on the way. Images
+      // that the launch just before the first backward level made
+      // (rdb_dgrad_weights, where no plan made them), and x and the growth
+      // buffer always, are read only once the previous launch finished.
+      const bool early = !BWD || L.weights_ready;
+      // The first block also brings the level's whole weight matrix into L2
+      // then: a weight plan writes the weights long before, so each later
+      // chunk's would otherwise come from HBM on the level's critical path
+      // (on the H100, 0.05-0.07 ms of the train step's backward).
+      if (early && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+        const char* w = static_cast<const char*>(L.w);
+        const uint32_t bytes = 9u * L.cin * COUT * 2u;
+        for (uint32_t off = 0; off < bytes; off += kPrefetchBytes) {
+          const uint32_t n = bytes - off < kPrefetchBytes ? bytes - off : kPrefetchBytes;
+          asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(w + off), "r"(n)
+                       : "memory");
+        }
+      }
       for (int it = 0; it < chunks; ++it) {
         const int s = it % P::kStages;
         if (it >= P::kStages) mbar_wait(empty0 + 8 * s, ((it / P::kStages) - 1) & 1);
@@ -653,13 +683,9 @@ __device__ __forceinline__ void wgmma_level(const CUtensorMap* tm_x, const CUten
         mbar_expect_tx(full, P::kTxBytes);
         const uint32_t dst = base + s * P::kStageBytes;
         const int c0 = it * kKc;
-        // the backward's weight image is made by the launch just before
-        // its first level, so nothing is read before that one finishes
-        if (BWD && it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        if (!early && it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
         tma_load_3d(dst + P::b_offset(0), tm_w, full, 0, c0, 0);
-        // the weights were written before the first level began; x and
-        // the growth buffer only once the previous launch has finished
-        if (!BWD && it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        if (early && it == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
         if (c0 < L.nc) {
           tma_load_4d(dst, tm_x, full, c0, x0 - 1, y0 - 1, b);
         } else {
@@ -932,6 +958,108 @@ __global__ void rdb_dgrad_weights(Images P) {
   float v = __bfloat162float(P.w[k][((8 - tap) * cin_k + lo + o) * cout_k + co]);
   if (k == 4) v *= 0.2f;
   *out = __float2bfloat16(v);
+}
+
+// Element offset of image j in an RDB's five dgrad weight images, which lie
+// one after another as rdb_dgrad_weights writes them.
+__host__ __device__ inline int image_offset(int j, int nc, int gc) {
+  int off = 0;
+  for (int i = 0; i < j; ++i) off += 9 * (nc + i * gc) * (i < 4 ? gc : nc);
+  return off;
+}
+
+// Every RDB's weights of a network prepared at once (rdb_prep_weights; the
+// host side and its plain version: ops/rdb.py:RDBWeightPlan). It replaces
+// no TPU kernel: JAX casts the parameters inside the compiled step. It
+// replaces, on the card, what each bf16 RDB under autograd did per call:
+// five strided copies of its f32 parameters into bf16 HWIO kernels in the
+// forward, and rdb_dgrad_weights in the backward, 345 + 69 launches a
+// forward and backward of the x4 RRDBNet, on data that changes once a step.
+// One launch at the start of the generator's forward reads each f32 weight
+// once and writes both what the forward's levels read and what the reverse
+// chain reads: bf16(w) into the RDB's HWIO kernel, and its one element of
+// the dgrad images, bf16(0.2 * float(bf16(w))) for level 5's rows and
+// bf16(w) for the others (rounded before the 0.2, as rdb_dgrad_weights
+// does), so both are bit for bit the per-call path's.
+// What bounds it: bytes. 4 bytes read and 2 + 2 written a weight, 132 MB
+// for the 16.5M RDB weights of the x4 RRDBNet: 0.0395 ms at 3.35 TB/s.
+// Each weight lands in exactly one image element, so the pass is a
+// permutation. The work is 32 x 32 tiles of one parameter (32 output by 32
+// input channels at one tap). A block reads a tile with lanes along the
+// input channel (contiguous in a channels_last OIHW parameter; any strides
+// are read as the table gives them), all four loads of a thread in flight
+// at once, writes the image elements in the same order (an image's output
+// channel is the forward's input channel, so those writes are contiguous
+// too), and writes the HWIO kernel, whose output channel is innermost, from
+// the tile transposed through shared memory (two buffers, one barrier a
+// tile). The grid is (blocks a parameter, parameters): a block reads its
+// unit's row of the table once, with no search (a first design found each
+// block's unit by bisection over a flat grid of tiles, nine dependent loads
+// before any weight, and ran at 37% of the bound), and walks the unit's
+// tiles with a stride of the grid, at most four each.
+// The table holds a row of kPrepRow int64 words a parameter (a unit): its
+// f32 pointer, its OIHW strides (o, i, h, w), the offset of its HWIO kernel
+// in the kernel buffer, the offset of its RDB's images in the image buffer,
+// and its level. The launch is a plain one, and the kernel does not trigger
+// its dependents early: the level kernels read their weights before
+// griddepcontrol.wait, so they must start after it has finished.
+constexpr int kPrepTile = 32;  // a tile's output and input channels
+constexpr int kPrepRows = 8;   // thread rows of a block: 4 elements a thread
+constexpr int kPrepRow = 8;    // int64 words of a unit
+
+__global__ void __launch_bounds__(kPrepTile * kPrepRows)
+    rdb_prep_weights(const int64_t* __restrict__ table, int nc, int gc,
+                     __nv_bfloat16* __restrict__ kernels, __nv_bfloat16* __restrict__ images) {
+  constexpr int kPer = kPrepTile / kPrepRows;
+  __shared__ float tile[2][kPrepTile][kPrepTile + 1];
+  const int64_t* u = table + static_cast<int64_t>(blockIdx.y) * kPrepRow;
+  const float* src = reinterpret_cast<const float*>(u[0]);
+  const int64_t so = u[1], si = u[2], sh = u[3], sw = u[4], ker_off = u[5], img_off = u[6];
+  const int k = static_cast<int>(u[7]);
+  const int cin = nc + k * gc, cout = k < 4 ? gc : nc;
+  const int in_blocks = cin / kPrepTile;
+  const int tiles = 9 * in_blocks * (cout / kPrepTile);
+  // the images' rows that level k + 1's output channels feed: level 5's are
+  // rows 0.., level k + 1 < 5's rows nc + (3 - k) gc..
+  const int row0 = k == 4 ? 0 : nc + (3 - k) * gc;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  int buf = 0;
+  // tiles in the order (output block, input block, tap), the tap innermost
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, buf ^= 1) {
+    const int tap = t % 9;
+    const int ci0 = t / 9 % in_blocks * kPrepTile;
+    const int co0 = t / 9 / in_blocks * kPrepTile;
+    const float* in = src + (tap / 3) * sh + (tap % 3) * sw + (ci0 + tx) * si;
+    float v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) v[i] = __ldg(in + (co0 + ty + i * kPrepRows) * so);
+    // The image of the source that input channels ci0.. read (x, or x_s):
+    // image j = 4 - s, whose output channel is the source's channel ci -
+    // src_lo, whose input channel is row0 + the output channel, and whose
+    // tap is 8 - tap.
+    const int s = ci0 < nc ? 0 : 1 + (ci0 - nc) / gc;
+    const int j = 4 - s;
+    const int cin_j = nc + j * gc, cout_j = j < 4 ? gc : nc;
+    const int src_lo = s == 0 ? 0 : nc + (s - 1) * gc;
+    __nv_bfloat16* img = images + img_off + image_offset(j, nc, gc) +
+                         static_cast<int64_t>((8 - tap) * cin_j + row0 + co0) * cout_j +
+                         ci0 - src_lo + tx;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = ty + i * kPrepRows;
+      const __nv_bfloat16 b = __float2bfloat16(v[i]);
+      const float f = __bfloat162float(b);
+      tile[buf][r][tx] = f;
+      img[static_cast<int64_t>(r) * cout_j] = k == 4 ? __float2bfloat16(0.2f * f) : b;
+    }
+    __syncthreads();
+    __nv_bfloat16* out = kernels + ker_off + static_cast<int64_t>(tap * cin + ci0) * cout + co0 + tx;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = ty + i * kPrepRows;
+      out[static_cast<int64_t>(r) * cout] = __float2bfloat16(tile[buf][tx][r]);
+    }
+  }
 }
 
 // The weight and bias gradients of all five levels, mma.sync. dW_k[tap, ci,
@@ -1243,14 +1371,15 @@ bool window_maps(CUtensorMap* tm_x, CUtensorMap* tm_g, const Level& L, CUtensorM
          encode(tm_g, type, 4, L.g, g_dims, g_strides, box, swizzle);
 }
 
-// Launch with programmatic dependent launch: the grid may start while the
-// previous launch on the stream finishes, see griddepcontrol in the kernels.
+// Launch with programmatic dependent launch where `chained`: the grid may
+// start while the previous launch on the stream finishes, see griddepcontrol
+// in the kernels; else a plain launch, after it.
 template <typename Kernel, typename... Args>
 cudaError_t launch_pdl(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t s,
-                       Args... args) {
+                       bool chained, Args... args) {
   cudaLaunchAttribute pdl{};
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
+  pdl.val.programmaticStreamSerializationAllowed = chained ? 1 : 0;
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
@@ -1268,7 +1397,7 @@ CUtensorMapSwizzle tma_swizzle(int span) {
 }
 
 template <int COUT, int TH, int TW, bool BWD>
-cudaError_t launch_wgmma(const Level& L, cudaStream_t s) {
+cudaError_t launch_wgmma(const Level& L, bool chained, cudaStream_t s) {
   using P = Plan<COUT, TH, TW>;
   constexpr auto kernel = BWD ? rdb_dgrad_wgmma<COUT, TH, TW> : rdb_level_wgmma<COUT, TH, TW>;
   const cudaError_t err = allow_smem<kernel>(P::kSmemBytes);
@@ -1287,14 +1416,14 @@ cudaError_t launch_wgmma(const Level& L, cudaStream_t s) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((L.W + TW - 1) / TW, (L.H + TH - 1) / TH, L.B);
-  return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, tm_x, tm_g, tm_w, L);
+  return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, chained, tm_x, tm_g, tm_w, L);
 }
 
 template <int COUT, bool BWD = false>
-cudaError_t launch_wgmma_tile(const Level& L, int tile, cudaStream_t s) {
+cudaError_t launch_wgmma_tile(const Level& L, int tile, bool chained, cudaStream_t s) {
   switch (tile) {
-    case 0: return launch_wgmma<COUT, 8, 8, BWD>(L, s);
-    case 1: return launch_wgmma<COUT, 16, 16, BWD>(L, s);
+    case 0: return launch_wgmma<COUT, 8, 8, BWD>(L, chained, s);
+    case 1: return launch_wgmma<COUT, 16, 16, BWD>(L, chained, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1313,7 +1442,7 @@ cudaError_t launch_tf32x3(const Level& L, cudaStream_t s) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((L.W + TW - 1) / TW, (L.H + TH - 1) / TH, L.B);
-  return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, tm_x, tm_g, L);
+  return launch_pdl(kernel, grid, P::kThreads, P::kSmemBytes, s, true, tm_x, tm_g, L);
 }
 
 template <int COUT>
@@ -1355,8 +1484,8 @@ cudaError_t launch_wgrad(const void* x, const void* g, const void* dy, const voi
   }
   int blocks = 0;
   for (int k = 0; k < 5; ++k) blocks += (nc + k * gc) / kWKc * ((k < 4 ? gc : nc) / kWN);
-  err = launch_pdl(rdb_wgrad_mma, dim3(blocks, splits), kWThreads, kWSmemBytes, s, tm_x, tm_g,
-                   tm_dy, tm_gg, P);
+  err = launch_pdl(rdb_wgrad_mma, dim3(blocks, splits), kWThreads, kWSmemBytes, s, true, tm_x,
+                   tm_g, tm_dy, tm_gg, P);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   rdb_wgrad_reduce<<<(P.total + 255) / 256, 256, 0, s>>>(ws, grads, P.total, splits,
@@ -1435,7 +1564,15 @@ int dasr_rdb_forward(int kernel, const void* x, void* g, const void* const* w,
             final_level ? 1 : 0};
     cudaError_t err = cudaSuccess;
     if (kernel == 1 && (cout == 64 || cout == 32) && cin % kKc == 0) {
-      err = cout == 64 ? launch_wgmma_tile<64>(L, tile, s) : launch_wgmma_tile<32>(L, tile, s);
+      // Level 1 is a plain launch: chained to the launch before it (the
+      // previous RDB's level 5, whose dependents start as soon as it has set
+      // up), early blocks queued up across RDBs and held SMs the levels still
+      // running needed: at the train step's (12, 32, 32) the x4 RRDBNet's
+      // forward took 3.34 ms chained and 3.01 ms so on the H100, at
+      // (1, 339, 510) 22.1 ms either way.
+      const bool chained = k > 0;
+      err = cout == 64 ? launch_wgmma_tile<64>(L, tile, chained, s)
+                       : launch_wgmma_tile<32>(L, tile, chained, s);
     } else if (kernel == 0 && (cout == 64 || cout == 32) && cin % kKc32 == 0) {
       err = cout == 64 ? launch_tf32x3_tile<64>(L, tile, s) : launch_tf32x3_tile<32>(L, tile, s);
     } else {
@@ -1447,47 +1584,69 @@ int dasr_rdb_forward(int kernel, const void* x, void* g, const void* const* w,
   return static_cast<int>(cudaSuccess);
 }
 
-// The backward of one bf16 RDB, eight launches in order on `stream`: the
-// dgrad weight images (into img, the five after one another), the reverse
-// chain's five levels (dv_4 .. dv_1 into the gradient growth buffer gg,
-// (B, H, W, 4 gc), then dx, (B, H, W, nc)), and the weight gradients (the
+// The five dgrad weight images of one bf16 RDB (into img, one after
+// another) from the forward's HWIO kernels w, one launch on `stream`: the
+// backward's first launch where no weight plan made them
+// (dasr_rdb_prep_weights). Takes nc and gc as dasr_rdb_backward does;
+// returns a cudaError_t.
+int dasr_rdb_dgrad_weights(const void* const* w, void* img, int nc, int gc, void* stream) {
+  if ((nc != 32 && nc != 64) || gc != 32) return static_cast<int>(cudaErrorInvalidValue);
+  Images images{{}, static_cast<__nv_bfloat16*>(img), nc, gc};
+  for (int k = 0; k < 5; ++k) images.w[k] = static_cast<const __nv_bfloat16*>(w[k]);
+  const int elems = image_offset(5, nc, gc);
+  rdb_dgrad_weights<<<(elems + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(images);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of one bf16 RDB, seven launches in order on `stream`: the
+// reverse chain's five levels (dv_4 .. dv_1 into the gradient growth buffer
+// gg, (B, H, W, 4 gc), then dx, (B, H, W, nc)), and the weight gradients (the
 // splits' partial sums into ws, (splits, total), then their sum into
-// grads, laid out as grad_offset). x, g, w: the forward's input, growth
-// buffer and HWIO kernels; dy the output's gradient, (B, H, W, nc). tile as
-// in dasr_rdb_forward. Takes nc 32 or 64 and gc 32; returns a cudaError_t
-// as dasr_rdb_forward does.
-int dasr_rdb_backward(const void* x, const void* g, const void* const* w, const void* dy,
-                      void* img, void* gg, void* dx, void* ws, void* grads, int B, int H, int W,
-                      int nc, int gc, int tile, int splits, void* stream) {
+// grads, laid out as grad_offset). x, g: the forward's input and growth
+// buffer; img the five dgrad weight images, made by dasr_rdb_prep_weights
+// before the previous launch began (img_ready 1) or by dasr_rdb_dgrad_weights
+// as the previous launch (img_ready 0); dy the output's gradient, (B, H, W,
+// nc). tile as in dasr_rdb_forward. Takes nc 32 or 64 and gc 32; returns a
+// cudaError_t as dasr_rdb_forward does.
+int dasr_rdb_backward(const void* x, const void* g, const void* img, int img_ready,
+                      const void* dy, void* gg, void* dx, void* ws, void* grads, int B, int H,
+                      int W, int nc, int gc, int tile, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((nc != 32 && nc != 64) || gc != 32 || splits < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Images images{{}, static_cast<__nv_bfloat16*>(img), nc, gc};
-  int elems = 0;
-  for (int k = 0; k < 5; ++k) {
-    images.w[k] = static_cast<const __nv_bfloat16*>(w[k]);
-    elems += 9 * (nc + k * gc) * (k < 4 ? gc : nc);
-  }
-  rdb_dgrad_weights<<<(elems + 255) / 256, 256, 0, s>>>(images);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const __nv_bfloat16* level_img = images.img;
+  const __nv_bfloat16* level_img = static_cast<const __nv_bfloat16*>(img);
   for (int k = 0; k < 5; ++k) {
     const bool final_level = k == 4;
     const int cin = nc + k * gc;
     const int cout = final_level ? nc : gc;
     Level L{dy, gg, level_img, nullptr, final_level ? dx : gg, B, H, W,
             nc, 4 * gc, cin, cout, final_level ? nc : 4 * gc, final_level ? 0 : k * gc,
-            final_level ? 1 : 0, g, (3 - k) * gc};
+            final_level ? 1 : 0, g, (3 - k) * gc, img_ready};
     level_img += 9 * cin * cout;
-    err = cout == 64 ? launch_wgmma_tile<64, true>(L, tile, s)
-                     : launch_wgmma_tile<32, true>(L, tile, s);
+    cudaError_t err = cout == 64 ? launch_wgmma_tile<64, true>(L, tile, true, s)
+                                 : launch_wgmma_tile<32, true>(L, tile, true, s);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(launch_wgrad(x, g, dy, gg, static_cast<float*>(ws),
                                        static_cast<float*>(grads), B, H, W, nc, gc, splits, s));
+}
+
+// Every bf16 RDB's weights of a network, one launch on `stream`
+// (rdb_prep_weights): table the plan's units (kPrepRow int64 words each),
+// blocks the blocks a unit, kernels and images the plan's buffers. Takes nc
+// and gc multiples of 32; returns a cudaError_t.
+int dasr_rdb_prep_weights(const void* table, int units, int blocks, int nc, int gc,
+                          void* kernels, void* images, void* stream) {
+  if (units < 1 || units > 65535 || blocks < 1 || nc % kPrepTile || gc % kPrepTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  rdb_prep_weights<<<dim3(blocks, units), dim3(kPrepTile, kPrepRows), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(table), nc, gc, static_cast<__nv_bfloat16*>(kernels),
+      static_cast<__nv_bfloat16*>(images));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 kernel's shared-memory plan for cout (32 or 64) and tile (as in

@@ -92,8 +92,12 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     vp, i, vpp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     lib.dasr_rdb_forward.argtypes = [i, vp, vp, vpp, vpp, vp] + [i] * 6 + [vp]
     lib.dasr_rdb_forward.restype = i
-    lib.dasr_rdb_backward.argtypes = [vp, vp, vpp] + [vp] * 6 + [i] * 7 + [vp]
+    lib.dasr_rdb_backward.argtypes = [vp, vp, vp, i] + [vp] * 5 + [i] * 7 + [vp]
     lib.dasr_rdb_backward.restype = i
+    lib.dasr_rdb_dgrad_weights.argtypes = [vpp, vp, i, i, vp]
+    lib.dasr_rdb_dgrad_weights.restype = i
+    lib.dasr_rdb_prep_weights.argtypes = [vp, i, i, i, i, vp, vp, vp]
+    lib.dasr_rdb_prep_weights.restype = i
     for plan in (lib.dasr_rdb_wgmma_plan, lib.dasr_rdb_f32_plan):
         plan.argtypes = [i, i, ctypes.POINTER(i), i]
         plan.restype = i

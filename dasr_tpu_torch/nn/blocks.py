@@ -17,13 +17,17 @@ Counterpart of ``dasr_tpu.nn.blocks``:
 ``RDB5C`` runs ``ops.rdb.fused_rdb`` (the hand-written kernel on the card,
 its plain version on the CPU; under grad mode through its autograd
 Function); with a norm layer, another activation or another conv order it
-runs the literal dense chain of ``nn`` layers. The
+runs the literal dense chain of ``nn`` layers. ``prepared_rdb_weights``
+wraps a generator's forward: under grad mode at bf16 on the card it fills
+the network's ``ops.rdb.RDBWeightPlan`` once and hands each fused RDB its
+slot. The
 grouped-scatter regrouping of the JAX module is a TPU rewrite and is not
 ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from typing import Optional
 
@@ -31,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from dasr_tpu_torch.nn.layers import Conv2d, PReLU, act_fn, conv_block
-from dasr_tpu_torch.ops.rdb import fused_rdb, prepare_weights
+from dasr_tpu_torch.ops.rdb import PlannedKernels, RDBWeightPlan, fused_rdb, prepare_weights
 
 
 def sequential(*args) -> nn.Module:
@@ -66,11 +70,12 @@ class RDB5C(nn.Module):
 
     ``conv{k}`` are reference-named conv blocks (OIHW f32 weights). The
     kernel path takes the same weights as HWIO in the working dtype. Under
-    grad mode it takes the parameters' HWIO views, which ``fused_rdb``'s
-    autograd Function casts itself, so the gradients reach the parameters
-    with no cast recorded around it; otherwise they are prepared once per
-    parameter version (an optimizer step bumps ``_version``) and cached
-    here."""
+    grad mode it takes the parameters' HWIO views, so the gradients reach
+    the parameters with no cast recorded around it: ``fused_rdb``'s
+    autograd Function casts them itself, or takes the bf16 kernels its
+    network's weight plan made for this forward (``prepared_rdb_weights``);
+    otherwise they are prepared once per parameter version (an optimizer
+    step bumps ``_version``) and cached here."""
 
     def __init__(self, nc: int = 64, gc: int = 32, norm_type: Optional[str] = None,
                  act_type: str = "leakyrelu", mode: str = "CNA"):
@@ -85,6 +90,9 @@ class RDB5C(nn.Module):
             and act_type.lower() in ("leakyrelu", "lrelu")
         )
         self._cache = None
+        # this RDB's slot of its network's weight plan while the network's
+        # forward runs (prepared_rdb_weights), else None
+        self._prepared = None
 
     def convs(self):
         return [getattr(self, f"conv{k + 1}")[0] for k in range(5)]
@@ -94,10 +102,9 @@ class RDB5C(nn.Module):
         grad mode the parameters' HWIO views and biases as they are."""
         convs = self.convs()
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
-            return (
-                tuple(c.weight.permute(2, 3, 1, 0) for c in convs),
-                tuple(c.bias.float() for c in convs),
-            )
+            ks = PlannedKernels(c.weight.permute(2, 3, 1, 0) for c in convs)
+            ks.prepared = self._prepared
+            return ks, tuple(c.bias.float() for c in convs)
         key = (dtype,) + tuple(
             (p.device, p.data_ptr(), p._version) for c in convs for p in (c.weight, c.bias)
         )
@@ -118,6 +125,62 @@ class RDB5C(nn.Module):
         ks, bs = self.kernel_weights(x.dtype)
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         return fused_rdb(nhwc, ks, bs).permute(0, 3, 1, 2)
+
+
+def fused_rdbs(net: nn.Module) -> list:
+    """``net``'s RDB5Cs that run ``fused_rdb``, in module order: those a
+    weight plan covers (a normed RDB runs the literal chain)."""
+    return [m for m in net.modules() if isinstance(m, RDB5C) and m.fused]
+
+
+def _weight_plan(net: nn.Module, dtype: torch.dtype) -> Optional[RDBWeightPlan]:
+    """``net``'s weight plan where one applies to this forward: grad mode,
+    bf16, fused RDBs whose parameters are on the card and want gradients.
+    ``net._rdb_plan`` keeps (its fused RDBs, the plan or None); the plan is
+    made on first use and whenever a parameter was replaced or moved,
+    outside a CUDA graph's capture (which cannot copy the plan's table from
+    the host)."""
+    if dtype != torch.bfloat16 or not torch.is_grad_enabled():
+        return None
+    if net._rdb_plan is None:
+        net._rdb_plan = (fused_rdbs(net), None)
+    rdbs, plan = net._rdb_plan
+    weights = [tuple(c.weight for c in m.convs()) for m in rdbs]
+    if not rdbs or not weights[0][0].is_cuda or not any(
+            w.requires_grad for ws in weights for w in ws):
+        return None
+    if plan is not None and plan.current(weights):
+        return plan
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    plan = RDBWeightPlan(weights, dtype)
+    net._rdb_plan = (rdbs, plan)
+    return plan
+
+
+@contextlib.contextmanager
+def prepared_rdb_weights(net: nn.Module, dtype: torch.dtype):
+    """Around a generator's forward: where a weight plan applies
+    (``_weight_plan``), one launch prepares every fused RDB's bf16 kernels
+    and dgrad weight images from the parameters as they are now, and each
+    RDB holds its slot (``RDB5C._prepared``) for the forward's duration;
+    elsewhere nothing. One preparation is live per network until its
+    backward: the plan's buffers are shared by every forward, so a second
+    forward before the first one's backward leaves that backward to raise
+    (``RDBWeightPlan.prepare``)."""
+    plan = _weight_plan(net, dtype)
+    if plan is None:
+        yield
+        return
+    plan.prepare()
+    rdbs = net._rdb_plan[0]
+    for m, slot in zip(rdbs, plan.slots):
+        m._prepared = slot
+    try:
+        yield
+    finally:
+        for m in rdbs:
+            m._prepared = None
 
 
 class ResidualBlock(nn.Module):

@@ -25,6 +25,7 @@ from dasr_tpu_torch.nn.blocks import (
     RRDBResidualConvConcat,
     ShortcutBlock,
     pixelshuffle_block,
+    prepared_rdb_weights,
     sequential,
     upconv,
 )
@@ -53,6 +54,8 @@ class RRDBNet(nn.Module):
     rewrites of the same math (phase-conv tail, ``lax.scan`` trunk); they are
     accepted and ignored."""
 
+    _rdb_plan = None  # (fused RDBs, weight plan): prepared_rdb_weights'
+
     def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 23,
                  gc: int = 32, upscale: int = 4, norm_type: Optional[str] = None,
                  act_type: str = "leakyrelu", mode: str = "CNA",
@@ -74,7 +77,8 @@ class RRDBNet(nn.Module):
 
     def forward(self, x):
         """x (B, in_nc, H, W) -> (B, out_nc, upscale*H, upscale*W) in ``dtype``."""
-        return self.model(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
+        with prepared_rdb_weights(self, self.dtype):
+            return self.model(x.to(self.dtype).contiguous(memory_format=torch.channels_last))
 
 
 def init_rrdb_law_(net: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
@@ -189,15 +193,18 @@ class _ConditionedRRDBNet(nn.Module):
     These generators have no published ``.pth`` layout; their parameter
     names are the port's own (``checkpoints`` carries JAX trees to them)."""
 
+    _rdb_plan = None  # (fused RDBs, weight plan): prepared_rdb_weights'
+
     def init_weights(self, generator: Optional[torch.Generator] = None):
         return init_rrdb_law_(self, generator)
 
     def forward(self, x, w):
         """x (B, in_nc, H, W), w (B, 1, H, W) -> (B, out_nc, upscale*H,
         upscale*W) in ``dtype``."""
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        fea = self.fea_conv(x)
-        return self.tail(fea + self.lr_conv(self._trunk(fea, w.to(self.dtype))))
+        with prepared_rdb_weights(self, self.dtype):
+            x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+            fea = self.fea_conv(x)
+            return self.tail(fea + self.lr_conv(self._trunk(fea, w.to(self.dtype))))
 
 
 class RRDBNetResidualConv(_ConditionedRRDBNet):

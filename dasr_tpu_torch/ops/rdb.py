@@ -14,10 +14,11 @@ package), and the custom VJP around it (``pallas_rdb.py:276-294``).
 Backward, two paths that share no logic, chosen by the input's device and type:
 
 * bf16 on the card: hand-written kernels (``dasr_rdb_backward`` in
-  ``csrc/rdb.cu``, eight launches an RDB) that read what the forward kept,
-  x and the growth buffer x_1..x_4, and recompute nothing: the dgrad
-  weight images, the reverse dense chain on the forward's machinery
-  (dv_4..dv_1 into a gradient growth buffer, then dx), and the weight and
+  ``csrc/rdb.cu``, seven launches an RDB) that read what the forward kept,
+  x and the growth buffer x_1..x_4, and recompute nothing: on the dgrad
+  weight images (made by the network's weight plan, or else by one launch
+  more), the reverse dense chain on the forward's machinery (dv_4..dv_1
+  into a gradient growth buffer, then dx), and the weight and
   bias gradients of all five levels, written in f32 in the parameters'
   OIHW layout. ``rdb_backward_reference`` is its plain version. The TPU
   kernel had no backward kernel (JAX's custom VJP is XLA's stock chain), so
@@ -59,10 +60,12 @@ the minimum and puts the FLOPs on the tensor cores:
   the weights from there, and all nine taps read the one staged window
   through shifted ``wgmma`` descriptors. ``WgmmaPlan`` states that layout;
   the CPU tests emulate the products through it and ``chip_smoke.py`` holds
-  it against the plan compiled into the kernel. Each level is a
-  programmatic dependent launch, so its blocks set up while the previous
-  level drains. The epilogue runs on the accumulators: bias + leaky ReLU or
-  the residual, rounded once, 16-byte stores;
+  it against the plan compiled into the kernel. Each level but the first
+  is a programmatic dependent launch, so its blocks set up while the
+  previous level drains (a first level chained to the previous RDB let
+  early blocks queue up across RDBs, 0.33 ms of the train step's forward).
+  The epilogue runs on the accumulators: bias + leaky ReLU or the
+  residual, rounded once, 16-byte stores;
 * f32 runs on the same machinery with split-TF32 products (``rdb_level_tf32x3``,
   CUTLASS's "3xTF32"): each operand v is split into hi = tf32(v) and
   lo = tf32(v - hi), both rounded to nearest, and each product is
@@ -85,7 +88,12 @@ Weights are HWIO, which read as (9 * cin, cout) matrices with rows ordered
 (dy, dx, ci), the layout of ``_im2col_weights``; ``prepare_weights`` makes
 them once per parameter version, with the f32 kernel's split images beside
 them on the card, and the modules cache the result; under autograd the split
-images are made on every call. Not done yet, and left to later PRs: fusing
+images are made on every call. Under autograd at bf16 on the card a
+generator's forward first fills its ``RDBWeightPlan`` (``csrc/rdb.cu:
+rdb_prep_weights``, one launch for every RDB: the bf16 HWIO kernels and the
+backward's dgrad weight images, from one read of the f32 parameters), and
+each RDB takes its slot; a call without one casts its kernels itself and
+its backward makes its images. Not done yet, and left to later PRs: fusing
 levels 1-4 per tile (worth it once the kernel nears the five-launch floor),
 a persistent grid. The Pallas design (a whole RDB per tile) does not fit:
 five on-chip activations of a 16x16 tile already take ~196 KiB of the 227 KB
@@ -188,9 +196,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from dasr_tpu_torch.utils import trace
 
 TOLERANCES = {
     "kernel_f32": (1e-4, 0.0),
@@ -211,9 +222,11 @@ TOLERANCES = {
 }
 
 LAUNCHES_PER_RDB = 5  # one kernel launch per level
-# the bf16 backward: the dgrad weight images, five reverse-chain levels,
-# the weight gradients' partial sums and their reduction
-BACKWARD_LAUNCHES = 8
+# the bf16 backward: five reverse-chain levels, the weight gradients'
+# partial sums and their reduction; and, where no weight plan made them
+# (``RDBWeightPlan``), the dgrad weight images first
+BACKWARD_LAUNCHES = 7
+IMAGE_LAUNCHES = 1
 # kernel codes of the C entry point: f32 split-TF32 wgmma, bf16 wgmma
 _KERNEL_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -446,6 +459,15 @@ class PreparedKernels(tuple):
     split = None
 
 
+class PlannedKernels(tuple):
+    """The five f32 HWIO kernel views ``RDB5C`` hands ``fused_rdb`` under
+    autograd, with ``prepared``: the RDB's slot of a ``RDBWeightPlan``
+    (bf16 HWIO kernels, dgrad weight images) filled for this forward, which
+    the bf16 kernels take in place of casting their own."""
+
+    prepared = None
+
+
 def kernel_plan(cout, tile, dtype=torch.bfloat16):
     """The plan compiled into the bf16 kernel (``WgmmaPlan.vector``) or the
     f32 kernel (``F32Plan.vector``) for (cout, tile code). Loads the
@@ -552,6 +574,140 @@ def dgrad_weights(kernels):
     return out
 
 
+def image_offsets(nc=64, gc=32):
+    """[element offset of each of an RDB's five dgrad weight images] and
+    their total: the images one after another, as ``dgrad_weights`` lists
+    them and ``csrc/rdb.cu:rdb_dgrad_weights`` writes them."""
+    out, off = [], 0
+    for j in range(5):
+        out.append(off)
+        off += 9 * (nc + j * gc) * (gc if j < 4 else nc)
+    return out, off
+
+
+PREP_TILE = 32  # output and input channels of the prep kernel's tile (kPrepTile)
+PREP_ROW = 8  # int64 words of a unit of the prep kernel's table (kPrepRow)
+PREP_TILES_PER_BLOCK = 4  # the most tiles a block of the prep kernel walks
+
+
+def prep_bytes(n_weights, itemsize=2):
+    """Bytes the weight preparation moves for ``n_weights`` f32 weights: each
+    read once, and written once as a kernel and once as an image element."""
+    return n_weights * (4 + 2 * itemsize)
+
+
+class RDBWeightPlan:
+    """Every bf16 RDB of a network prepared at once, once a forward: the
+    host side of ``csrc/rdb.cu:rdb_prep_weights``.
+
+    ``weights``: per RDB, its five f32 OIHW conv kernels (the parameters,
+    in any strides), in the network's order. The plan owns two buffers in
+    ``dtype``, made once: ``kernels``, every RDB's five contiguous HWIO
+    kernels, and ``images``, every RDB's five dgrad weight images
+    (``dgrad_weights``' layout), packed in order (nc and gc multiples of
+    32 start every block 32-byte aligned, as the kernels need). ``slots[r]``
+    is RDB r's (five HWIO kernel views, image view), what ``fused_rdb``
+    takes in place of casting its own (``PlannedKernels``). ``table``: a
+    row of ``PREP_ROW`` int64 words a parameter (a unit): its pointer, its
+    OIHW strides, the offsets of its HWIO kernel and of its RDB's images,
+    and its level; ``device_table`` the same on the card (None on the CPU,
+    where ``prepare`` runs the plain version). The kernel's grid is
+    (``blocks``, units): a unit's 32 x 32 tiles (``tiles(k)`` at level k)
+    walked with a stride of ``blocks``, at most ``PREP_TILES_PER_BLOCK``
+    each. ``current`` says whether the parameters still have the addresses
+    and strides the table holds.
+
+    One preparation is live at a time: the buffers are shared by every
+    forward that takes the slots, and ``_FusedRDB`` keeps views of them for
+    its backward. So each ``prepare`` bumps the buffers' autograd version,
+    and the backward of a forward made before the last ``prepare`` raises
+    (autograd's check of an in-place change to a saved tensor) instead of
+    running on another preparation's kernels and images."""
+
+    def __init__(self, weights: Sequence[Sequence[torch.Tensor]], dtype=torch.bfloat16):
+        self.weights = [tuple(ws) for ws in weights]
+        if not self.weights or any(len(ws) != 5 for ws in self.weights):
+            raise ValueError("rdb weight plan: takes five kernels for each of one or more RDBs")
+        gc, nc = self.weights[0][0].shape[0], self.weights[0][4].shape[0]
+        device = self.weights[0][0].device
+        if nc % PREP_TILE or gc % PREP_TILE:
+            raise ValueError(f"rdb weight plan: nc and gc must be multiples of {PREP_TILE} "
+                             f"(nc {nc}, gc {gc})")
+        self.nc, self.gc, self.dtype = nc, gc, dtype
+        _, n_images = image_offsets(nc, gc)
+        rows, spans, ker, img = [], [], 0, 0
+        for r, ws in enumerate(self.weights):
+            kers = []
+            for k, w in enumerate(ws):
+                cin, cout = nc + k * gc, gc if k < 4 else nc
+                if (tuple(w.shape) != (cout, cin, 3, 3) or w.dtype != torch.float32
+                        or w.device != device):
+                    raise ValueError(f"rdb weight plan: RDB {r} kernel {k} must be f32 "
+                                     f"({cout}, {cin}, 3, 3) on {device}, got {w.dtype} "
+                                     f"{tuple(w.shape)} on {w.device}")
+                rows.append([w.data_ptr(), *w.stride(), ker, img, k])
+                kers.append((ker, cin, cout))
+                ker += 9 * cin * cout
+            spans.append((kers, img))
+            img += n_images
+        self.blocks = -(-max(self.tiles(k) for k in range(5)) // PREP_TILES_PER_BLOCK)
+        self.table = torch.tensor(rows, dtype=torch.int64).reshape(-1, PREP_ROW)
+        self.kernels = torch.empty(ker, dtype=dtype, device=device)
+        self.images = torch.empty(img, dtype=dtype, device=device)
+        self.slots = [(tuple(self.kernels[o:o + 9 * cin * cout].view(3, 3, cin, cout)
+                             for o, cin, cout in kers), self.images[i:i + n_images])
+                      for kers, i in spans]
+        self.fingerprint = self._fingerprint(self.weights)
+        self.device_table = self.table.to(device) if device.type == "cuda" else None
+
+    def tiles(self, k: int) -> int:
+        """The prep kernel's tiles of a level-k unit (k = 0..4)."""
+        cin, cout = self.nc + k * self.gc, self.gc if k < 4 else self.nc
+        return 9 * (cin // PREP_TILE) * (cout // PREP_TILE)
+
+    @staticmethod
+    def _fingerprint(weights):
+        return tuple((w.data_ptr(), w.stride()) for ws in weights for w in ws)
+
+    def current(self, weights: Sequence[Sequence[torch.Tensor]]) -> bool:
+        """Whether ``weights`` are the plan's and still where it reads them."""
+        return len(weights) == len(self.weights) and self._fingerprint(weights) == \
+            self.fingerprint
+
+    def prepare(self) -> None:
+        """Fill ``kernels`` and ``images`` from the parameters as they are now:
+        on the card one launch on the current stream, on the CPU the plain
+        version (``prepare_reference``). Either bumps the buffers' autograd
+        version (the launch writes through raw pointers, so here by hand)."""
+        from dasr_tpu_torch.kernels import build
+
+        if self.device_table is None:
+            prepare_reference(self)
+            return
+        torch.autograd.graph.increment_version(self.kernels)
+        torch.autograd.graph.increment_version(self.images)
+        lib = build.load()
+        device = self.device_table.device
+        with torch.cuda.device(device):
+            rc = lib.dasr_rdb_prep_weights(
+                self.device_table.data_ptr(), len(self.table), self.blocks, self.nc, self.gc,
+                self.kernels.data_ptr(), self.images.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+        build.check(lib, rc, "rdb weight plan")
+        trace.count("rdb_prep.launches")
+
+
+def prepare_reference(plan: RDBWeightPlan) -> None:
+    """Plain PyTorch version of ``rdb_prep_weights``: each RDB's kernels cast
+    to the plan's type as HWIO, and ``dgrad_weights`` of them, written into
+    the plan's slots."""
+    with torch.no_grad():
+        for ws, (ks, img) in zip(plan.weights, plan.slots):
+            for k, w in zip(ks, ws):
+                k.copy_(w.permute(2, 3, 1, 0))
+            img.copy_(torch.cat([i.flatten() for i in dgrad_weights(ks)]))
+
+
 def rdb_backward_reference(x, growth, kernels, dy):
     """Plain PyTorch version of the bf16 backward: the reverse dense chain
     over the saved growth buffer. Returns (dx NHWC in x's dtype, the five
@@ -638,26 +794,35 @@ class _FusedRDB(torch.autograd.Function):
     in any float type (RDB5C hands over its f32 parameters' HWIO views); the
     forward casts them to x's dtype itself, so autograd records no cast.
 
-    bf16 on the card: the forward keeps x, the growth buffer it filled and
-    the cast kernels; the backward launches the backward kernels on them
-    and returns the kernel gradients in f32 (cast to a kernel's own type
-    where that is not f32). Elsewhere, as JAX's ``_fwd`` and ``_bwd``: the
-    forward keeps x and the ten weights, and the backward recomputes
+    bf16 on the card: the forward takes the bf16 kernels and dgrad weight
+    images that a weight plan made for this forward (``prepared``, counted
+    in ``fused_rdb.prepared``), or else casts the kernels itself
+    (``fused_rdb.cast``); it keeps x, the growth buffer it filled, the
+    images where it has them and the bf16 kernels, and the backward
+    launches the backward kernels on them (the images first where it has
+    none) and returns the kernel gradients in f32 (cast to a kernel's own
+    type where that is not f32). Elsewhere, as JAX's ``_fwd`` and ``_bwd``:
+    the forward keeps x and the ten weights, and the backward recomputes
     ``rdb_chain`` from them and returns its VJP."""
 
     @staticmethod
-    def forward(ctx, x, *weights):
+    def forward(ctx, x, prepared, *weights):
         kernels, biases = weights[:5], weights[5:]
         ctx.on_kernels = x.is_cuda and x.dtype == torch.bfloat16
-        if x.is_cuda:
+        images = None
+        if ctx.on_kernels and prepared is not None:
+            kernels, images = prepared
+            fused_rdb.prepared += 1
+        elif x.is_cuda:
             kernels = tuple(k.contiguous() if k.dtype == x.dtype
                             else torch.empty(k.shape, dtype=x.dtype, device=k.device).copy_(k)
                             for k in kernels)
+            fused_rdb.cast += int(ctx.on_kernels)
         if not ctx.on_kernels:
             ctx.save_for_backward(x, *weights)
             return _forward(x, kernels, biases)
         y, growth = _launch(x, kernels, biases)
-        ctx.save_for_backward(x, growth, *kernels)
+        ctx.save_for_backward(x, growth, images, *kernels)
         ctx.kernel_dtypes = [k.dtype for k in weights[:5]]
         return y
 
@@ -667,20 +832,21 @@ class _FusedRDB(torch.autograd.Function):
         grad = grad.contiguous()
         if ctx.on_kernels:
             fused_rdb.bwd_kernel += 1
-            x, growth, *kernels = ctx.saved_tensors
-            dx, dks, dbs = _launch_backward(x, growth, kernels, grad)
+            x, growth, images, *kernels = ctx.saved_tensors
+            dx, dks, dbs = _launch_backward(x, growth, kernels, images, grad)
             dks = [d.to(dt) for d, dt in zip(dks, ctx.kernel_dtypes)]
             return tuple(g if need else None
-                         for g, need in zip((dx, *dks, *dbs), ctx.needs_input_grad))
+                         for g, need in zip((dx, None, *dks, *dbs), ctx.needs_input_grad))
         if grad.is_cuda:
             fused_rdb.bwd_chain += 1
-        saved = ctx.saved_tensors
-        leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
+        needs = ctx.needs_input_grad[:1] + ctx.needs_input_grad[2:]
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
         wanted = [t for t in leaves if t.requires_grad]
         with torch.enable_grad():
             out = rdb_chain(leaves[0], leaves[1:6], leaves[6:])
             got = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(got) if t.requires_grad else None for t in leaves)
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        return (grads[0], None, *grads[1:])
 
 
 def fused_rdb(x, kernels, biases):
@@ -692,25 +858,30 @@ def fused_rdb(x, kernels, biases):
     level, or raises on what the kernel does not take: there is no
     fallback. When a gradient is wanted, the call goes through
     ``_FusedRDB`` (whose kernels may then be of another float type, such as
-    the f32 parameters): its backward is the backward kernels at bf16 on
-    the card, else the VJP of ``rdb_chain``.
+    the f32 parameters, and may carry a weight plan's prepared bf16 kernels
+    and images, ``PlannedKernels``): its backward is the backward kernels at
+    bf16 on the card, else the VJP of ``rdb_chain``.
     """
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *kernels, *biases)
     ):
-        return _FusedRDB.apply(x, *kernels, *biases)
+        return _FusedRDB.apply(x, getattr(kernels, "prepared", None), *kernels, *biases)
     return _forward(x, kernels, biases)
 
 
 # forward kernel launches on the card since the last reset: of either kernel,
 # and of the f32 one (rdb_level_tf32x3) alone; the backward kernels'
-# launches; and backward calls on the card, through the kernels and through
-# rdb_chain (utils/trace.py:counters reports all five)
+# launches; backward calls on the card, through the kernels and through
+# rdb_chain; and bf16 calls on the card under autograd that took a weight
+# plan's kernels and images, or cast their own (utils/trace.py:counters
+# reports all seven)
 fused_rdb.launches = 0
 fused_rdb.launches_f32 = 0
 fused_rdb.backward_launches = 0
 fused_rdb.bwd_kernel = 0
 fused_rdb.bwd_chain = 0
+fused_rdb.prepared = 0
+fused_rdb.cast = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -781,12 +952,33 @@ def _launch(x, kernels, biases):
     return y, growth
 
 
-def _launch_backward(x, growth, kernels, dy):
-    """The bf16 backward's eight launches on x's current stream, in one call
-    into the library, from the forward's x, growth buffer and HWIO kernels
-    (as ``_launch`` took them) and the output's contiguous gradient ``dy``.
-    Returns (dx, the five kernel gradients as HWIO views of their OIHW f32
-    buffers, the five f32 bias gradients)."""
+def launch_images(kernels):
+    """The five dgrad weight images of one bf16 RDB from its forward's HWIO
+    kernels (contiguous, on the card), one launch of
+    ``csrc/rdb.cu:rdb_dgrad_weights`` on the current stream: what the
+    backward makes where no weight plan made them (``dgrad_weights`` is the
+    plain version)."""
+    from dasr_tpu_torch.kernels import build
+
+    lib = build.load()
+    nc, gc = kernels[4].shape[-1], kernels[0].shape[-1]
+    device = kernels[0].device
+    images = torch.empty(image_offsets(nc, gc)[1], dtype=kernels[0].dtype, device=device)
+    with torch.cuda.device(device):
+        rc = lib.dasr_rdb_dgrad_weights((ctypes.c_void_p * 5)(*(k.data_ptr() for k in kernels)),
+                                        images.data_ptr(), nc, gc,
+                                        torch.cuda.current_stream(device).cuda_stream)
+    build.check(lib, rc, "fused_rdb backward images")
+    return images
+
+
+def _launch_backward(x, growth, kernels, images, dy):
+    """The bf16 backward's launches on x's current stream, from the
+    forward's x, growth buffer and HWIO kernels (as ``_launch`` took them),
+    the five dgrad weight images (None: made here from the kernels, one
+    launch more) and the output's contiguous gradient ``dy``. Returns (dx,
+    the five kernel gradients as HWIO views of their OIHW f32 buffers, the
+    five f32 bias gradients)."""
     from dasr_tpu_torch.kernels import build
 
     lib = build.load()
@@ -800,18 +992,22 @@ def _launch_backward(x, growth, kernels, dy):
     sms = _sm_count(x.device.index)
     splits = wgrad_splits(b, h, w, nc, gc, sms)
     layout, total = grad_layout(nc, gc)
-    img = torch.empty(sum(k.numel() for k in kernels), dtype=x.dtype, device=x.device)
     dv = torch.empty_like(growth)  # the gradient growth buffer: dv_4 | dv_3 | dv_2 | dv_1
     dx = torch.empty_like(x)
     ws = torch.empty((splits, total), dtype=torch.float32, device=x.device)
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
-    ptrs = ctypes.c_void_p * 5
+    # the plan's images were written at the forward's start: the levels may
+    # read them before the previous launch finished; this call's may not
+    ready = images is not None
+    if not ready:
+        images = launch_images(kernels)
+        fused_rdb.backward_launches += IMAGE_LAUNCHES
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dasr_rdb_backward(
-            x.data_ptr(), growth.data_ptr(), ptrs(*(k.data_ptr() for k in kernels)),
-            dy.data_ptr(), img.data_ptr(), dv.data_ptr(), dx.data_ptr(), ws.data_ptr(),
-            grads.data_ptr(), b, h, w, nc, gc, tile_plan(b, h, w, sms), splits,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), growth.data_ptr(), images.data_ptr(), int(ready), dy.data_ptr(),
+            dv.data_ptr(), dx.data_ptr(), ws.data_ptr(), grads.data_ptr(), b, h, w, nc, gc,
+            tile_plan(b, h, w, sms), splits, stream,
         )
     build.check(lib, rc, "fused_rdb backward")
     fused_rdb.backward_launches += BACKWARD_LAUNCHES

@@ -17,7 +17,9 @@
   ``credit`` adds a ``(name, n)`` delta to either store. The Adam
   step counts ``adam.kernel_tensors`` (tensors updated by the kernel of
   ``ops/adam.py``), ``adam.torch_tensors`` (by ``torch.optim.Adam``) and
-  ``adam.launches`` (the kernel's launches) in ``NetState.update``.
+  ``adam.launches`` (the kernel's launches) in ``NetState.update``;
+  ``ops/rdb.py`` counts ``rdb_prep.launches`` (the RDB weight plan's
+  launches).
 * **Device phases** (``phase(name)``, ``end_phases()``, ``phase_ms()``):
   marks of where each part of a train step starts on the current stream,
   made only while tracing is on. In a process that has initialised CUDA a
@@ -115,13 +117,16 @@ def count(name: str, n: int = 1) -> int:
 def counters() -> Dict[str, int]:
     """Every counter of the process, with the RDB kernels' counts:
     ``fused_rdb.launches`` and ``fused_rdb.launches_f32`` (forward
-    launches), ``fused_rdb.backward_launches``, and the backward calls on
+    launches), ``fused_rdb.backward_launches``, the backward calls on
     the card that took the kernels (``fused_rdb.bwd_kernel``) or
-    ``rdb_chain`` (``fused_rdb.bwd_chain``)."""
+    ``rdb_chain`` (``fused_rdb.bwd_chain``), and the bf16 calls on the card
+    under autograd that took a weight plan's kernels (``fused_rdb.prepared``)
+    or cast their own (``fused_rdb.cast``)."""
     from dasr_tpu_torch.ops.rdb import fused_rdb
 
     return dict(_counts, **{f"fused_rdb.{name}": getattr(fused_rdb, name) for name in (
-        "launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain")})
+        "launches", "launches_f32", "backward_launches", "bwd_kernel", "bwd_chain", "prepared",
+        "cast")})
 
 
 def credit(counts: Iterable[Tuple[str, int]]) -> None:

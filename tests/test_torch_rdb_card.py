@@ -1,4 +1,6 @@
-"""The port's CUDA RDB kernel on the card against its plain version.
+"""The port's CUDA RDB kernel on the card against its plain version, and
+the weight plan's one launch (``rdb_prep_weights``) against the per-call
+casts and dgrad weight images it replaces.
 
 Imports neither jax nor the JAX package, so it also runs where only the
 port is installed, without the suite's conftest:
@@ -12,16 +14,23 @@ import pytest
 import torch
 
 from dasr_tpu_torch.core.device import resolve_device
+from dasr_tpu_torch.nn.blocks import fused_rdbs
+from dasr_tpu_torch.nn.generators import RRDBNet, RRDBNetResidualConv
 from dasr_tpu_torch.ops.rdb import (
     BACKWARD_LAUNCHES,
+    IMAGE_LAUNCHES,
     LAUNCHES_PER_RDB,
     TILES,
     TOLERANCES,
+    RDBWeightPlan,
+    dgrad_weights,
     fused_rdb,
     fused_rdb_reference,
+    launch_images,
     prepare_weights,
     tile_plan,
 )
+from dasr_tpu_torch.utils import trace
 
 
 @pytest.fixture
@@ -123,8 +132,9 @@ def test_backward_kernels_match_autograd_through_plain(rng, shape, tile):
     against autograd through the plain version on the same tensors (cuDNN
     off), dL/dx and the ten parameter gradients each within ``grad_bf16``
     in the Frobenius norm; a second run gives the same bits; one forward
-    and backward count the forward's five launches, the backward's eight
-    and one backward through the kernels."""
+    and backward, a bare call with no weight plan, count the forward's five
+    launches, the backward's seven and its weight images' one, one backward
+    through the kernels and one call that cast its own kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     assert TILES[tile_plan(*shape)] == tile
@@ -139,12 +149,12 @@ def test_backward_kernels_match_autograd_through_plain(rng, shape, tile):
         leaves = [t.clone().requires_grad_() for t in base]
         return torch.autograd.grad(fn(leaves[0], leaves[1:6], leaves[6:]), leaves, g)
 
-    names = ("launches", "backward_launches", "bwd_kernel", "bwd_chain")
+    names = ("launches", "backward_launches", "bwd_kernel", "bwd_chain", "cast", "prepared")
     before = [getattr(fused_rdb, n) for n in names]
     got = run(fused_rdb)
     torch.cuda.synchronize()
     counts = [getattr(fused_rdb, n) - c for n, c in zip(names, before)]
-    assert counts == [LAUNCHES_PER_RDB, BACKWARD_LAUNCHES, 1, 0]
+    assert counts == [LAUNCHES_PER_RDB, BACKWARD_LAUNCHES + IMAGE_LAUNCHES, 1, 0, 1, 0]
     again = run(fused_rdb)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
@@ -155,3 +165,99 @@ def test_backward_kernels_match_autograd_through_plain(rng, shape, tile):
         assert a.dtype == w.dtype and a.shape == w.shape, i
         rel = ((a.float() - w.float()).norm() / w.float().norm()).item()
         assert rel <= rtol, (i, rel)
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_prep_kernel_equals_per_call_casts_and_images(layout):
+    """One launch of rdb_prep_weights over an Adaptive generator's 6 RDBs
+    (nf 64), its parameters channels_last or OIHW-contiguous: every RDB's
+    bf16 HWIO kernels equal the per-call casts, and its dgrad weight images
+    rdb_dgrad_weights on those casts and the plain version, bit for bit;
+    one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+    torch.manual_seed(0)
+    net = RRDBNetResidualConv(nf=64, nb=1, gc=32, nb_ada=1)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.normal_(0, 0.05)
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    net = net.to("cuda", memory_format=fmt)
+    plan = RDBWeightPlan([tuple(c.weight for c in m.convs()) for m in fused_rdbs(net)])
+    before = trace.counters().get("rdb_prep.launches", 0)
+    plan.prepare()
+    torch.cuda.synchronize()
+    assert trace.counters()["rdb_prep.launches"] - before == 1
+    for ws, (ks, img) in zip(plan.weights, plan.slots):
+        cast = [torch.empty((3, 3) + tuple(w.shape[1::-1]), dtype=torch.bfloat16,
+                            device="cuda").copy_(w.permute(2, 3, 1, 0)) for w in ws]
+        for a, b in zip(ks, cast):
+            assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(img), _bits(launch_images(cast)))
+        plain = torch.cat([m.flatten() for m in dgrad_weights([c.cpu() for c in cast])])
+        assert torch.equal(_bits(img.cpu()), _bits(plain))
+
+
+@pytest.mark.cuda
+def test_rrdbnet_step_gradients_equal_with_and_without_the_plan():
+    """One bf16 forward and backward of RRDBNet (nf 64, nb 2: 6 RDBs) on
+    the card: through the generator's forward (its weight plan, one prep
+    launch, 6 RDB calls that took it and 7 backward launches each) and
+    through its module tree alone (every RDB casts its own kernels and its
+    backward makes its images, 8 launches each) give the same output and
+    parameter gradients bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+    torch.manual_seed(0)
+    net = RRDBNet(nf=64, nb=2, gc=32, dtype=torch.bfloat16)
+    net.init_weights(torch.Generator().manual_seed(0))
+    net = net.to("cuda", memory_format=torch.channels_last)
+    x = torch.rand(3, 3, 24, 20, device="cuda")
+    g = torch.randn(3, 3, 96, 80, device="cuda").bfloat16()
+    params = list(net.parameters())
+    names = ("fused_rdb.prepared", "fused_rdb.cast", "rdb_prep.launches",
+             "fused_rdb.backward_launches")
+
+    def run(fn):
+        before = trace.counters()
+        out = fn()
+        grads = torch.autograd.grad(out, params, g)
+        torch.cuda.synchronize()
+        after = trace.counters()
+        return out, grads, [after.get(n, 0) - before.get(n, 0) for n in names]
+
+    planned = run(lambda: net(x))
+    bare = run(lambda: net.model(x.bfloat16().contiguous(memory_format=torch.channels_last)))
+    assert planned[2] == [6, 0, 1, 6 * BACKWARD_LAUNCHES]
+    assert bare[2] == [0, 6, 0, 6 * (BACKWARD_LAUNCHES + IMAGE_LAUNCHES)]
+    assert torch.equal(planned[0], bare[0])
+    for a, b in zip(planned[1], bare[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_a_second_forward_before_the_backward_raises():
+    """The weight plan's buffers hold one preparation: a second bf16 forward
+    of RRDBNet (nf 64, nb 1) before the first one's backward makes that
+    backward raise instead of running on the second preparation, and the
+    second forward's backward runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+    net = RRDBNet(nf=64, nb=1, gc=32, dtype=torch.bfloat16)
+    net.init_weights(torch.Generator().manual_seed(0))
+    net = net.to("cuda", memory_format=torch.channels_last)
+    x = torch.rand(3, 3, 24, 20, device="cuda")
+    params = list(net.parameters())
+    first, second = net(x), net(x)
+    with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+        torch.autograd.grad(first.float().sum(), params)
+    grads = torch.autograd.grad(second.float().sum(), params)
+    assert all(torch.isfinite(g).all() for g in grads)

@@ -2,9 +2,11 @@
 eager loop, at a small size: the DASR step (RRDBNet nf 32 nb 1 gc 32, so
 the RDB kernel runs; LPIPS alex; HR 32) and the DSN step (DeResnet nb 1,
 FSD, LPIPS alex, crop 128), f32, two windows of 4 steps from one state;
-the DASR Adaptive step (nf 32 nb 1 ada_nb 1, the gau patch D, bf16, with
-and without the patch D's Adam step) bit for bit; and a dropped graphed
-trainer leaves no device memory behind.
+the DASR step at bf16 and the DASR Adaptive step (nf 32 nb 1 ada_nb 1, the
+gau patch D, bf16, with and without the patch D's Adam step) bit for bit,
+each generator forward one launch of its RDB weight plan and no RDB
+casting its own kernels; and a dropped graphed trainer leaves no device
+memory behind.
 
 Imports neither jax nor the JAX package, so it runs where only the port is
 installed, without the suite's conftest:
@@ -39,13 +41,13 @@ def _bank(rng, n, hw, c=3, f32=False):
     return bank.upload(bank.ImageBank(data, np.array([hw] * n, np.int32)), "cuda")
 
 
-def _trainers(kind):
+def _trainers(kind, dtype=torch.float32):
     """Two trainers from one seeded state on the card, and their window."""
     rng = np.random.default_rng(0)
     if kind == "dasr":
         banks = bank.SrnBanks(_bank(rng, 3, (12, 14)), _bank(rng, 3, (48, 56)),
                               _bank(rng, 2, (10, 9)), _bank(rng, 3, (12, 14), 1, f32=True))
-        cfg = SRNConfig(nf=32, nb=1, gc=32, d_nf=16, seed=5, lr_steps=(3,))
+        cfg = SRNConfig(nf=32, nb=1, gc=32, d_nf=16, seed=5, lr_steps=(3,), dtype=dtype)
         make = lambda: SRNTrainer(cfg, "cuda")  # noqa: E731
 
         def window(tr, start, idx):
@@ -146,12 +148,24 @@ def test_adaptive_replayed_windows_equal_the_eager_loop_bit_for_bit(use_patchd_o
     ``use_patchD_opt`` the patch D's Adam step first): two replayed windows
     of 4 steps equal the eager loop's bit for bit in the metrics, every
     network's params and Adam moments, with the same kernel launches (30 a
-    generator forward), the bf16 backward through the kernels, and every
+    generator forward, and one launch of its weight plan), the bf16
+    backward through the kernels, no RDB casting its own kernels, and every
     step but the first replayed."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     resolve_device("cuda")
     (graphed, eager), window, idx = _adaptive_trainers(use_patchd_opt)
+    _bit_for_bit(graphed, eager, window, idx, rdbs=6,
+                 nets=("g", "d_target") + (("patchd",) if use_patchd_opt else ()),
+                 patchd_loss=use_patchd_opt)
+
+
+def _bit_for_bit(graphed, eager, window, idx, rdbs, nets, patchd_loss=False):
+    """Two windows of ``graphed`` (replayed) and ``eager`` (the eager loop)
+    from one state give the same bits in the metrics, the params and Adam
+    moments of ``nets``, with the same counts: a generator forward of
+    ``rdbs`` RDBs (5 launches each) is one weight plan launch, and every RDB
+    takes the plan's kernels and runs the backward kernels."""
     counts, got, want = [], [], []
     for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
         before, replays = trace.counters(), trace.counters().get("graph.replays", 0)
@@ -159,22 +173,35 @@ def test_adaptive_replayed_windows_equal_the_eager_loop_bit_for_bit(use_patchd_o
             sink.append(window(tr, w * K, idx[w]))
         torch.cuda.synchronize()
         counts.append({k: v - before.get(k, 0) for k, v in trace.counters().items()
-                       if k.startswith("fused_rdb.")})
+                       if k.startswith(("fused_rdb.", "rdb_prep."))})
         if not is_eager:
             assert trace.counters()["graph.replays"] - replays == 2 * K - 1
     assert counts[0] == counts[1]
-    assert counts[0]["fused_rdb.launches"] == 2 * K * 3 * 2 * 5
+    assert counts[0]["fused_rdb.launches"] == 2 * K * rdbs * 5
     assert counts[0]["fused_rdb.bwd_kernel"] > 0 and counts[0]["fused_rdb.bwd_chain"] == 0
+    assert counts[0]["rdb_prep.launches"] == 2 * K
+    assert counts[0]["fused_rdb.prepared"] == 2 * K * rdbs and counts[0]["fused_rdb.cast"] == 0
     for g, w in zip(got, want):
-        assert set(g) == set(w) and ("loss/patch_D_gan_loss" in w) == use_patchd_opt
+        assert set(g) == set(w) and ("loss/patch_D_gan_loss" in w) == patchd_loss
         for k in w:
             assert torch.equal(g[k], w[k]), k
     assert graphed.state.step == eager.state.step == 2 * K
-    for name in ("g", "d_target") + (("patchd",) if use_patchd_opt else ()):
+    for name in nets:
         a, b = getattr(graphed.state, name), getattr(eager.state, name)
         for what in ("params", "exp_avg", "exp_avg_sq"):
             assert torch.equal(_flat(a, what), _flat(b, what)), (name, what)
         assert float(a.lr) == float(b.lr)
+
+
+@pytest.mark.cuda
+def test_bf16_dasr_replayed_windows_equal_the_eager_loop_bit_for_bit():
+    """The DASR step at bf16 (RRDBNet nf 32 nb 1: 3 RDBs), two replayed
+    windows of 4 steps against the eager loop, as the Adaptive step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+    (graphed, eager), window, idx = _trainers("dasr", torch.bfloat16)
+    _bit_for_bit(graphed, eager, window, idx, rdbs=3, nets=("g", "d_target"))
 
 
 @pytest.mark.cuda
