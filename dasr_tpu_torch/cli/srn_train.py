@@ -17,9 +17,10 @@ The JAX package's fast path, with its semantics:
   host never waits for the card between windows;
 * ``--transfer_uint8``: host batches as uint8, cast on the card (exact);
 * ``--device_bank``: the four stage-3 corpora resident on the card (three
-  for 'DASR_Adaptive_Model', whose DDM is computed online), each window
-  sampled there from a (K, B) index window (``_bank_gate`` says when the
-  host loader serves instead); epochs draw their order by
+  for 'DASR_Adaptive_Model', whose DDM is computed online; the LR and HR
+  corpora of 'LRHR' for 'srgan' / 'srragan'), each window sampled there
+  from a (K, B) index window (``_bank_gate`` says when the host loader
+  serves instead); epochs draw their order by
   ``np.random.default_rng((manual_seed, epoch)).permutation(n)`` with
   ``drop_last``;
 * ``val_device_metrics`` (and ``val_metrics_pad_bucket``): the validation
@@ -40,8 +41,10 @@ The JAX package's fast path, with its semantics:
 trainers 'sr', 'srgan' / 'srragan' and 'De_Resnet', and the DePatch wavelet
 GAN 'De_patch_wavelet_GAN' (dataset mode 'LRHR_Trans_Wavelet_GAN'), on the
 host loader one step a call (``--steps_per_call`` and ``--device_bank`` fall
-back, with the JAX CLI's lines); 'De_Resnet' and 'De_patch_wavelet_GAN'
-validate G(HR) against the LR image. As the
+back, with the JAX CLI's lines), but for 'srgan' / 'srragan' where G and D
+update every step (``D_update_ratio`` 1, ``D_init_iters`` 0, not
+'wgan-gp', as train_SRGAN.json ships): those take both; 'De_Resnet' and
+'De_patch_wavelet_GAN' validate G(HR) against the LR image. As the
 JAX CLI has no path for these models' reference formats, a ``.state``
 ``resume_state`` and ``save_ref_formats`` are refused for them.
 
@@ -87,8 +90,9 @@ def main(argv=None):
     parser.add_argument("--device_bank", action="store_true",
                         help="keep the decoded train corpus (HR, fake LR, real LR, DDMs) "
                              "on the device and sample each batch there; the DASR model with "
-                             "the LRHR_wavelet_unpair_fake_weights_EQ mode, or "
-                             "DASR_Adaptive_Model with LRHR_unpair (no DDMs), only; else, "
+                             "the LRHR_wavelet_unpair_fake_weights_EQ mode, "
+                             "DASR_Adaptive_Model with LRHR_unpair (no DDMs), or srgan / "
+                             "srragan with LRHR and dataroot_LR (LR, HR) only; else, "
                              "or over --device_bank_gb, or with images smaller than the "
                              "crop, the host loader serves")
     parser.add_argument("--device_bank_gb", type=float, default=12.0,
@@ -202,14 +206,19 @@ def main(argv=None):
         from dasr_tpu_torch.data.device_bank import build_bank, build_ddm_bank, epoch_rows, nbytes
         from dasr_tpu_torch.data.io import list_images
 
-        fake_dir, hr_dir, real_dir, ddm_dir = bank_dirs
         hr_size = int(train_ds_opt.get("HR_size", 128) or 128)
         lr_size = hr_size // int(opt.get("scale", 4))
         t0 = time.perf_counter()
-        fake_h = build_bank(fake_dir, min_size=lr_size)
-        banks = (fake_h, build_bank(hr_dir, min_size=hr_size),
-                 build_bank(real_dir, min_size=lr_size),
-                 build_ddm_bank(list_images(ddm_dir), fake_h.sizes) if ddm_dir else None)
+        if len(bank_dirs) == 2:  # the paired models: LR, HR
+            banks = (build_bank(bank_dirs[0], min_size=lr_size),
+                     build_bank(bank_dirs[1], min_size=hr_size))
+        else:
+            fake_dir, hr_dir, real_dir, ddm_dir = bank_dirs
+            fake_h = build_bank(fake_dir, min_size=lr_size)
+            banks = (fake_h, build_bank(hr_dir, min_size=hr_size),
+                     build_bank(real_dir, min_size=lr_size),
+                     build_ddm_bank(list_images(ddm_dir), fake_h.sizes) if ddm_dir else None)
+            del fake_h
         t1 = time.perf_counter()
         model.setup_device_bank(*banks, hr_size,
                                 use_flip=bool(train_ds_opt.get("use_flip", True)),
@@ -218,7 +227,7 @@ def main(argv=None):
             import torch
 
             torch.cuda.synchronize(device)
-        del banks, fake_h
+        del banks
         if world.is_main:
             print(f"device bank: {nbytes(model._banks) / 2**30:.3f} GiB resident (decode "
                   f"{t1 - t0:.2f} s, upload {time.perf_counter() - t1:.2f} s)", flush=True)
@@ -238,7 +247,9 @@ def main(argv=None):
 
     k_steps = max(1, args.steps_per_call)
     if k_steps > 1 and not model.supports_multi_step:
-        logger.info("steps_per_call > 1 requires a multi-step-capable model with "
+        reason = getattr(model, "single_step_reason", None)
+        logger.info(f"steps_per_call > 1: {reason}; falling back to per-step dispatch" if reason
+                    else "steps_per_call > 1 requires a multi-step-capable model with "
                     "G/D_update_inter == 1; falling back to per-step dispatch")
         k_steps = 1
     windowed = k_steps > 1 or bool(bank_dirs)
@@ -357,58 +368,74 @@ _NO_REFERENCE_FORMATS = ("DASR_Adaptive_Model", "sr", "srgan", "srragan", "De_Re
 
 
 def _bank_gate(opt, dataset_opt, budget_gb):
-    """The four dataroots (fake LR, HR, real LR, DDM; the DDM None for the
-    Adaptive model, which computes its weights online) when
-    ``--device_bank`` can serve this run, else None, printing why the host
-    loader serves (counterpart of the JAX CLI's ``_bank_gate``, with its
-    (model, mode) pairs). Besides the JAX gate's reasons (the model or mode,
-    G/D_update_inter != 1, a missing dataroot, an image smaller than its
-    crop, the budget), two repairs: the fake-LR, HR and DDM counts must be
-    equal (the device gather would read an index that is not there, where
-    the host loader fails), and the corpus must hold one batch (the host
-    loader's ``drop_last`` yields none)."""
+    """The dataroots when ``--device_bank`` can serve this run, else None,
+    printing why the host loader serves: the four of the DASR models (fake
+    LR, HR, real LR, DDM; the DDM None for the Adaptive model, which
+    computes its weights online), or the paired models' two (LR, HR)
+    (counterpart of the JAX CLI's ``_bank_gate``, with its (model, mode)
+    pairs, and 'srgan' / 'srragan' on 'LRHR' beside them). Besides the JAX
+    gate's reasons (the model or mode, G/D_update_inter != 1, a missing
+    dataroot, an image smaller than its crop, the budget), the paired
+    models' ``single_step_reason``, and two repairs: the fake-LR (LR), HR and
+    DDM counts must be equal (the device gather would read an index that is
+    not there, where the host loader fails), and the corpus must hold one
+    batch (the host loader's ``drop_last`` yields none)."""
     from dasr_tpu_torch.data.device_bank import bank_min_hw, bank_nbytes
     from dasr_tpu_torch.data.io import list_images
+    from dasr_tpu_torch.models.registry import srgan_config
+    from dasr_tpu_torch.train.srgan_trainer import single_step_reason
 
     def fall(reason):
         print(f"--device_bank: {reason}; using the host loader", flush=True)
         return None
 
     pairs = {"DASR": "LRHR_wavelet_unpair_fake_weights_EQ",
-             "DASR_Adaptive_Model": "LRHR_unpair"}
+             "DASR_Adaptive_Model": "LRHR_unpair", "srgan": "LRHR", "srragan": "LRHR"}
     model = opt.get("model")
     if model not in pairs:
         return fall(f"model [{model}] has no banked path")
     train = opt.get("train") or {}
-    if (train.get("G_update_inter", 1) or 1) != 1 or (train.get("D_update_inter", 1) or 1) != 1:
+    paired = pairs[model] == "LRHR"
+    if paired:
+        reason = single_step_reason(srgan_config(opt))
+        if reason:
+            return fall(f"model [{model}]: {reason}")
+    elif (train.get("G_update_inter", 1) or 1) != 1 or (train.get("D_update_inter", 1) or 1) != 1:
         return fall("G/D_update_inter != 1")
     mode = dataset_opt.get("mode")
     if mode != pairs[model]:
         return fall(f"dataset mode [{mode}] unsupported for model [{model}]")
-    keys = ("dataroot_fake_LR", "dataroot_HR", "dataroot_real_LR", "dataroot_fake_weights")
-    with_ddm = model == "DASR"
-    dirs = tuple(dataset_opt.get(k) for k in keys[:3 + with_ddm])
+    if paired:
+        keys, names = ("dataroot_LR", "dataroot_HR"), "LR/HR; a null LR is the host's bicubic"
+    else:
+        keys = ("dataroot_fake_LR", "dataroot_HR", "dataroot_real_LR",
+                "dataroot_fake_weights")[:3 + (model == "DASR")]
+        names = "fake_LR/HR/real_LR" + "/fake_weights" * (model == "DASR")
+    dirs = tuple(dataset_opt.get(k) for k in keys)
     if not all(dirs):
-        return fall("missing a dataroot (fake_LR/HR/real_LR" + "/fake_weights" * with_ddm + ")")
-    fake_dir, hr_dir, real_dir = dirs[:3]
-    counts = [len(list_images(d)) for d in (fake_dir, hr_dir) + dirs[3:]]
+        return fall(f"missing a dataroot ({names})")
+    # the images of each index: (fake) LR, HR and the DDMs
+    indexed = dirs[:2] + dirs[3:]
+    counts = [len(list_images(d)) for d in indexed]
     if len(set(counts)) != 1:
-        return fall(f"{counts[0]} fake LRs, {counts[1]} HRs"
-                    + (f" and {counts[2]} DDMs" if with_ddm else "") + " are not paired one to one")
+        return fall(f"{counts[0]} {'LRs' if paired else 'fake LRs'}, {counts[1]} HRs"
+                    + (f" and {counts[2]} DDMs" if len(counts) > 2 else "")
+                    + " are not paired one to one")
     bs = int(dataset_opt.get("batch_size", 6) or 6)
     if counts[0] < bs:
         return fall(f"{counts[0]} train images hold no batch of {bs}")
     hr_size = int(dataset_opt.get("HR_size", 128) or 128)
     lr_size = hr_size // int(opt.get("scale", 4))
-    if (min(bank_min_hw(fake_dir)) < lr_size or min(bank_min_hw(real_dir)) < lr_size
-            or min(bank_min_hw(hr_dir)) < hr_size):
+    lr_dirs = dirs[:1] + dirs[2:3]
+    if (any(min(bank_min_hw(d)) < lr_size for d in lr_dirs)
+            or min(bank_min_hw(dirs[1])) < hr_size):
         return fall("corpus has images smaller than the crop")
     # the uint8 banks, and the f32 1-channel DDM bank at the fake LRs' sizes
-    need = (bank_nbytes(fake_dir) * (7 if with_ddm else 3) // 3 + bank_nbytes(hr_dir)
-            + bank_nbytes(real_dir))
+    need = (bank_nbytes(dirs[0]) * (7 if len(dirs) == 4 else 3) // 3
+            + sum(bank_nbytes(d) for d in dirs[1:3]))
     if need > budget_gb * 2**30:
         return fall(f"padded corpus needs {need / 2**30:.1f} GiB > budget {budget_gb} GiB")
-    return dirs if with_ddm else dirs + (None,)
+    return dirs if len(dirs) != 3 else dirs + (None,)
 
 
 def _save(model, opt, logger_opt, step, logger):

@@ -6,21 +6,24 @@ uploaded once (padded to the bank's largest size, uint8; the DDMs as f32),
 and each train step samples its batch from the banks on the card: the only
 per-step host traffic is a (K, B) index window. The sampling law is the
 host loader's (codes/DSN/data_loader.py:12-59,
-codes/SRN/data/LRHR_wavelet_unpairEq_fake_w_dataset.py:95-140): uniform
+codes/SRN/data/LRHR_wavelet_unpairEq_fake_w_dataset.py:95-140, the 'LRHR'
+mode's aligned crop, ``data/datasets.py:PairedDataset``): uniform
 crop offsets over the valid range, uniform picks, a 50% dihedral augment
 per draw. The stream is torch's, not the host loader's or JAX's.
 
 Sampling is split in two so each half can be held on its own:
 
-* ``draw_dsn`` / ``draw_dasr`` draw, from an explicit ``torch.Generator``
-  on the bank's device, the uniforms of the crop offsets, the picks and the
-  three augment bits of every item, as plain tensors;
-* ``gather_dsn`` / ``gather_dasr`` turn (indices, draws) into the batch.
+* ``draw_dsn`` / ``draw_dasr`` / ``draw_paired`` draw, from an explicit
+  ``torch.Generator`` on the bank's device, the uniforms of the crop
+  offsets, the picks and the three augment bits of every item, as plain
+  tensors;
+* ``gather_dsn`` / ``gather_dasr`` / ``gather_paired`` turn (indices,
+  draws) into the batch.
   Each tensor of the batch is one advanced-indexing read of its bank
   through a (B, crop, crop) row and column index grid, into which the
   joint dihedral augment is folded (a flip reverses a grid axis, a
-  transpose swaps the row and column grids): five reads a step whatever B
-  is, at fixed shapes. ``gather_*_plain`` is the literal per-item slicing
+  transpose swaps the row and column grids): five reads a DASR step, two
+  a paired one, whatever B is, at fixed shapes. ``gather_*_plain`` is the literal per-item slicing
   of the JAX sampler's loop, used to check them.
 
 Batches are NHWC, so ``permute(0, 3, 1, 2)`` gives channels_last NCHW
@@ -62,6 +65,14 @@ class SrnBanks(NamedTuple):
     ddm: Optional[ImageBank]
 
 
+class PairedBanks(NamedTuple):
+    """The paired models' two banks ('LRHR'): the LR images and their HRs,
+    row for row."""
+
+    lr: ImageBank
+    hr: ImageBank
+
+
 class DsnDraws(NamedTuple):
     """One DSN batch's draws: the clean image picked for each noisy index,
     the crop-offset uniforms of both crops (B, 2), the augment bits (B, 3)
@@ -84,6 +95,14 @@ class DasrDraws(NamedTuple):
     real_u: torch.Tensor
     hr_pick: torch.Tensor
     unpair_u: torch.Tensor
+    aug: torch.Tensor
+
+
+class PairedDraws(NamedTuple):
+    """One paired batch's draws: the aligned LR/HR offset uniforms (B, 2)
+    and the augment bits (B, 3) of both crops."""
+
+    u: torch.Tensor
     aug: torch.Tensor
 
 
@@ -238,6 +257,12 @@ def draw_dasr(gen: torch.Generator, b: int, n_real: int, n_hr: int) -> DasrDraws
                      u[:, 8:11] < 0.5)
 
 
+def draw_paired(gen: torch.Generator, b: int) -> PairedDraws:
+    """``b`` items' draws for ``gather_paired``, on ``gen``'s device."""
+    u = torch.rand((b, 5), generator=gen, device=gen.device)
+    return PairedDraws(u[:, 0:2], u[:, 2:5] < 0.5)
+
+
 def shard_draws(draws, rows: slice):
     """The draws of items ``rows`` of a batch's (a rank's share of the global
     row's draws); ``draws`` itself where ``rows`` is the whole batch (one
@@ -337,6 +362,20 @@ def gather_dasr(banks: SrnBanks, fake_idx, d: DasrDraws, hr_size: int, scale: in
     else:
         out["fake_w"] = torch.ones((idx.shape[0], lr, lr, 1), device=idx.device)
     return out
+
+
+def gather_paired(banks: PairedBanks, idx, d: PairedDraws, hr_size: int, scale: int,
+                  use_flip: bool = True, use_rot: bool = True) -> Dict[str, torch.Tensor]:
+    """The 'LRHR' batch (``PairedDataset``'s train branch) of ``idx`` (B,):
+    the LR crop whose x``scale`` window fits in its HR, and that window of
+    the HR, one augment per item on both; ``LR`` and ``HR`` f32 in [0, 1],
+    NHWC."""
+    lr = hr_size // scale
+    idx = idx.long()
+    tl = _aligned_offsets(d.u, banks.lr.sizes[idx], banks.hr.sizes[idx], lr, scale)
+    aug = (d.aug, use_flip, use_rot)
+    return {"LR": _as_f32(_read(banks.lr.data, idx, tl, lr, *aug)),
+            "HR": _as_f32(_read(banks.hr.data, idx, tl * scale, hr_size, *aug))}
 
 
 # -- the plain versions (the JAX sampler's per-item loop) -------------------------

@@ -13,7 +13,9 @@ port's own ``{iter}.pt`` (``resume``) or a reference ``{iter}.state``
 generator; and the paired-data trainers 'sr' (``SRModel``, with
 ``test_x8``), 'srgan' / 'srragan' (``SRGANModel``) and 'De_Resnet'
 (``DegradationModel``), serving and training on host batches one step a
-call; and 'De_patch_wavelet_GAN' (``DePatchModel``), the wavelet GAN of
+call, and 'srgan' / 'srragan' with G and D updated every step also in
+K-step windows, on host batches or drawn from paired banks on the device;
+and 'De_patch_wavelet_GAN' (``DePatchModel``), the wavelet GAN of
 the De_Resnet family, with its realness map. ``define_G`` also builds
 'DSGAN' and 'sft_arch', ``define_D`` 'dis_acd'; no model trains or serves
 them (``dsn_test`` runs the DSGAN generator, ``sftgan_test`` SFTNet).
@@ -63,7 +65,7 @@ from dasr_tpu_torch.train.depatch_trainer import (
     make_d,
     realness_map,
 )
-from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer
+from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer, single_step_reason
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 from dasr_tpu_torch.utils import trace
 
@@ -196,7 +198,8 @@ class _InferenceModel:
     ``_batch_keys``: the images of a host batch; ``val_keys``: G's input and
     the image its output is held against in validation and ``srn_test``. A
     model without K-step windows has ``supports_multi_step`` false:
-    ``srn_train`` then runs one step a call."""
+    ``srn_train`` then runs one step a call (and logs the model's
+    ``single_step_reason`` where it has one)."""
 
     chop_threshold: int = 0
     g_types: tuple = (RRDBNet,)
@@ -365,6 +368,33 @@ class _InferenceModel:
         """One step on a host batch; the metrics as floats."""
         return self.metrics_to_host(self._trainer().train_step(self._to_device(batch)))
 
+    def train_multi_step(self, batches) -> Dict[str, float]:
+        """K steps on a list of K host batches; the metrics' mean over K."""
+        return self.metrics_to_host(self.train_multi_step_async(batches))
+
+    def train_multi_step_async(self, batches) -> Dict[str, torch.Tensor]:
+        """K steps on K host batches (a model whose ``supports_multi_step``
+        holds: every step updates every network); the (K,) device metrics,
+        unsynchronised (read them with ``metrics_to_host``)."""
+        tr = self._trainer()
+        steps = [tr.train_step(self._to_device(b)) for b in batches]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    def train_banked_window_async(self, idx: np.ndarray, seed: int) -> Dict[str, torch.Tensor]:
+        """One (K, B) window of image indices (the DASR models' fake LRs, the
+        paired models' pairs) on the banks ``setup_device_bank`` uploaded;
+        ``seed``: the window's first iteration (a resumed run replays the
+        stream). Returns the last step's device metrics, unsynchronised.
+        With tracing on, the index row's pin and copy is the span
+        ``window.upload``."""
+        tr = self._trainer()
+        with trace.span("window.upload", tr.state.step):
+            idx = torch.from_numpy(np.ascontiguousarray(idx, np.int64))
+            if self.device.type == "cuda":
+                idx = idx.pin_memory()
+            idx = idx.to(self.device, non_blocking=True)
+        return tr.train_banked_step(self._banks, idx, seed, *self._bank_args)
+
     @staticmethod
     def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Device metrics (0-d, or (K,) of a window: their mean) as floats,
@@ -444,13 +474,45 @@ class SRModel(_InferenceModel):
         return (total / 8).cpu().numpy()
 
 
+def srgan_config(opt: Dict, ragan: bool = False) -> SRGANConfig:
+    """SRGANConfig from the options ('srgan', 'srragan'), with the JAX
+    package's defaults; ``ragan`` (the model 'srragan') or ``train.ragan``
+    turns RaGAN on."""
+    train = opt.get("train") or {}
+    return SRGANConfig(
+        lr_g=train.get("lr_G", 1e-4), lr_d=train.get("lr_D", 1e-4),
+        beta1_g=train.get("beta1_G", 0.9), beta1_d=train.get("beta1_D", 0.9),
+        lr_steps=tuple(int(m) for m in (train.get("lr_steps") or ())),
+        lr_gamma=train.get("lr_gamma", 0.5),
+        pixel_criterion=train.get("pixel_criterion", "l1"),
+        pixel_weight=train.get("pixel_weight", 1e-2) or 0.0,
+        feature_criterion=train.get("feature_criterion", "l1"),
+        feature_weight=train.get("feature_weight", 1.0) or 0.0,
+        gan_type=train.get("gan_type", "vanilla"),
+        gan_weight=train.get("gan_weight", 5e-3),
+        ragan=ragan or bool(train.get("ragan", False)),
+        d_update_ratio=train.get("D_update_ratio", 1) or 1,
+        d_init_iters=train.get("D_init_iters", 0) or 0,
+        scale=opt.get("scale", 4),
+        seed=int(train.get("manual_seed", 0) or 0),
+        dtype=compute_dtype(opt),
+    )
+
+
 class SRGANModel(SRModel):
     """'srgan' / 'srragan' (reference: codes/SRN/models/SRGAN_model.py,
     SRRaGAN_model.py): G from ``define_G`` (``RRDB_net`` or ``sr_resnet``),
     D from ``define_D`` (``network_D.which_model_D``), the VGG19-54 feature
-    net seeded; one step a call, D every step and G where
-    ``SRGANTrainer.g_update_due`` holds for the 1-based iteration. Two
-    deviations from ``dasr_tpu`` (ROADMAP C.2): its ``SRGANModel`` trains a
+    net seeded; on host batches one step a call, D every step and G where
+    ``SRGANTrainer.g_update_due`` holds for the 1-based iteration. Where the
+    gate always holds and no step draws on the host
+    (``srgan_trainer.single_step_reason`` is None: ``D_update_ratio`` 1,
+    ``D_init_iters`` 0, not 'wgan-gp', as train_SRGAN.json ships),
+    ``supports_multi_step`` holds: windows of K host batches, and windows
+    drawn from the paired banks on the device (``setup_device_bank``,
+    ``train_banked_window_async``; ``SRGANTrainer.train_banked_step``,
+    replayed from a CUDA graph on the card). Two deviations from
+    ``dasr_tpu`` (ROADMAP C.2): its ``SRGANModel`` trains a
     ``DiscriminatorVGG(input_size=HR_size)`` whatever ``which_model_D``
     names (``srgan_trainer.py:64-66``), and its gate counts iterations from
     0, so G skips the first step the reference updates it in."""
@@ -459,25 +521,31 @@ class SRGANModel(SRModel):
         self.ragan = ragan
         super().__init__(opt, device)
 
+    @property
+    def single_step_reason(self) -> Optional[str]:
+        """Why this model trains one step a call, or None."""
+        if self.trainer is None:
+            return "the model was not built for training"
+        return single_step_reason(self.trainer.cfg)
+
+    @property
+    def supports_multi_step(self) -> bool:
+        return self.single_step_reason is None
+
+    def setup_device_bank(self, lr_h, hr_h, hr_size: int, use_flip: bool = True,
+                          use_rot: bool = True):
+        """Upload the paired banks (``device_bank.ImageBank``s on the host,
+        row i of one the pair of row i of the other) once, for
+        ``train_banked_window_async``."""
+        if not self.supports_multi_step:
+            raise ValueError(f"--device_bank: {self.single_step_reason}")
+        self._banks = device_bank.PairedBanks(device_bank.upload(lr_h, self.device),
+                                              device_bank.upload(hr_h, self.device))
+        self._bank_args = (hr_size, use_flip, use_rot)
+        return self
+
     def make_trainer(self) -> SRGANTrainer:
-        train = self.opt.get("train") or {}
-        cfg = SRGANConfig(
-            lr_g=train.get("lr_G", 1e-4), lr_d=train.get("lr_D", 1e-4),
-            beta1_g=train.get("beta1_G", 0.9), beta1_d=train.get("beta1_D", 0.9),
-            lr_steps=tuple(int(m) for m in (train.get("lr_steps") or ())),
-            lr_gamma=train.get("lr_gamma", 0.5),
-            pixel_criterion=train.get("pixel_criterion", "l1"),
-            pixel_weight=train.get("pixel_weight", 1e-2) or 0.0,
-            feature_criterion=train.get("feature_criterion", "l1"),
-            feature_weight=train.get("feature_weight", 1.0) or 0.0,
-            gan_type=train.get("gan_type", "vanilla"),
-            gan_weight=train.get("gan_weight", 5e-3),
-            ragan=self.ragan or bool(train.get("ragan", False)),
-            d_update_ratio=train.get("D_update_ratio", 1) or 1,
-            d_init_iters=train.get("D_init_iters", 0) or 0,
-            seed=int(train.get("manual_seed", 0) or 0),
-            dtype=compute_dtype(self.opt),
-        )
+        cfg = srgan_config(self.opt, self.ragan)
         d = define_D(self.opt)
         if isinstance(d, ACDVGGBN96):
             raise NotImplementedError(
@@ -732,17 +800,6 @@ class DASRModel(_InferenceModel):
         c = self._trainer().cfg
         return c.g_update_inter == 1 and c.d_update_inter == 1
 
-    def train_multi_step(self, batches) -> Dict[str, float]:
-        """K steps on a list of K host batches; the metrics' mean over K."""
-        return self.metrics_to_host(self.train_multi_step_async(batches))
-
-    def train_multi_step_async(self, batches) -> Dict[str, torch.Tensor]:
-        """K steps on K host batches; the (K,) device metrics, unsynchronised
-        (read them with ``metrics_to_host``)."""
-        tr = self._trainer()
-        steps = [tr.train_step(self._to_device(b)) for b in batches]
-        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
-
     def setup_device_bank(self, fake_h, hr_h, real_h, ddm_h, hr_size: int,
                           use_flip: bool = True, use_rot: bool = True):
         """Upload the stage-3 banks (``device_bank.ImageBank``s on the host;
@@ -754,19 +811,6 @@ class DASRModel(_InferenceModel):
                                              for b in (fake_h, hr_h, real_h, ddm_h)))
         self._bank_args = (hr_size, use_flip, use_rot)
         return self
-
-    def train_banked_window_async(self, fake_idx: np.ndarray, seed: int) -> Dict[str, torch.Tensor]:
-        """One (K, B) window of fake-LR indices on the device banks; ``seed``:
-        the window's first iteration (a resumed run replays the stream).
-        Returns the last step's device metrics, unsynchronised. With tracing
-        on, the index row's pin and copy is the span ``window.upload``."""
-        tr = self._trainer()
-        with trace.span("window.upload", tr.state.step):
-            idx = torch.from_numpy(np.ascontiguousarray(fake_idx, np.int64))
-            if self.device.type == "cuda":
-                idx = idx.pin_memory()
-            idx = idx.to(self.device, non_blocking=True)
-        return tr.train_banked_step(self._banks, idx, seed, *self._bank_args)
 
     def save_reference_formats(self, out_dir: str, iter_step: int) -> str:
         return checkpoints.save_reference_formats(out_dir, self._trainer().state, iter_step)

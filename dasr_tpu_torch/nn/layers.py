@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dasr_tpu_torch.core.dist import world_mean
+from dasr_tpu_torch.utils import trace
 
 
 class Conv2d(nn.Conv2d):
@@ -49,7 +50,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased variance instead. Statistics and the affine map are taken in
     f32; the result has the input's dtype. In a world of several ranks the
     statistics are the global batch's (``dist.world_mean``, under autograd),
-    as under JAX's mesh."""
+    as under JAX's mesh. Each forward that moves the statistics counts
+    ``bn.layer_updates`` (``utils/trace.py``)."""
 
     update_stats = True
 
@@ -62,6 +64,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean, sq = world_mean(torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))]))
         var = (sq - mean * mean).clamp_min(0.0)
         if self.update_stats:
+            trace.count("bn.layer_updates")
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)

@@ -162,18 +162,24 @@ class SqueezeNetFeatures(nn.Module):
 
 class VGG19Feature54(nn.Module):
     """VGG19 conv5_4 (pre-ReLU, feature_layer 34) with ImageNet input
-    normalisation (architecture.py:1060-1088, networks.py:247-261)."""
+    normalisation (architecture.py:1060-1088, networks.py:247-261). The
+    mean and std are non-persistent f32 buffers, made once and cast to the
+    input's dtype in the forward: the forward copies nothing from the host,
+    so a CUDA graph can capture it, and the state dict holds the convs
+    only."""
 
     def __init__(self, use_input_norm: bool = True):
         super().__init__()
         self.use_input_norm = use_input_norm
         self.stack = _ConvStack(_VGG19_CFG, (15,), final_conv_no_relu=True)
+        self.register_buffer("mean", torch.tensor(_IMAGENET_MEAN).view(1, 3, 1, 1),
+                             persistent=False)
+        self.register_buffer("std", torch.tensor(_IMAGENET_STD).view(1, 3, 1, 1),
+                             persistent=False)
 
     def forward(self, x):
         if self.use_input_norm:
-            mean = torch.tensor(_IMAGENET_MEAN, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
-            std = torch.tensor(_IMAGENET_STD, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
-            x = (x - mean) / std
+            x = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
         return self.stack(x)[0]
 
 

@@ -19,7 +19,9 @@
   ``ops/adam.py``), ``adam.torch_tensors`` (by ``torch.optim.Adam``) and
   ``adam.launches`` (the kernel's launches) in ``NetState.update``;
   ``ops/rdb.py`` counts ``rdb_prep.launches`` (the RDB weight plan's
-  launches).
+  launches); ``nn/layers.py:BatchNorm2d`` counts ``bn.layer_updates`` (a
+  layer's forward that moved its running statistics) and
+  ``SRGANTrainer._d`` ``bn.stat_updates`` (a D forward that moved any).
 * **Device phases** (``phase(name)``, ``end_phases()``, ``phase_ms()``):
   marks of where each part of a train step starts on the current stream,
   made only while tracing is on. In a process that has initialised CUDA a

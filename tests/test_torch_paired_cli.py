@@ -4,7 +4,10 @@ LRHR corpus: srn_train trains 'sr' (RRDB_net and sr_resnet), 'srgan',
 and null (the host bicubic), logs finite losses and a validation, and a
 run resumed from its ``{iter}.pt`` ends where the straight run ends;
 ``--steps_per_call`` and ``--device_bank`` fall back with the JAX CLI's
-lines, a ``.state`` resume and ``save_ref_formats`` are refused; srn_test
+lines (for 'srgan' / 'srragan' where their configs gate G or draw on the
+host), a ``.state`` resume and ``save_ref_formats`` are refused;
+'srragan' as shipped takes ``--device_bank --steps_per_call 2`` and
+resumes from its 2.pt where the straight run ends; srn_test
 serves 'sr' and 'srgan' within 0.01 dB / 1e-4 SSIM of dasr_tpu's CLI on
 the same reference-named .pth. Deviations from dasr_tpu named here
 (ROADMAP C.2): 'sr' loads a reference sr_resnet .pth, which dasr_tpu
@@ -156,16 +159,27 @@ def test_trains_validates_and_resumes(corpus, caplog, key, with_lr):
 @pytest.mark.parametrize("key", ["sr", "srgan", "srragan", "De_Resnet"])
 def test_fallbacks_and_refusals(corpus, caplog, key):
     """One step a call: ``--steps_per_call 2`` and ``--device_bank`` fall back
-    with the JAX CLI's lines; a reference ``.state`` resume and
-    ``save_ref_formats`` are refused (dasr_tpu has none)."""
+    with the JAX CLI's lines, or for 'srgan' / 'srragan', whose windows need
+    G and D updated every step and no host draw, with the reason their
+    configs here give (the G gate, 'wgan-gp'); a reference ``.state`` resume
+    and ``save_ref_formats`` are refused (dasr_tpu has none)."""
     path = _train_config(corpus, f"fallback_{key}", key, True, niter=2)
     with caplog.at_level("INFO", logger="base"):
         steps, _, out = _run(path, "--steps_per_call", "2", "--device_bank")
     assert steps == 2
-    assert (f"--device_bank: model [{MODELS[key][0]}] has no banked path; using the host "
-            "loader") in out
-    assert ("steps_per_call > 1 requires a multi-step-capable model with G/D_update_inter == 1; "
-            "falling back to per-step dispatch") in caplog.text
+    reason = {"srgan": "the G gate (D_update_ratio 2, D_init_iters 1) skips G's update on "
+                       "some steps",
+              "srragan": "gan_type wgan-gp seeds its penalty's mixing draws on the host "
+                         "each step"}.get(key)
+    if reason:
+        assert (f"--device_bank: model [{MODELS[key][0]}]: {reason}; using the host "
+                "loader") in out
+        assert f"steps_per_call > 1: {reason}; falling back to per-step dispatch" in caplog.text
+    else:
+        assert (f"--device_bank: model [{MODELS[key][0]}] has no banked path; using the host "
+                "loader") in out
+        assert ("steps_per_call > 1 requires a multi-step-capable model with G/D_update_inter "
+                "== 1; falling back to per-step dispatch") in caplog.text
     cfg = json.loads(open(path).read())
     for edit, match in ((lambda c: c["path"].update(resume_state="models/4.state"),
                          "reference .state"),
@@ -176,6 +190,45 @@ def test_fallbacks_and_refusals(corpus, caplog, key):
         open(path, "w").write(json.dumps(c))
         with pytest.raises(NotImplementedError, match=f"{match}.*no reference format"):
             _run(path)
+
+
+def test_srragan_device_bank_window_resumes(corpus, caplog):
+    """'srragan' as train_SRGAN.json ships its step (vanilla RaGAN, G and D
+    every step) with ``--device_bank --steps_per_call 2``: the run takes
+    the paired banks and the window, logs finite losses at steps 2 and 4,
+    and a run resumed from its 2.pt ends where the straight run ends, every
+    network's weights and buffers (D's BatchNorm statistics) and Adam
+    state."""
+    args = ("--device_bank", "--steps_per_call", "2")
+    cfgs = {}
+    for tag in ("bank_srragan", "bank_srragan_resumed"):
+        path = _train_config(corpus, tag, "srragan", True)
+        cfg = json.loads(open(path).read())
+        cfg["train"].pop("gan_type")
+        cfg["logger"]["print_freq"] = 2
+        if tag.endswith("resumed"):
+            cfg["path"]["resume_state"] = str(corpus / "bank_srragan" / "training_state" / "2.pt")
+        open(path, "w").write(json.dumps(cfg))
+        cfgs[tag] = path
+    steps, last, out = _run(cfgs["bank_srragan"], *args)
+    assert steps == 4 and MODELS["srragan"][4] <= set(last)
+    assert "GiB resident" in out and "using the host loader" not in out
+    train = [r for r in _records(corpus, "bank_srragan") if "loss/l_g_total" in r]
+    assert [r["step"] for r in train] == [2, 4]
+    assert all(np.isfinite(v) for r in train for k, v in r.items() if k.startswith("loss/"))
+    with caplog.at_level("INFO", logger="base"):
+        steps, _, _ = _run(cfgs["bank_srragan_resumed"], *args)
+    assert steps == 4 and "Resuming training from iteration: 2." in caplog.text
+    want = torch.load(corpus / "bank_srragan" / "training_state" / "4.pt", weights_only=True)
+    got = torch.load(corpus / "bank_srragan_resumed" / "training_state" / "4.pt",
+                     weights_only=True)
+    for label in ("G", "D_target"):
+        assert any("running_var" in k for k in want[label]["net"]) == (label == "D_target")
+        for k, v in want[label]["net"].items():
+            assert torch.equal(got[label]["net"][k], v), (label, k)
+        for idx, st in want[label]["opt"]["state"].items():
+            for name in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(got[label]["opt"]["state"][idx][name], st[name])
 
 
 def test_batchnorm_g_validates_on_its_running_statistics(corpus):

@@ -6,7 +6,9 @@ step (DeResnet nb 1, vanilla and WGAN-GP) in losses, params and Adam's
 moments (f32, RTOL 1e-6 as tests/test_torch_banked_step.py; exact equality
 is expected), and the DASR Adaptive step bit for bit (with and without the
 patch D's Adam step), which tests/test_torch_banked_step.py holds against
-``train_step`` and tests/test_torch_{srn,dsn}_step_*.py against JAX. Also:
+``train_step`` and tests/test_torch_{srn,dsn}_step_*.py against JAX, and
+the srragan step bit for bit, D's BatchNorm statistics with it (which
+tests/test_torch_esrgan_reference.py holds against ``train_step``). Also:
 the LR a tensor-LR ``NetState`` is given each step equals the float
 ``LambdaLR``'s across a multistep milestone and a ``dsn_linear_decay``
 step; a window's metrics do not change when the next window runs; a
@@ -226,6 +228,49 @@ def test_adaptive_replayed_window_equals_eager(srn_banks, tracing, use_patchd_op
     # the patch D's own tensors are among those the graph bakes in
     assert {t.data_ptr() for t in a.state.patchd.net.parameters()} <= {
         t.data_ptr() for t in a.graph_tensors()}
+
+
+def test_srragan_replayed_window_equals_eager(tracing):
+    """The srragan step (RRDBNet nf 16 nb 1, the BatchNorm VGG D for 48-px
+    crops at nf 8, VGG19-54) on paired banks over the DASR case's two
+    windows: the replayed window equals the eager loop bit for bit in the
+    metrics, G's and D's params and Adam moments and D's running
+    statistics; the captured step marks the phase ``feature`` inside G's
+    loss; D's two own forwards a step move the statistics, replayed or not
+    (``bn.stat_updates``)."""
+    from dasr_tpu_torch.nn.discriminators import make_vgg_discriminator
+    from dasr_tpu_torch.nn.generators import RRDBNet
+    from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer
+
+    rng = np.random.default_rng(2)
+    banks = bank.PairedBanks(_bank(rng, 3, (14, 16)), _bank(rng, 3, (56, 64)))
+
+    def trainer():
+        tr = SRGANTrainer(SRGANConfig(seed=5, lr_steps=(2,), ragan=True),
+                          RRDBNet(nf=16, nb=1, gc=8),
+                          make_vgg_discriminator("discriminator_vgg_48", nf=8))
+        tr.init_state()
+        return tr
+
+    a, b = trainer(), trainer()
+    a.graphs = step_graph.StepGraphs("cpu", capture=replaying_capture)
+    moved = trace.counters().get("bn.stat_updates", 0)
+    got = _windows(lambda s, idx: a.train_banked_step(banks, idx, s, 48), WINDOWS)
+    assert list(trace.phase_ms()) == ["batch", "g_forward", "feature", "g_backward", "d",
+                                      "adam"]
+    assert trace.counters()["bn.stat_updates"] - moved == 2 * 5
+    want = _windows(lambda s, idx: b.train_banked_step(banks, idx, s, 48), WINDOWS)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    assert a.state.step == b.state.step == 5 and len(a.graphs._graphs) == 1
+    for name in ("g", "d_target"):
+        na, nb = getattr(a.state, name), getattr(b.state, name)
+        for what in ("params", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(_flat(na, what), _flat(nb, what)), (name, what)
+        for (key, x), (_, y) in zip(na.net.named_buffers(), nb.net.named_buffers()):
+            assert torch.equal(x, y), (name, key)
 
 
 def test_srn_window_metrics_survive_the_next_window(srn_banks):

@@ -3,10 +3,12 @@ eager loop, at a small size: the DASR step (RRDBNet nf 32 nb 1 gc 32, so
 the RDB kernel runs; LPIPS alex; HR 32) and the DSN step (DeResnet nb 1,
 FSD, LPIPS alex, crop 128), f32, two windows of 4 steps from one state;
 the DASR step at bf16 and the DASR Adaptive step (nf 32 nb 1 ada_nb 1, the
-gau patch D, bf16, with and without the patch D's Adam step) bit for bit,
-each generator forward one launch of its RDB weight plan and no RDB
-casting its own kernels; and a dropped graphed trainer leaves no device
-memory behind.
+gau patch D, bf16, with and without the patch D's Adam step) and the
+srragan step (RRDBNet nf 32 nb 1 gc 32, the BatchNorm VGG D for 48-px
+crops at nf 16, VGG19-54, bf16; D's running statistics moved on its two own
+forwards a step, replayed) bit for bit, each generator forward one launch
+of its RDB weight plan and no RDB casting its own kernels; and a dropped
+graphed trainer leaves no device memory behind.
 
 Imports neither jax nor the JAX package, so it runs where only the port is
 installed, without the suite's conftest:
@@ -23,12 +25,13 @@ import torch
 
 from dasr_tpu_torch.core.device import resolve_device
 from dasr_tpu_torch.data import device_bank as bank
-from dasr_tpu_torch.nn.discriminators import FSDiscriminator
-from dasr_tpu_torch.nn.generators import RRDBNetResidualConv
+from dasr_tpu_torch.nn.discriminators import FSDiscriminator, make_vgg_discriminator
+from dasr_tpu_torch.nn.generators import RRDBNet, RRDBNetResidualConv
 from dasr_tpu_torch.ops.rdb import TOLERANCES, fused_rdb
 from dasr_tpu_torch.train import step_graph
 from dasr_tpu_torch.train.dasr_adaptive_trainer import AdaptiveConfig, DASRAdaptiveTrainer
 from dasr_tpu_torch.train.dsn_trainer import DSNConfig, DSNTrainer
+from dasr_tpu_torch.train.srgan_trainer import SRGANConfig, SRGANTrainer
 from dasr_tpu_torch.train.srn_trainer import SRNConfig, SRNTrainer
 from dasr_tpu_torch.utils import trace
 
@@ -165,7 +168,8 @@ def _bit_for_bit(graphed, eager, window, idx, rdbs, nets, patchd_loss=False):
     from one state give the same bits in the metrics, the params and Adam
     moments of ``nets``, with the same counts: a generator forward of
     ``rdbs`` RDBs (5 launches each) is one weight plan launch, and every RDB
-    takes the plan's kernels and runs the backward kernels."""
+    takes the plan's kernels and runs the backward kernels. Returns the
+    counts of the RDB kernels and of BatchNorm's statistic moves."""
     counts, got, want = [], [], []
     for tr, is_eager, sink in ((graphed, False, got), (eager, True, want)):
         before, replays = trace.counters(), trace.counters().get("graph.replays", 0)
@@ -173,7 +177,7 @@ def _bit_for_bit(graphed, eager, window, idx, rdbs, nets, patchd_loss=False):
             sink.append(window(tr, w * K, idx[w]))
         torch.cuda.synchronize()
         counts.append({k: v - before.get(k, 0) for k, v in trace.counters().items()
-                       if k.startswith(("fused_rdb.", "rdb_prep."))})
+                       if k.startswith(("fused_rdb.", "rdb_prep.", "bn."))})
         if not is_eager:
             assert trace.counters()["graph.replays"] - replays == 2 * K - 1
     assert counts[0] == counts[1]
@@ -190,7 +194,38 @@ def _bit_for_bit(graphed, eager, window, idx, rdbs, nets, patchd_loss=False):
         a, b = getattr(graphed.state, name), getattr(eager.state, name)
         for what in ("params", "exp_avg", "exp_avg_sq"):
             assert torch.equal(_flat(a, what), _flat(b, what)), (name, what)
+        for (key, x), (_, y) in zip(a.net.named_buffers(), b.net.named_buffers()):
+            assert torch.equal(x, y), (name, key)
         assert float(a.lr) == float(b.lr)
+    return counts[0]
+
+
+@pytest.mark.cuda
+def test_srragan_replayed_windows_equal_the_eager_loop_bit_for_bit():
+    """The srragan step at bf16 (RaGAN, VGG19-54, the 48 VGG D with its 11
+    BatchNorms), two replayed windows of 4 steps against the eager loop, as
+    the Adaptive step: the same bits in the metrics, G's and D's params,
+    Adam moments and D's running statistics; every RDB on the weight plan,
+    none casting its own kernels; and the statistics moved by D's two own
+    forwards a step, replayed or not (``bn.stat_updates``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    resolve_device("cuda")
+    rng = np.random.default_rng(0)
+    banks = bank.PairedBanks(_bank(rng, 4, (14, 16)), _bank(rng, 4, (56, 64)))
+    cfg = SRGANConfig(seed=5, lr_steps=(3,), ragan=True, dtype=torch.bfloat16)
+    trainers = []
+    for _ in range(2):
+        tr = SRGANTrainer(cfg, RRDBNet(nf=32, nb=1, gc=32, dtype=torch.bfloat16),
+                          make_vgg_discriminator("discriminator_vgg_48", nf=16), "cuda")
+        tr.init_state()
+        trainers.append(tr)
+    trainers[1].graphs = step_graph.StepGraphs(trainers[1].device, capture=None)
+    idx = torch.from_numpy(rng.integers(0, 4, (2, K, 2))).cuda()
+    counts = _bit_for_bit(*trainers, lambda tr, start, i: tr.train_banked_step(banks, i, start, 48),
+                          idx, rdbs=3, nets=("g", "d_target"))
+    assert counts["bn.stat_updates"] == 2 * 2 * K
+    assert counts["bn.layer_updates"] == 2 * 2 * K * 11
 
 
 @pytest.mark.cuda
