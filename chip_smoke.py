@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases dist                      # one NCCL rank, two ranks
     python3 chip_smoke.py --phases adam                      # the Adam kernel alone
     python3 chip_smoke.py --phases prep                      # the RDB weight plan alone
+    python3 chip_smoke.py --phases wgrad --parent DIR        # the RDB wgrad vs DIR's, in turns
 
 Phases, each of which exits non-zero on failure (nothing falls back to the
 CPU or to a plain version):
@@ -50,10 +51,12 @@ CPU or to a plain version):
             the plain version on the same tensors: the output, dL/dx and
             the ten parameter gradients, f32 and bf16, at the three test
             shapes and every shape the train phase gives the kernel, with
-            the forward and backward launches counted; fwd+bwd times, and
-            the bf16 backward's times (dgrad and wgrad apart, the plain
-            version, the cuDNN/ATen VJP of the chain) at (12, 32, 32) and
-            (8, 128, 128).
+            the forward and backward launches counted, and the weight
+            gradient's units compiled into rdb_wgrad vs ops/rdb.py:
+            wgrad_units; fwd+bwd times, and the bf16 backward's times (dgrad
+            and wgrad apart, beside their bound) at the three train cells'
+            shapes and (8, 128, 128), with the plain version and the
+            cuDNN/ATen VJP of the chain at (12, 32, 32) and (8, 128, 128).
 5. train  - the port's srn_train CLI on a synthetic DASR corpus written from
             the seed, at the full width of
             dasr_tpu/configs/train_DASR_auto_reproduce.json (nf 64, nb 23,
@@ -936,7 +939,8 @@ def serve_graph_ms(net, x):
 GRAD_NAMES = ["x"] + [f"kernel{k + 1}" for k in range(5)] + [f"bias{k + 1}" for k in range(5)]
 
 
-BACKWARD_TIMED = ((12, 32, 32), (8, 128, 128))  # the train step's crops, the kernel report's
+# the three train cells' RDB shapes (srn_train, adaptive_train, srragan_train), the kernel report's
+BACKWARD_TIMED = ((12, 32, 32), (4, 48, 48), (8, 48, 48), (8, 128, 128))
 
 
 def backward_times(gpu, x, kernels, biases, dy):
@@ -966,9 +970,10 @@ def backward_times(gpu, x, kernels, biases, dy):
         leaves = [t.detach().requires_grad_() for t in [x, *ks, *biases]]
         return torch.autograd.grad(rdb.rdb_chain(leaves[0], leaves[1:6], leaves[6:]), leaves, dy)
 
-    out = {"kernel_ms": cuda_ms(kernels_bwd),
-           "plain_ms": cuda_ms(lambda: rdb.rdb_backward_reference(x, growth, ks, dy)),
-           "chain_vjp_ms": cuda_ms(chain_vjp)}
+    out = {"kernel_ms": cuda_ms(kernels_bwd)}
+    if (b, h, w) in (BACKWARD_TIMED[0], BACKWARD_TIMED[-1]):
+        out["plain_ms"] = cuda_ms(lambda: rdb.rdb_backward_reference(x, growth, ks, dy))
+        out["chain_vjp_ms"] = cuda_ms(chain_vjp)
     calls = 10
     kernels_bwd()
     torch.cuda.synchronize()
@@ -985,8 +990,8 @@ def backward_times(gpu, x, kernels, biases, dy):
         out[f"{part}_bound_ms"] = flop / rdb.PEAK_FLOPS[torch.bfloat16] * 1e3
     print(f"time bwd bf16 {(b, h, w)}: kernels {out['kernel_ms']:.4f} ms (dgrad "
           f"{out['dgrad_ms']} ms, wgrad {out['wgrad_ms']} ms; bound each "
-          f"{out['dgrad_bound_ms']:.4f} ms, operations), plain version {out['plain_ms']:.4f} ms, "
-          f"cuDNN/ATen VJP of rdb_chain {out['chain_vjp_ms']:.4f} ms [{gpu}]", flush=True)
+          f"{out['dgrad_bound_ms']:.4f} ms, operations), plain version {out.get('plain_ms')} ms, "
+          f"cuDNN/ATen VJP of rdb_chain {out.get('chain_vjp_ms')} ms [{gpu}]", flush=True)
     return out
 
 
@@ -1000,6 +1005,12 @@ def phase_grad(gpu):
         BACKWARD_LAUNCHES, IMAGE_LAUNCHES, LAUNCHES_PER_RDB, TOLERANCES, fused_rdb,
         fused_rdb_reference, rdb_chain)
 
+    from dasr_tpu_torch.ops.rdb import kernel_wgrad_units, wgrad_units
+
+    for nc in (64, 32):
+        if kernel_wgrad_units(nc, GC) != wgrad_units(nc, GC):
+            fail(f"the weight-gradient units compiled into rdb_wgrad at nc {nc} are not "
+                 f"ops/rdb.py:wgrad_units: {kernel_wgrad_units(nc, GC)}")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 1)
     report = {"grad_rel_err_f32": 0.0, "grad_rel_err_bf16": 0.0}
@@ -1073,6 +1084,138 @@ def phase_grad(gpu):
             if (b, h, w) in BACKWARD_TIMED and dt == torch.bfloat16:
                 report[f"bwd_{b}x{h}x{w}"] = backward_times(gpu, base[0], base[1:6], base[6:], g)
     return report, checked
+
+
+# One checkout's bf16 backward at each shape, run in a process of its own
+# from that checkout (PYTHONPATH and cwd), so that a parent's tree and this
+# one are timed by the same code: its whole backward by CUDA events, called
+# from Python and replayed from a CUDA graph of 10 calls (the device's time
+# alone: a call's host work outlasts the kernels at the train shapes), its
+# dgrad and wgrad launches as the union of each group's device spans
+# (torch.profiler), on the same seeded inputs. Uses only what both trees
+# have: ops/rdb.py's _launch, launch_images and _launch_backward.
+WGRAD_TURN = r"""
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import dasr_tpu_torch.ops.rdb as rdb
+
+def union_us(spans):
+    spans = sorted(spans)
+    total, cs, ce = 0.0, spans[0][0], spans[0][1]
+    for s0, s1 in spans[1:]:
+        if s0 > ce:
+            total, cs, ce = total + ce - cs, s0, s1
+        else:
+            ce = max(ce, s1)
+    return total + ce - cs
+
+out = {}
+for b, h, w in json.loads(sys.argv[1]):
+    g = torch.Generator(device="cuda").manual_seed(b * h * w)
+    x = torch.rand(b, h, w, 64, device="cuda", generator=g).bfloat16()
+    ks = [(0.05 * torch.randn(3, 3, 64 + 32 * k, 32 if k < 4 else 64, device="cuda",
+                              generator=g)).bfloat16() for k in range(5)]
+    bs = [0.01 * torch.randn(32 if k < 4 else 64, device="cuda", generator=g) for k in range(5)]
+    dy = torch.randn(b, h, w, 64, device="cuda", generator=g).bfloat16()
+    with torch.no_grad():
+        _, growth = rdb._launch(x, ks, bs)
+    images = rdb.launch_images(ks)
+    fn = lambda: rdb._launch_backward(x, growth, ks, images, dy)
+    for _ in range(5):
+        fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(50):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(10):
+            fn()
+    graph.replay()
+    g0, g1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    g0.record()
+    for _ in range(5):
+        graph.replay()
+    g1.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    out[f"{b}x{h}x{w}"] = {
+        "bwd_ms": e0.elapsed_time(e1) / 50, "graph_bwd_ms": g0.elapsed_time(g1) / 50,
+        **{f"{part}_ms": union_us([sp[:2] for sp in spans if f"rdb_{part}" in sp[2]]) / 20 / 1e3
+           for part in ("dgrad", "wgrad")},
+        "wgrad_kernels": sorted({sp[2][:40] for sp in spans if "rdb_wgrad" in sp[2]})}
+print("WGRAD_TURN " + json.dumps(out), flush=True)
+"""
+
+
+def phase_wgrad(gpu, parent):
+    """The bf16 backward's weight gradient of this tree against a parent
+    checkout's (``--parent``, e.g. a ``git archive`` of the parent commit),
+    at BACKWARD_TIMED, in turns (parent, this, this, parent), each turn a
+    process of its own that builds and loads its tree's kernels: the wgrad
+    and dgrad as the union of their device spans, the whole backward by
+    CUDA events, each beside the wgrad's bound (its products at the bf16
+    peak)."""
+    import torch
+
+    import dasr_tpu_torch.ops.rdb as rdb
+
+    if not parent or not os.path.isdir(os.path.join(parent, "dasr_tpu_torch")):
+        fail(f"phase wgrad needs --parent, a checkout with dasr_tpu_torch/ (got {parent!r})")
+    trees = {"parent": os.path.abspath(parent), "this": ROOT}
+    runs = {"parent": [], "this": []}
+    for name in ("parent", "this", "this", "parent"):
+        proc = subprocess.run(
+            [sys.executable, "-c", WGRAD_TURN, json.dumps(BACKWARD_TIMED)], cwd=trees[name],
+            env=dict(os.environ, PYTHONPATH=trees[name]), capture_output=True, text=True,
+            timeout=900)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("WGRAD_TURN ")]
+        if proc.returncode != 0 or not line:
+            fail(f"phase wgrad: the {name} tree's turn failed ({proc.returncode}):\n"
+                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        runs[name].append(json.loads(line[0].split(" ", 1)[1]))
+    report = {}
+    for b, h, w in BACKWARD_TIMED:
+        key = f"{b}x{h}x{w}"
+        bound = rdb.rdb_cost(b, h, w)[0] / rdb.PEAK_FLOPS[torch.bfloat16] * 1e3
+        row = {"bound_ms": bound}
+        for name in ("parent", "this"):
+            for field in ("wgrad_ms", "dgrad_ms", "bwd_ms", "graph_bwd_ms"):
+                row[f"{name}_{field}"] = [r[key][field] for r in runs[name]]
+            row[f"{name}_wgrad_kernels"] = runs[name][0][key]["wgrad_kernels"]
+        mean = {n: float(np.mean(row[f"{n}_wgrad_ms"])) for n in ("parent", "this")}
+        row["wgrad_share_of_bound"] = {n: bound / mean[n] for n in mean}
+        report[key] = row
+        print(f"wgrad bf16 {(b, h, w)} in turns (parent, this, this, parent), union of spans: "
+              f"parent {row['parent_wgrad_ms']} ms, this {row['this_wgrad_ms']} ms (bound "
+              f"{bound:.4f} ms, operations: parent {100 * bound / mean['parent']:.1f}%, this "
+              f"{100 * bound / mean['this']:.1f}%); dgrad parent {row['parent_dgrad_ms']}, this "
+              f"{row['this_dgrad_ms']}; whole backward by CUDA events parent "
+              f"{row['parent_bwd_ms']}, this {row['this_bwd_ms']} ms, replayed from a graph "
+              f"parent {row['parent_graph_bwd_ms']}, this {row['this_graph_bwd_ms']} ms; kernels parent "
+              f"{row['parent_wgrad_kernels']}, this {row['this_wgrad_kernels']} [{gpu}]",
+              flush=True)
+    if not all(mean_this <= mean_parent for mean_this, mean_parent in
+               ((np.mean(r["this_wgrad_ms"]), np.mean(r["parent_wgrad_ms"]))
+                for r in report.values())):
+        print("phase wgrad: this tree's wgrad is slower than the parent's at some shape", flush=True)
+    return report
 
 
 def launch_host_ms(fn, calls=4):
@@ -4690,10 +4833,12 @@ def main(argv=None):
                             "adaptive,paired,depatch,sft,lpips,ablation,dist,adam,prep",
                     help="comma-separated subset of build,kernel,serve,grad,train,dsn,dataset,"
                          "pipeline,bank,tools,adaptive,paired,depatch,sft,lpips,ablation,dist,"
-                         "adam,prep")
+                         "adam,prep, and wgrad (not a default: needs --parent)")
     ap.add_argument("--dist_child", choices=("nccl", "pair"), default=None,
                     help=argparse.SUPPRESS)  # phase dist starts its children with it
     ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parent", default=None,
+                    help="phase wgrad: a checkout of the parent commit to time against")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4718,8 +4863,8 @@ def main(argv=None):
     gpu = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     backward = ("autograd Function: the backward kernels on the saved growth buffer "
-                "(csrc/rdb.cu dasr_rdb_backward: rdb_dgrad_wgmma x 5, rdb_wgrad_mma, "
-                "rdb_wgrad_reduce; the dgrad weight images from the generator's weight plan, "
+                "(csrc/rdb.cu dasr_rdb_backward: rdb_dgrad_wgmma x 5, rdb_wgrad; the dgrad "
+                "weight images from the generator's weight plan, "
                 "rdb_prep_weights, or else rdb_dgrad_weights); checked against the plain "
                 "version in phase grad")
     backward32 = ("autograd Function: VJP of the stock dense chain (ops/rdb.py:rdb_chain), as "
@@ -4741,12 +4886,14 @@ def main(argv=None):
         phases.add("dataset")  # dsn_test reads stage 1's checkpoint and stage 2's outputs
     if "dataset" in phases:
         phases.add("dsn")  # stage 2 reads stage 1's checkpoint
-    if phases & {"build", "kernel", "grad", "adam", "prep"}:
+    if phases & {"build", "kernel", "grad", "adam", "prep", "wgrad"}:
         phase_build()
     if "adam" in phases:
         phase_adam(gpu)
     if "prep" in phases:
         phase_prep(gpu)
+    if "wgrad" in phases:
+        entry["wgrad_turns"] = phase_wgrad(gpu, args.parent)
     if "kernel" in phases:
         report, checked = phase_kernel(gpu)
         entry32.update(report.pop("f32"))

@@ -104,7 +104,7 @@
 // The C entry point launches the five levels and returns
 // cudaGetLastError() after each launch.
 //
-// Backward, bf16 (dasr_rdb_backward: seven launches an RDB). It replaces
+// Backward, bf16 (dasr_rdb_backward: six launches an RDB). It replaces
 // no TPU kernel: JAX's custom VJP of the Pallas kernel is XLA's stock
 // convolution chain, whose counterpart (ops/rdb.py:rdb_chain, recomputed
 // and differentiated through cuDNN and ~220 ATen ops an RDB) the f32 path
@@ -136,11 +136,10 @@
 //     bias; the slope read from the sign of the saved x_s, or + dY for dx;
 //     each output the sum of every later level's terms in one f32
 //     accumulator, rounded once.
-//   * rdb_wgrad_mma (one launch) and rdb_wgrad_reduce (one launch): the
-//     weight and bias gradients of all five levels, below.
+//   * rdb_wgrad (one launch): the weight and bias gradients of all five
+//     levels, their pixel splits added inside the launch, below.
 // Left for later: fusing the dgrad and the wgrad per tile (the wgrad reads
-// back the dv_k that the dgrad has just written), and an f32 (split-TF32)
-// backward.
+// back the dv_k that the dgrad has just written).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -179,11 +178,13 @@ struct Level {
 constexpr int kKc = 16;  // input channels per pipeline stage (one wgmma K step)
 constexpr uint32_t kPrefetchBytes = 16384;  // bytes of one L2 prefetch of a level's weights
 
-constexpr int align1024(int v) { return (v + 1023) / 1024 * 1024; }
+__host__ __device__ constexpr int align1024(int v) { return (v + 1023) / 1024 * 1024; }
 
 // wgmma descriptor layout type of an operand stored in a swizzle span of
 // 128, 64 or 32 bytes, the same swizzle TMA applied when it wrote it there
-constexpr int swizzle_mode(int span) { return span == 128 ? 1 : span == 64 ? 2 : 3; }
+__host__ __device__ constexpr int swizzle_mode(int span) {
+  return span == 128 ? 1 : span == 64 ? 2 : 3;
+}
 
 // Shared-memory plan of one (COUT, tile) instantiation. ops/rdb.py:WgmmaPlan
 // states the same plan in Python; the CPU tests emulate the products
@@ -1062,115 +1063,200 @@ __global__ void __launch_bounds__(kPrepTile * kPrepRows)
   }
 }
 
-// The weight and bias gradients of all five levels, mma.sync. dW_k[tap, ci,
-// co] = sum over output pixels p of in_k[p + tap, ci] dv_k[p, co]: per tap a
-// product of M = 32 input channels by N = 32 output channels by K = pixels.
-// A block owns one 32-channel chunk of one level's input, one 32-channel
-// group of its output (level 5, cout 64, has two), and a contiguous range
-// of 8x8 pixel tiles (a split of K), so every block does the same work;
-// nine consumer warps own a tap each and keep their tap's 32 x 32 sums in
-// registers over the whole range, and a producer warp stages each tile
-// with two TMA boxes into a ring of stages: the input window (tile + 1-px
-// halo, 32 channels, zeros outside the image) from x or the forward's
-// growth buffer, and the tile's 32 channels of dv_k from dY or the
-// gradient growth buffer. The nine taps read the one staged window at
-// shifted pixel rows. Blocks of a level's first input chunk also sum dv_k
-// over their pixels for db_k, in the producer warp. Each block writes its
-// sums to its split's slice of a partial buffer; rdb_wgrad_reduce adds the
-// splits in a fixed order. No float atomics, so two runs give the same
-// bits.
+// The weight and bias gradients of all five levels: one launch,
+// rdb_wgrad. dW_k[tap, ci, co] = sum over output pixels p of
+// in_k[p + tap, ci] dv_k[p, co]: per tap a product of M = output channels by
+// N = input channels by K = pixels. db_k = sum_p dv_k[p].
 //
-// Why mma.sync (m16n8k16 with ldmatrix.trans) and not wgmma: both operands
-// are pixel-major in shared memory (a window pixel's 32 channels, a dv
-// pixel's 32), and K runs over pixels, so both are MN-major, and each tap
-// shifts A by whole pixels. ldmatrix takes a row address per lane, so a tap
-// is an address and the swizzle is computed per row; at the train step's
-// 12k pixels a level the products are a small part of this kernel's time
-// beside its launch and staging, so the lower issue rate of mma.sync costs
-// little.
+// What bounds it: operations, the forward's 479,232 FLOP a pixel, 5.89
+// GFLOP at the train step's (12, 32, 32): 6.0 us at 989 TFLOP/s, against
+// ~10 MB that must be read (x, the growth buffer, dY and the gradient growth
+// buffer once), 3 us at 3.35 TB/s. The first design (mma.sync on 32 x 32
+// channel blocks of 8x8 tiles, ten pixel splits, a second launch to add
+// them) ran at 10% of the bound: its epilogue wrote every block's partial
+// sums as scattered 4-byte stores (~0.026 ms whatever the shape), its
+// producer warp summed the bias, and mma.sync itself issues at about a third
+// of the tensor cores' rate on the H100 (a 16 x 16-tile redesign on mma.sync
+// took as long with its operands from registers as from shared memory).
+// Staging is the next limit: every block's tiles come from L2, which gave
+// ~6 TB/s in all, so the bytes staged a product matter as much as the
+// products (a design with one tap row a block staged each dv tile 24 times
+// a pixel, ~80 MB an RDB at (12, 32, 32), and spent as long staging as
+// multiplying).
+//
+// Design: wgmma with both operands MN-major in shared memory.
+//   * M = 64 output channels of one "dv group": level 5's dY (nc channels),
+//     or the adjacent pairs [dv_4 | dv_3] and [dv_2 | dv_1] of the gradient
+//     growth buffer (gc = 32 each), so levels 1-4 reach wgmma's 64 rows two
+//     at a time. A block owns one unit (ops/rdb.py:wgrad_units): a dv group
+//     and a chunk of N = 32 input channels of the widest of its levels,
+//     from x or from the growth buffer (rows of a level that does not read
+//     the chunk are computed and not written: two of the 14 units, half of
+//     theirs), and all nine taps: three consumer warpgroups, one a tap row
+//     dy, each keeping its three taps' 64 x 32 sums in registers.
+//   * A producer warp stages 16 x th tiles (th 16 or 8, ops/rdb.py:
+//     wgrad_plan) into a ring of four stages: the tile's 64 dv channels and
+//     the window (tile + 1-px halo, 32 channels, zeros outside the image by
+//     TMA), 53 KB a 16 x 16 tile for 9 x 64 x 32 x 256 products, ~35 MB an
+//     RDB at (12, 32, 32). A k16 step is one tile row of 16 pixels. Both
+//     operands are pixel-major, so both are MN-major (K over pixels), which
+//     wgmma takes for bf16 through the transpose bits: A, the dv tile, in
+//     TMA's 128-byte swizzle; B, the window shifted by the tap, in the
+//     64-byte swizzle through a descriptor whose start moves by whole pixel
+//     rows (the swizzle is of the absolute address, as TMA wrote it). A
+//     stage's 48 products a warpgroup are one commit group, one group left
+//     in flight. wgmma and not mma.sync: mma.sync issued at about a third of
+//     the tensor cores' rate here; A from registers (ldmatrix, reused by a
+//     row's three taps) measured 2-4% slower than from shared memory.
+//   * Pixel splits: the unit's tiles are cut into `splits` contiguous
+//     ranges, one a block of a thread-block cluster. Each block writes its
+//     sums into its own shared memory, in the gradient's order; after a
+//     cluster barrier block r adds the r-th slice of every block's sums
+//     over distributed shared memory in rank order 0, 1, .., applies level
+//     5's 0.2 (dv_5 = 0.2 dY is read as dY), and writes them 16 bytes at a
+//     time in the parameters' OIHW layout. No partial buffer, no second
+//     launch, no atomics: two runs give the same bits.
+//   * The bias in the consumers: while a stage's products run, the threads
+//     add its dv (f32 adds in a fixed order, then across threads in order);
+//     every block does (a branch among the products would serialise them),
+//     and each group's first unit writes it.
+// It replaces no TPU kernel (JAX's custom VJP is XLA's stock chain).
 
-constexpr int kWKc = 32;           // input channels of a block (M)
-constexpr int kWN = 32;            // output channels of a block (N)
-constexpr int kWWin = 10;          // window side: an 8x8 tile and its halo
-constexpr int kWWarps = 9;         // consumer warps, one a tap
-constexpr int kWThreads = 32 * (kWWarps + 1);
-constexpr int kWWinBytes = align1024(kWWin * kWWin * kWKc * 2);  // 64-byte pixels
-constexpr int kWDvBytes = 64 * kWN * 2;                          // 64-byte pixels
-constexpr int kWStageBytes = kWWinBytes + kWDvBytes;
+constexpr int kWTw = 16;         // tile columns
+constexpr int kWThMax = 16;      // tile rows: 16 or 8 (ops/rdb.py:wgrad_plan)
+constexpr int kWN = 32;          // input channels of a unit (wgmma's N)
+constexpr int kWRows = 3;        // consumer warpgroups: tap rows
+constexpr int kWThreads = 128 * kWRows + 32;  // and the producer warp
 constexpr int kWStages = 4;
+constexpr int kWMaxSplits = 8;   // blocks of a cluster, the portable most
+constexpr int kWDvBytes = kWThMax * kWTw * 128;  // 64 dv channels
+constexpr int kWStageBytes = kWDvBytes + align1024((kWThMax + 2) * (kWTw + 2) * kWN * 2);
 constexpr int kWSmemBytes = kWStages * kWStageBytes + 16 * kWStages + 1024;
-constexpr int kWTx = kWWin * kWWin * kWKc * 2 + 64 * kWN * 2;  // bytes a stage expects
 
 struct Wgrad {
-  float* ws;  // (splits, total) f32 partial sums, laid out as grad_offset
-  int B, H, W, nc, gc;
-  int tiles_x, tiles_y, splits, total;
+  float* grads;  // laid out as grad_offset
+  int B, nc, gc;
+  int th, tiles_x, tiles_y, splits;
 };
 
-// The byte at `byte` of a region of 64-byte rows, as TMA's 64-byte swizzle
-// lays it out in a 1024-byte-aligned region.
-__device__ __forceinline__ uint32_t swz64(uint32_t byte) {
-  return byte ^ (((byte >> 7) & 3) << 4);
+// Unit u of the weight gradient (ops/rdb.py:wgrad_units, in the same
+// order): its dv group (0: level 5; 1: levels 4 and 3; 2: levels 2 and 1)
+// and its first input channel c0 (a level's numbering: x, then x_1, ..),
+// kWN of them. Per group, x's channels and then the growth buffer's up to
+// the widest input of its levels. Returns the number of units where u is
+// past the last.
+__host__ __device__ inline int wgrad_unit(int u, int nc, int gc, int* grp, int* c0) {
+  int count = 0;
+  for (int g = 0; g < 3; ++g) {
+    const int cin = nc + (g == 0 ? 4 : g == 1 ? 3 : 1) * gc;
+    for (int c = 0; c < cin; c += kWN, ++count) {
+      if (count == u) {
+        *grp = g, *c0 = c;
+        return -1;
+      }
+    }
+  }
+  return count;
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// The level (0-based) whose output channel row `row` of dv group grp is,
+// and that channel; -1 for a row past level 5's nc.
+__host__ __device__ inline int wgrad_row_level(int grp, int row, int nc, int gc, int* co) {
+  if (grp == 0) {
+    *co = row;
+    return row < nc ? 4 : -1;
+  }
+  *co = row % gc;
+  return (grp == 1 ? 3 : 1) - row / gc;
 }
 
-// D (16 x 8, f32) += A (16 x 16, bf16) * B (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// The byte at `byte` of a region of 128-byte rows, as TMA's 128-byte
+// swizzle lays it out in a 1024-byte-aligned region.
+__device__ __forceinline__ uint32_t swz128(uint32_t byte) {
+  return byte ^ (((byte >> 7) & 7) << 4);
+}
+
+// D (64 x 32, f32) += A (64 x 16) * B (16 x 32), both bf16, MN-major in
+// shared memory (the transpose bits).
+__device__ __forceinline__ void wgmma_bf16_mn32(float (&d)[16], uint64_t a, uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
-      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b));
 }
 
-// Grid (blocks of all five levels, splits); blockIdx.x walks level 1's
-// input chunks, then level 2's, .., then level 5's chunks for its first
-// and then its second output group.
-__global__ void __launch_bounds__(kWThreads, 2)
-    rdb_wgrad_mma(const __grid_constant__ CUtensorMap tm_x,
-                  const __grid_constant__ CUtensorMap tm_g,
-                  const __grid_constant__ CUtensorMap tm_dy,
-                  const __grid_constant__ CUtensorMap tm_gg, Wgrad P) {
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: the writes to shared memory
+// before it are seen by the reads of any block after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared-memory address of block `rank` of the cluster that `addr` has
+// in this block.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// One block: unit (grp, c0), all nine taps, its split's tiles through the
+// ring, then the cluster's sum of its slice.
+__device__ __forceinline__ void wgrad_block(const CUtensorMap* tm_win, int win_c,
+                                            const CUtensorMap* tm_dv, int dv_c, const Wgrad& P,
+                                            int grp, int c0) {
+  constexpr int kBRow = kWN * 2;  // bytes of a window pixel
+  constexpr int kBMode = swizzle_mode(kBRow);
+  constexpr int kWinW = kWTw + 2;
+  constexpr int kAcc = kWN / 2;  // accumulators a thread a tap
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t full0 = base + kWStages * kWStageBytes;
   const uint32_t empty0 = full0 + 8 * kWStages;
-  int k = 0, chunk = blockIdx.x;
-  // a level's blocks: its input chunks times its output groups
-  while (chunk >= (P.nc + k * P.gc) / kWKc * ((k < 4 ? P.gc : P.nc) / kWN)) {
-    chunk -= (P.nc + k * P.gc) / kWKc * ((k < 4 ? P.gc : P.nc) / kWN);
-    ++k;
-  }
-  const int cin = P.nc + k * P.gc;
-  const int cout = k < 4 ? P.gc : P.nc;
-  const int co0 = chunk / (cin / kWKc) * kWN;  // the block's output group
-  chunk %= cin / kWKc;
-  const int c0 = chunk * kWKc;
-  const CUtensorMap* tm_in = c0 < P.nc ? &tm_x : &tm_g;
-  const int in_c0 = c0 < P.nc ? c0 : c0 - P.nc;
-  // dv_5 is read as dY (its 0.2 is applied in rdb_wgrad_reduce); dv_k,
-  // k < 5, is channel (4 - k) gc of the gradient growth buffer
-  const CUtensorMap* tm_dv = k < 4 ? &tm_gg : &tm_dy;
-  const int dv_c0 = (k < 4 ? (3 - k) * P.gc : 0) + co0;
+  const int th = P.th;
+  const int dv_bytes = th * kWTw * 128;  // the window's offset in a stage
+  const uint32_t tx_bytes = dv_bytes + (th + 2) * kWinW * kBRow;
+  const bool bias = c0 == 0;  // a group's first unit sums its bias
 
-  const int split = blockIdx.y;
+  const int rank = static_cast<int>(cluster_rank());
   const int tiles = P.B * P.tiles_y * P.tiles_x;
-  const int t0 = static_cast<int>(static_cast<long long>(tiles) * split / P.splits);
-  const int n = static_cast<int>(static_cast<long long>(tiles) * (split + 1) / P.splits) - t0;
-  float* ws = P.ws + static_cast<size_t>(split) * P.total + grad_offset(k, P.nc, P.gc);
-  const int warp = threadIdx.x / 32;
+  const int t0 = static_cast<int>(static_cast<long long>(tiles) * rank / P.splits);
+  const int n = static_cast<int>(static_cast<long long>(tiles) * (rank + 1) / P.splits) - t0;
+  const int wg = threadIdx.x / 128;  // tap row of a consumer warpgroup; kWRows: the producer
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kWWarps);  // lane 0 of each consumer warp
+      mbar_init(empty0 + 8 * s, 4 * kWRows);  // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1179,133 +1265,192 @@ __global__ void __launch_bounds__(kWThreads, 2)
   // nothing written, before they have finished
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 
-  if (warp == kWWarps) {
+  // acc[dx][4 q + 2 h + e]: output row 16 warp + lane / 4 + 8 h of the
+  // group, input channel c0 + 8 q + 2 (lane % 4) + e, at tap (wg, dx)
+  float acc[3][kAcc];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[dx][i] = 0.f;
+  }
+  float bsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // see the consumers
+  if (wg == kWRows) {
     // producer: lane 0 stages tile `it` once the consumers are done with
-    // tile it - kWStages in its stage; in a level's first input chunk the
-    // warp first adds that tile's dv into db (lane 2l, 2l + 1 of its 32
-    // channels, pixels in order), so that it reads the stage before it is
-    // refilled
-    const bool bias = chunk == 0 && lane < kWN / 2;
-    float db0 = 0.f, db1 = 0.f;
-    for (int it = 0; it < n + kWStages; ++it) {
-      const int j = it - kWStages;
-      if (j >= 0) {
-        const int s = j % kWStages;
-        const uint32_t parity = (j / kWStages) & 1;
-        if (chunk == 0) {
-          mbar_wait(full0 + 8 * s, parity);
-          if (bias) {
-            const uint32_t dv = base + s * kWStageBytes + kWWinBytes;
-            for (int p = 0; p < 64; ++p) {
-              uint32_t v;
-              asm volatile("ld.shared.b32 %0, [%1];\n"
-                           : "=r"(v)
-                           : "r"(dv + swz64(p * 2 * kWN + 4 * lane))
-                           : "memory");
-              const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-              db0 += f.x;
-              db1 += f.y;
-            }
-          }
-        }
-        if (it < n && lane == 0) mbar_wait(empty0 + 8 * s, parity);
-      }
-      __syncwarp();
-      if (it < n && lane == 0) {
+    // tile it - kWStages in its stage
+    if (lane == 0) {
+      for (int it = 0; it < n; ++it) {
         const int s = it % kWStages;
+        if (it >= kWStages) mbar_wait(empty0 + 8 * s, ((it / kWStages) - 1) & 1);
         const uint32_t stage = base + s * kWStageBytes;
         const uint32_t full = full0 + 8 * s;
         const int t = t0 + it;
         const int tx = t % P.tiles_x;
         const int ty = (t / P.tiles_x) % P.tiles_y;
         const int b = t / (P.tiles_x * P.tiles_y);
-        mbar_expect_tx(full, kWTx);
-        tma_load_4d(stage, tm_in, full, in_c0, 8 * tx - 1, 8 * ty - 1, b);
-        tma_load_4d(stage + kWWinBytes, tm_dv, full, dv_c0, 8 * tx, 8 * ty, b);
+        mbar_expect_tx(full, tx_bytes);
+        tma_load_4d(stage, tm_dv, full, dv_c, kWTw * tx, th * ty, b);
+        tma_load_4d(stage + dv_bytes, tm_win, full, win_c, kWTw * tx - 1, th * ty - 1, b);
+      }
+    }
+  } else {
+    // consumer warpgroup wg, tap row wg. A k16 step is one tile row kk of
+    // 16 pixels: A is the dv group's 64 channels by those pixels (MN-major,
+    // whole 128-byte pixel rows, SBO the next 8 pixels), B tap (wg, dx)'s
+    // window from window pixel (kk + wg, dx), its start moved by whole
+    // 64-byte pixel rows. A stage's 48 products are one commit group, one
+    // group left in flight. While they run, the threads add the stage's dv
+    // into bsum: thread t takes channels 8 (t % 8) .. + 7 of pixels t / 8,
+    // t / 8 + 48, .. (every block does, so no branch sits among the
+    // products; the bias blocks write it).
+    const int c8 = threadIdx.x % 8;
+    for (int it = 0; it < n; ++it) {
+      const int s = it % kWStages;
+      mbar_wait(full0 + 8 * s, (it / kWStages) & 1);
+      const uint32_t dv = base + s * kWStageBytes;
+      const uint32_t win = dv + dv_bytes;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) fence_regs(acc[dx]);
+      wgmma_fence();
+      for (int kk = 0; kk < th; ++kk) {
+        const uint64_t a = wgmma_desc(dv + kk * kWTw * 128, 16, 1024, swizzle_mode(128));
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const uint64_t b =
+              wgmma_desc(win + ((kk + wg) * kWinW + dx) * kBRow, 16, 8 * kBRow, kBMode);
+          wgmma_bf16_mn32(acc[dx], a, b);
+        }
+      }
+      wgmma_commit();
+      for (int p = threadIdx.x / 8; p < th * kWTw; p += 128 * kWRows / 8) {
+        uint32_t v[4];
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                     : "r"(dv + swz128(p * 128 + c8 * 16)));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v[j]));
+          bsum[2 * j] += f.x;
+          bsum[2 * j + 1] += f.y;
+        }
+      }
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) fence_regs(acc[dx]);
+      if (it > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kWStages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) fence_regs(acc[dx]);
+  }
+
+  // Every staged tile was waited on and every product has retired: the ring
+  // becomes the block's sums, [row][kWN][tap] (each row's kWN x 9 floats in
+  // the order of the OIHW gradient, so they are written contiguously), rows
+  // kRowPitch floats apart (4 more than a row: the eight rows a warp writes
+  // fall on other banks), then the bias rows [64], then the consumers' bias
+  // sums [thread / 8][64].
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw + (base - raw));
+  constexpr int kRow = kWN * 9;
+  constexpr int kRowPitch = kRow + 4;
+  constexpr int kSums = 64 * kRowPitch;
+  float* brow = red + kSums;
+  if (wg < kWRows) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const int rw = 16 * warp + lane / 4 + 8 * (i / 2 % 2);
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        red[rw * kRowPitch + col * 9 + 3 * wg + dx] = acc[dx][i];
       }
     }
     if (bias) {
-      float* db = ws + 9 * cin * cout + co0;
-      db[2 * lane] = db0;
-      db[2 * lane + 1] = db1;
+      float* part = brow + 64 + threadIdx.x / 8 * 64 + 8 * (threadIdx.x % 8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[j] = bsum[j];
     }
-    return;
   }
+  if (bias) {
+    __syncthreads();
+    if (threadIdx.x < 64) {
+      float v = brow[64 + threadIdx.x];
+      for (int t = 1; t < 128 * kWRows / 8; ++t) v += brow[64 + t * 64 + threadIdx.x];
+      brow[threadIdx.x] = v;
+    }
+  }
+  cluster_sync();
 
-  // consumer warp `warp` owns tap (dy, dx) = (warp / 3, warp % 3): for each
-  // 16-pixel step (two tile rows) A is 32 channels x 16 window pixels
-  // (ldmatrix.trans of 8-pixel rows, 16-byte channel groups) and B 16
-  // pixels x 32 channels of dv. Lane l gives the row address of matrix l / 8.
-  const int dy = warp / 3, dx = warp % 3;
-  const int mat = lane >> 3, row = lane & 7;
-  float acc[2][kWN / 8][4];
+  // This block's slice of the unit's sums, 16 bytes at a time, each the
+  // splits' sums added in rank order; a thread takes two of them a round,
+  // all its loads in flight at once. A row's kWN x 9 floats are one
+  // contiguous run of the gradient.
+  const int splits = P.splits;
+  constexpr int kQuads = 64 * kRow / 4;
+  const int q0 = kQuads * rank / splits, q1 = kQuads * (rank + 1) / splits;
+  for (int qd = q0 + threadIdx.x; qd < q1; qd += 2 * kWThreads) {
+    float4 v[2][kWMaxSplits];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int j = 0; j < 2; ++j) {
+      const int e = qd + j * kWThreads;
+      const int rw = e / (kRow / 4);
+      const uint32_t at = base + 4u * (rw * kRowPitch) + 16u * (e - rw * (kRow / 4));
 #pragma unroll
-    for (int nj = 0; nj < kWN / 8; ++nj) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
-    }
-  }
-  for (int it = 0; it < n; ++it) {
-    const int s = it % kWStages;
-    mbar_wait(full0 + 8 * s, (it / kWStages) & 1);
-    const uint32_t win = base + s * kWStageBytes;
-    const uint32_t dv = win + kWWinBytes;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // A: matrix m holds pixels (2 kk + m / 2, 0..7) of the tile, shifted
-      // by the tap, and channels 8 (m % 2) .. + 7 of the m16 tile
-      uint32_t a[2][4];
-      const int q = (2 * kk + (mat >> 1) + dy) * kWWin + row + dx;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        ldsm_x4_trans(a[mi], win + swz64(q * 64 + (2 * mi + (mat & 1)) * 16));
+      for (int q = 0; q < kWMaxSplits; ++q) {
+        if (e < q1 && q < splits) v[j][q] = ld_cluster4(map_rank(at, q));
       }
-      // B: matrix m holds pixels (2 kk + m % 2, 0..7) and output channels
-      // 16 np + 8 (m / 2) .. + 7
-      const int p = (2 * kk + (mat & 1)) * 8 + row;
+    }
 #pragma unroll
-      for (int np = 0; np < kWN / 16; ++np) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, dv + swz64(p * 64 + (2 * np + (mat >> 1)) * 16));
+    for (int j = 0; j < 2; ++j) {
+      const int e = qd + j * kWThreads;
+      const int rw = e / (kRow / 4);
+      int co;
+      const int k = wgrad_row_level(grp, rw, P.nc, P.gc, &co);
+      // past the slice, or a row or channels that the level does not have
+      if (e >= q1 || k < 0 || c0 >= P.nc + k * P.gc) continue;
+      float4 sum = v[j][0];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * np], a[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * np + 1], a[mi], bf[2], bf[3]);
+      for (int q = 1; q < kWMaxSplits; ++q) {
+        if (q < splits) {
+          sum.x += v[j][q].x, sum.y += v[j][q].y, sum.z += v[j][q].z, sum.w += v[j][q].w;
         }
       }
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * s);
-  }
-  // the sums in the parameter's OIHW layout: acc[mi][nj][2 h + e] is input
-  // channel 16 mi + lane / 4 + 8 h of the chunk, output channel
-  // 8 nj + 2 (lane % 4) + e of the group
-  const int ci0 = c0 + lane / 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < kWN / 8; ++nj) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ci = ci0 + 16 * mi + 8 * (i >> 1);
-        const int co = co0 + 8 * nj + 2 * (lane % 4) + (i & 1);
-        ws[(co * cin + ci) * 9 + warp] = acc[mi][nj][i];
-      }
+      const float scale = k == 4 ? 0.2f : 1.f;
+      const int cin = P.nc + k * P.gc;
+      float* out = P.grads + grad_offset(k, P.nc, P.gc) +
+                   (static_cast<int64_t>(co) * cin + c0) * 9 + 4 * (e - rw * (kRow / 4));
+      *reinterpret_cast<float4*>(out) =
+          make_float4(scale * sum.x, scale * sum.y, scale * sum.z, scale * sum.w);
     }
   }
+  if (bias && rank == 0 && threadIdx.x < 64) {
+    int co;
+    const int k = wgrad_row_level(grp, threadIdx.x, P.nc, P.gc, &co);
+    if (k >= 0) {
+      const int cin = P.nc + k * P.gc, cout = k < 4 ? P.gc : P.nc;
+      const uint32_t at = base + 4u * (kSums + threadIdx.x);
+      float v = ld_cluster(map_rank(at, 0));
+      for (int q = 1; q < splits; ++q) v += ld_cluster(map_rank(at, q));
+      P.grads[grad_offset(k, P.nc, P.gc) + 9 * cin * cout + co] = (k == 4 ? 0.2f : 1.f) * v;
+    }
+  }
+  // no block leaves while another may still read its shared memory
+  cluster_sync();
 }
 
-// grads[e] = the splits' partial sums of e added in order, times 0.2 from
-// `scaled` on (level 5's, whose dv_5 = 0.2 dY was read as dY).
-__global__ void rdb_wgrad_reduce(const float* ws, float* grads, int total, int splits,
-                                 int scaled) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  float sum = 0.f;
-  for (int i = 0; i < splits; ++i) sum += ws[static_cast<size_t>(i) * total + e];
-  grads[e] = e >= scaled ? 0.2f * sum : sum;
+// Grid (units, splits), clusters of (1, splits): blockIdx.x is the unit, the
+// block's rank in its cluster its split. The window maps have boxes of kWN
+// channels over (th + 2) x 18 pixels, the dv maps boxes of 64 channels over
+// th x 16 (dY's past nc, at nc 32, read as zeros).
+__global__ void __launch_bounds__(kWThreads, 1)
+    rdb_wgrad(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
+              const __grid_constant__ CUtensorMap tm_dy, const __grid_constant__ CUtensorMap tm_gg,
+              Wgrad P) {
+  int grp = 0, c0 = 0;
+  wgrad_unit(blockIdx.x, P.nc, P.gc, &grp, &c0);
+  const bool from_x = c0 < P.nc;
+  wgrad_block(from_x ? &tm_x : &tm_g, from_x ? c0 : c0 - P.nc, grp == 0 ? &tm_dy : &tm_gg,
+              grp == 0 ? 0 : (grp - 1) * 2 * P.gc, P, grp, c0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1466,31 +1611,44 @@ bool map_nhwc(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int
                 tma_swizzle(box_c * 2));
 }
 
-// The weight and bias gradients: rdb_wgrad_mma's partial sums into ws,
-// then rdb_wgrad_reduce's into grads. x and g the forward's input and
-// growth buffer, dy the output's gradient, gg the gradient growth buffer.
-cudaError_t launch_wgrad(const void* x, const void* g, const void* dy, const void* gg, float* ws,
-                         float* grads, int B, int H, int W, int nc, int gc, int splits,
+// The weight and bias gradients, one launch of rdb_wgrad into grads. x
+// and g the forward's input and growth buffer, dy the output's gradient, gg
+// the gradient growth buffer; th the tile's rows (16 or 8) and splits the
+// blocks of a cluster (at most kWMaxSplits), from ops/rdb.py:wgrad_plan.
+cudaError_t launch_wgrad(const void* x, const void* g, const void* dy, const void* gg,
+                         float* grads, int B, int H, int W, int nc, int gc, int th, int splits,
                          cudaStream_t s) {
-  cudaError_t err = allow_smem<rdb_wgrad_mma>(kWSmemBytes);
-  if (err != cudaSuccess) return err;
-  Wgrad P{ws, B, H, W, nc, gc, (W + 7) / 8, (H + 7) / 8, splits, grad_offset(5, nc, gc)};
-  CUtensorMap tm_x, tm_g, tm_dy, tm_gg;
-  if (!map_nhwc(&tm_x, x, B, H, W, nc, kWKc, kWWin, kWWin) ||
-      !map_nhwc(&tm_g, g, B, H, W, 4 * gc, kWKc, kWWin, kWWin) ||
-      !map_nhwc(&tm_dy, dy, B, H, W, nc, kWN, 8, 8) ||
-      !map_nhwc(&tm_gg, gg, B, H, W, 4 * gc, kWN, 8, 8)) {
+  if ((th != 8 && th != kWThMax) || splits < 1 || splits > kWMaxSplits) {
     return cudaErrorInvalidValue;
   }
-  int blocks = 0;
-  for (int k = 0; k < 5; ++k) blocks += (nc + k * gc) / kWKc * ((k < 4 ? gc : nc) / kWN);
-  err = launch_pdl(rdb_wgrad_mma, dim3(blocks, splits), kWThreads, kWSmemBytes, s, true, tm_x,
-                   tm_g, tm_dy, tm_gg, P);
-  if (err == cudaSuccess) err = cudaGetLastError();
+  cudaError_t err = allow_smem<rdb_wgrad>(kWSmemBytes);
   if (err != cudaSuccess) return err;
-  rdb_wgrad_reduce<<<(P.total + 255) / 256, 256, 0, s>>>(ws, grads, P.total, splits,
-                                                        grad_offset(4, nc, gc));
-  return cudaGetLastError();
+  Wgrad P{grads, B, nc, gc, th, (W + kWTw - 1) / kWTw, (H + th - 1) / th, splits};
+  CUtensorMap tm_x, tm_g, tm_dy, tm_gg;
+  if (!map_nhwc(&tm_x, x, B, H, W, nc, kWN, kWTw + 2, th + 2) ||
+      !map_nhwc(&tm_g, g, B, H, W, 4 * gc, kWN, kWTw + 2, th + 2) ||
+      !map_nhwc(&tm_dy, dy, B, H, W, nc, 64, kWTw, th) ||
+      !map_nhwc(&tm_gg, gg, B, H, W, 4 * gc, 64, kWTw, th)) {
+    return cudaErrorInvalidValue;
+  }
+  int grp, c0;
+  const int units = wgrad_unit(-1, nc, gc, &grp, &c0);
+  cudaLaunchAttribute attrs[2] = {};
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = 1;
+  attrs[1].val.clusterDim.y = splits;
+  attrs[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(units, splits);
+  cfg.blockDim = dim3(kWThreads);
+  cfg.dynamicSmemBytes = kWSmemBytes;
+  cfg.stream = s;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, rdb_wgrad, tm_x, tm_g, tm_dy, tm_gg, P);
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 // Plan<COUT, TH, TW> as ints, in the order of ops/rdb.py:WgmmaPlan.vector:
@@ -1598,23 +1756,22 @@ int dasr_rdb_dgrad_weights(const void* const* w, void* img, int nc, int gc, void
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward of one bf16 RDB, seven launches in order on `stream`: the
+// The backward of one bf16 RDB, six launches in order on `stream`: the
 // reverse chain's five levels (dv_4 .. dv_1 into the gradient growth buffer
-// gg, (B, H, W, 4 gc), then dx, (B, H, W, nc)), and the weight gradients (the
-// splits' partial sums into ws, (splits, total), then their sum into
-// grads, laid out as grad_offset). x, g: the forward's input and growth
-// buffer; img the five dgrad weight images, made by dasr_rdb_prep_weights
-// before the previous launch began (img_ready 1) or by dasr_rdb_dgrad_weights
-// as the previous launch (img_ready 0); dy the output's gradient, (B, H, W,
-// nc). tile as in dasr_rdb_forward. Takes nc 32 or 64 and gc 32; returns a
+// gg, (B, H, W, 4 gc), then dx, (B, H, W, nc)), and the weight gradients
+// (rdb_wgrad, into grads, laid out as grad_offset). x, g: the forward's
+// input and growth buffer; img the five dgrad weight images, made by
+// dasr_rdb_prep_weights before the previous launch began (img_ready 1) or by
+// dasr_rdb_dgrad_weights as the previous launch (img_ready 0); dy the
+// output's gradient, (B, H, W, nc). tile as in dasr_rdb_forward; wgrad_th
+// and splits the weight gradient's tile rows and blocks of a cluster
+// (ops/rdb.py:wgrad_plan). Takes nc 32 or 64 and gc 32; returns a
 // cudaError_t as dasr_rdb_forward does.
 int dasr_rdb_backward(const void* x, const void* g, const void* img, int img_ready,
-                      const void* dy, void* gg, void* dx, void* ws, void* grads, int B, int H,
-                      int W, int nc, int gc, int tile, int splits, void* stream) {
+                      const void* dy, void* gg, void* dx, void* grads, int B, int H, int W,
+                      int nc, int gc, int tile, int wgrad_th, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((nc != 32 && nc != 64) || gc != 32 || splits < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if ((nc != 32 && nc != 64) || gc != 32) return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* level_img = static_cast<const __nv_bfloat16*>(img);
   for (int k = 0; k < 5; ++k) {
     const bool final_level = k == 4;
@@ -1629,8 +1786,21 @@ int dasr_rdb_backward(const void* x, const void* g, const void* img, int img_rea
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(launch_wgrad(x, g, dy, gg, static_cast<float*>(ws),
-                                       static_cast<float*>(grads), B, H, W, nc, gc, splits, s));
+  return static_cast<int>(launch_wgrad(x, g, dy, gg, static_cast<float*>(grads), B, H, W, nc,
+                                       gc, wgrad_th, splits, s));
+}
+
+// The weight gradient's units for nc and gc as (dv group, first input
+// channel), in the order of ops/rdb.py:wgrad_units. At most n ints are
+// written to out; returns how many there are.
+int dasr_rdb_wgrad_units(int nc, int gc, int* out, int n) {
+  int grp, c0, i = 0;
+  const int units = wgrad_unit(-1, nc, gc, &grp, &c0);
+  for (int u = 0; u < units; ++u, i += 2) {
+    wgrad_unit(u, nc, gc, &grp, &c0);
+    if (i + 1 < n) out[i] = grp, out[i + 1] = c0;
+  }
+  return i;
 }
 
 // Every bf16 RDB's weights of a network, one launch on `stream`

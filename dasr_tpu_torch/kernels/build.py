@@ -92,8 +92,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     vp, i, vpp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     lib.dasr_rdb_forward.argtypes = [i, vp, vp, vpp, vpp, vp] + [i] * 6 + [vp]
     lib.dasr_rdb_forward.restype = i
-    lib.dasr_rdb_backward.argtypes = [vp, vp, vp, i] + [vp] * 5 + [i] * 7 + [vp]
+    lib.dasr_rdb_backward.argtypes = [vp, vp, vp, i] + [vp] * 4 + [i] * 8 + [vp]
     lib.dasr_rdb_backward.restype = i
+    lib.dasr_rdb_wgrad_units.argtypes = [i, i, ctypes.POINTER(i), i]
+    lib.dasr_rdb_wgrad_units.restype = i
     lib.dasr_rdb_dgrad_weights.argtypes = [vpp, vp, i, i, vp]
     lib.dasr_rdb_dgrad_weights.restype = i
     lib.dasr_rdb_prep_weights.argtypes = [vp, i, i, i, i, vp, vp, vp]

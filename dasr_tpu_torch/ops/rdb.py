@@ -14,14 +14,15 @@ package), and the custom VJP around it (``pallas_rdb.py:276-294``).
 Backward, two paths that share no logic, chosen by the input's device and type:
 
 * bf16 on the card: hand-written kernels (``dasr_rdb_backward`` in
-  ``csrc/rdb.cu``, seven launches an RDB) that read what the forward kept,
+  ``csrc/rdb.cu``, six launches an RDB) that read what the forward kept,
   x and the growth buffer x_1..x_4, and recompute nothing: on the dgrad
   weight images (made by the network's weight plan, or else by one launch
   more), the reverse dense chain on the forward's machinery (dv_4..dv_1
-  into a gradient growth buffer, then dx), and the weight and
-  bias gradients of all five levels, written in f32 in the parameters'
-  OIHW layout. ``rdb_backward_reference`` is its plain version. The TPU
-  kernel had no backward kernel (JAX's custom VJP is XLA's stock chain), so
+  into a gradient growth buffer, then dx), and the weight and bias
+  gradients of all five levels in one launch (its pixel splits added inside
+  it, over a thread-block cluster's shared memory, ``wgrad_plan``), written
+  in f32 in the parameters' OIHW layout. ``rdb_backward_reference`` is its
+  plain version. The TPU kernel had no backward kernel (JAX's custom VJP is XLA's stock chain), so
   this one replaces none; the source note says what bounds it.
 * f32 on the card, and the CPU: as in JAX, the VJP of the stock dense chain
   (``rdb_chain``, the counterpart of ``_scatter_reference`` in the working
@@ -222,10 +223,10 @@ TOLERANCES = {
 }
 
 LAUNCHES_PER_RDB = 5  # one kernel launch per level
-# the bf16 backward: five reverse-chain levels, the weight gradients'
-# partial sums and their reduction; and, where no weight plan made them
-# (``RDBWeightPlan``), the dgrad weight images first
-BACKWARD_LAUNCHES = 7
+# the bf16 backward: five reverse-chain levels and the weight gradients;
+# and, where no weight plan made them (``RDBWeightPlan``), the dgrad weight
+# images first
+BACKWARD_LAUNCHES = 6
 IMAGE_LAUNCHES = 1
 # kernel codes of the C entry point: f32 split-TF32 wgmma, bf16 wgmma
 _KERNEL_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -246,15 +247,65 @@ PEAK_BYTES_PER_S = 3.35e12
 TILES = ((8, 8), (16, 16))
 
 
-def wgrad_splits(b, h, w, nc=64, gc=32, sms=132):
-    """Splits of the pixels (8x8 tiles) among which the weight-gradient
-    kernel divides the work of each of its blocks (32 input by 32 output
-    channels of one level): as many as keep all five levels' blocks in one
-    wave of two an SM, and never more than there are tiles. A second launch
-    adds the splits' partial sums in order."""
-    blocks = sum((nc + k * gc) // 32 * ((gc if k < 4 else nc) // 32) for k in range(5))
-    tiles = b * -(-h // 8) * -(-w // 8)
-    return max(1, min(tiles, 2 * sms // blocks))
+# the weight-gradient kernel (rdb_wgrad): tile columns, the tile rows it
+# takes, a unit's input channels, the most blocks of a cluster (the portable
+# limit), and a stage's fixed cost in pixels of products (its barriers and
+# copies; on the H100 8-row tiles won at (4, 48, 48), 36 16 x 16 tiles over
+# 8 splits, and lost at the other train shapes)
+WGRAD_TILE_W = 16
+WGRAD_TILE_H = (16, 8)
+WGRAD_N = 32
+WGRAD_MAX_SPLITS = 8
+WGRAD_STAGE_PX = 16
+
+
+def wgrad_units(nc=64, gc=32):
+    """The weight-gradient kernel's units, in its order (``wgrad_unit`` in
+    ``csrc/rdb.cu``): (dv group, first input channel). A dv group is the 64
+    output channels of wgmma's rows: level 5's dY (0), [dv_4 | dv_3] (1) or
+    [dv_2 | dv_1] (2) of the gradient growth buffer; a unit takes WGRAD_N
+    input channels (wgmma's columns) of the widest input of the group's
+    levels, numbered as a level's input: x, then x_1, x_2, ..."""
+    return [(grp, c0) for grp, widest in ((0, 4), (1, 3), (2, 1))
+            for c0 in range(0, nc + widest * gc, WGRAD_N)]
+
+
+def wgrad_row_level(grp, row, nc=64, gc=32):
+    """(level, 0-based, and its output channel) of row ``row`` of dv group
+    ``grp``, or (None, None) for a row past level 5's nc."""
+    if grp == 0:
+        return (4, row) if row < nc else (None, None)
+    return (3 if grp == 1 else 1) - row // gc, row % gc
+
+
+def wgrad_plan(b, h, w, nc=64, gc=32, sms=132):
+    """(tile rows, splits) of the weight-gradient kernel at a (b, h, w)
+    level. Tiles are WGRAD_TILE_W columns by 16 or 8 rows; each unit's block
+    walks one of ``splits`` contiguous ranges of the tiles
+    (``wgrad_tiles``), and the splits of a unit are the blocks of one
+    thread-block cluster, which adds them inside the launch. Splits: as many
+    as keep every block in one wave of one block an SM, at most
+    WGRAD_MAX_SPLITS and never more than the tiles. Rows: the fewer stages'
+    products and fixed costs on the busiest block (WGRAD_STAGE_PX), 16 on a
+    tie. So the plan follows the shape, nc and the SM count alone, and so
+    does the order of every sum."""
+    units = len(wgrad_units(nc, gc))
+    best = None
+    for th in WGRAD_TILE_H:
+        tiles = b * -(-h // th) * -(-w // WGRAD_TILE_W)
+        splits = max(1, min(WGRAD_MAX_SPLITS, tiles, sms // units))
+        cost = -(-tiles // splits) * (th * WGRAD_TILE_W + WGRAD_STAGE_PX)
+        if best is None or cost < best[0]:
+            best = (cost, th, splits)
+    return best[1], best[2]
+
+
+def wgrad_tiles(b, h, w, th, splits):
+    """The tiles (flat index (b, tile row, tile column)) that each split,
+    the block of that rank in a cluster, walks in order; the cluster adds
+    the splits' sums in rank order."""
+    tiles = b * -(-h // th) * -(-w // WGRAD_TILE_W)
+    return [range(tiles * r // splits, tiles * (r + 1) // splits) for r in range(splits)]
 
 
 def grad_layout(nc=64, gc=32):
@@ -481,6 +532,17 @@ def kernel_plan(cout, tile, dtype=torch.bfloat16):
     if not 0 <= n <= len(out):
         raise ValueError(f"kernel_plan: no {dtype} kernel for cout {cout}, tile {tile}")
     return list(out[:n])
+
+
+def kernel_wgrad_units(nc=64, gc=32):
+    """The weight-gradient kernel's units as compiled (``wgrad_unit``), in
+    the form of ``wgrad_units``. Loads the library, so it needs nvcc."""
+    from dasr_tpu_torch.kernels import build
+
+    lib = build.load()
+    out = (ctypes.c_int * 256)()
+    n = lib.dasr_rdb_wgrad_units(nc, gc, out, len(out))
+    return [tuple(out[i:i + 2]) for i in range(0, min(n, len(out)), 2)]
 
 
 def level_costs(b, h, w, nc=64, gc=32, itemsize=2):
@@ -990,11 +1052,10 @@ def _launch_backward(x, growth, kernels, images, dy):
     if dy.data_ptr() % 32:
         dy = dy.clone()  # TMA reads from 16-byte-aligned rows
     sms = _sm_count(x.device.index)
-    splits = wgrad_splits(b, h, w, nc, gc, sms)
+    th, splits = wgrad_plan(b, h, w, nc, gc, sms)
     layout, total = grad_layout(nc, gc)
     dv = torch.empty_like(growth)  # the gradient growth buffer: dv_4 | dv_3 | dv_2 | dv_1
     dx = torch.empty_like(x)
-    ws = torch.empty((splits, total), dtype=torch.float32, device=x.device)
     grads = torch.empty(total, dtype=torch.float32, device=x.device)
     # the plan's images were written at the forward's start: the levels may
     # read them before the previous launch finished; this call's may not
@@ -1006,8 +1067,8 @@ def _launch_backward(x, growth, kernels, images, dy):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dasr_rdb_backward(
             x.data_ptr(), growth.data_ptr(), images.data_ptr(), int(ready), dy.data_ptr(),
-            dv.data_ptr(), dx.data_ptr(), ws.data_ptr(), grads.data_ptr(), b, h, w, nc, gc,
-            tile_plan(b, h, w, sms), splits, stream,
+            dv.data_ptr(), dx.data_ptr(), grads.data_ptr(), b, h, w, nc, gc,
+            tile_plan(b, h, w, sms), th, splits, stream,
         )
     build.check(lib, rc, "fused_rdb backward")
     fused_rdb.backward_launches += BACKWARD_LAUNCHES

@@ -125,25 +125,28 @@ def test_f32_kernel_within_twice_the_plain_error_against_f64(rng, shape, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape, tile", [((12, 32, 32), (8, 8)), ((4, 100, 90), (16, 16))])
-def test_backward_kernels_match_autograd_through_plain(rng, shape, tile):
-    """bf16, the train step's shape and a ragged one: the Function's
-    backward (the kernels, on f32 kernel leaves as RDB5C hands them)
-    against autograd through the plain version on the same tensors (cuDNN
-    off), dL/dx and the ten parameter gradients each within ``grad_bf16``
-    in the Frobenius norm; a second run gives the same bits; one forward
-    and backward, a bare call with no weight plan, count the forward's five
-    launches, the backward's seven and its weight images' one, one backward
-    through the kernels and one call that cast its own kernels."""
+@pytest.mark.parametrize("shape, tile, nc", [((12, 32, 32), (8, 8), 64), ((4, 100, 90), (16, 16), 64),
+                                             ((4, 48, 48), (8, 8), 64), ((8, 48, 48), (16, 16), 64),
+                                             ((3, 20, 28), (8, 8), 32)])
+def test_backward_kernels_match_autograd_through_plain(rng, shape, tile, nc):
+    """bf16, the three train cells' shapes, a ragged one, and a ragged one
+    at nc 32: the Function's backward (the kernels, on f32 kernel leaves as
+    RDB5C hands them) against autograd through the plain version on the
+    same tensors (cuDNN off), dL/dx and the ten parameter gradients each
+    within ``grad_bf16`` in the Frobenius norm; a second run gives the same
+    bits; one forward and backward, a bare call with no weight plan, count
+    the forward's five launches, the backward's BACKWARD_LAUNCHES and its
+    weight images' one, one backward through the kernels and one call that
+    cast its own kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     assert TILES[tile_plan(*shape)] == tile
-    kernels, biases = _params(rng)
+    kernels, biases = _params(rng, nc)
     resolve_device("cuda")
-    base = ([torch.from_numpy(rng.random(shape + (64,), dtype=np.float32)).cuda().bfloat16()]
+    base = ([torch.from_numpy(rng.random(shape + (nc,), dtype=np.float32)).cuda().bfloat16()]
             + [torch.from_numpy(k).cuda() for k in kernels]
             + [torch.from_numpy(b).cuda() for b in biases])
-    g = torch.from_numpy(rng.normal(0, 1, shape + (64,)).astype(np.float32)).cuda().bfloat16()
+    g = torch.from_numpy(rng.normal(0, 1, shape + (nc,)).astype(np.float32)).cuda().bfloat16()
 
     def run(fn):
         leaves = [t.clone().requires_grad_() for t in base]
@@ -165,6 +168,37 @@ def test_backward_kernels_match_autograd_through_plain(rng, shape, tile):
         assert a.dtype == w.dtype and a.shape == w.shape, i
         rel = ((a.float() - w.float()).norm() / w.float().norm()).item()
         assert rel <= rtol, (i, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 32, 32), (8, 128, 128)])
+def test_wgrad_two_launches_give_the_same_bits(rng, shape):
+    """The weight gradient at shapes that the plan cuts into more than one
+    pixel split (added over the cluster's shared memory in rank order): two
+    backward launches on the same inputs give the same bits, every kernel
+    and bias gradient, and the kernel's units are those of
+    ``wgrad_units``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from dasr_tpu_torch.ops import rdb
+
+    assert rdb.wgrad_plan(*shape)[1] > 1
+    assert rdb.kernel_wgrad_units(64, 32) == rdb.wgrad_units(64, 32)
+    assert rdb.kernel_wgrad_units(32, 32) == rdb.wgrad_units(32, 32)
+    kernels, biases = _params(rng)
+    x = torch.from_numpy(rng.random(shape + (64,), dtype=np.float32)).cuda().bfloat16()
+    ks = [torch.from_numpy(k).cuda().bfloat16() for k in kernels]
+    bs = [torch.from_numpy(b).cuda() for b in biases]
+    dy = torch.from_numpy(rng.normal(0, 1, shape + (64,)).astype(np.float32)).cuda().bfloat16()
+    with torch.no_grad():
+        _, growth = rdb._launch(x, ks, bs)
+    images = rdb.launch_images(ks)
+    first = rdb._launch_backward(x, growth, ks, images, dy)
+    first = [t.clone() for t in (*first[1], *first[2])]
+    second = rdb._launch_backward(x, growth, ks, images, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, (*second[1], *second[2])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _bits(t):
