@@ -3719,6 +3719,7 @@ def phase_sft(gpu, root):
 
     from dasr_tpu_torch.cli import sftgan_test
     from dasr_tpu_torch.data.io import list_images, read_img, save_img
+    from dasr_tpu_torch.models.registry import create_model
     from dasr_tpu_torch.ops.metrics import modcrop
     from dasr_tpu_torch.ops.resize import imresize_np
 
@@ -3758,7 +3759,8 @@ def phase_sft(gpu, root):
 
     # each image's f32 output on the card against the CPU's, and the
     # forward's ms/image
-    nets = {d: sftgan_test.load_sftnet(pth).to(d).eval() for d in ("cuda", "cpu")}
+    nets = {d: create_model(sftgan_test.options(pth), d).load().g.to(d).eval()
+            for d in ("cuda", "cpu")}
     err, ms = 0.0, []
     for path in list_images(img_dir):
         base_name = os.path.splitext(os.path.basename(path))[0]

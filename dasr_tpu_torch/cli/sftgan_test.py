@@ -8,10 +8,12 @@ MATLAB-bicubic downscaled x1/4 (unless ``--lr_input``), its segmentation
 probability maps are read from ``--seg_dir`` (``<base>_bic.pth``, a torch
 tensor as the reference saves them, or ``<base>_bic.npy``; CHW or HWC,
 with or without a batch axis), and SFTNet's x4 output is written to
-``<out>/<base>_rlt.png``. f32, as the JAX CLI. ``--model`` is a reference
-``.pth`` (loaded by the reference's names) or the port's ``.pt`` (an SFTNet
-state dict, or a train state's ``G``); an orbax directory is JAX-only.
-Image i is written while image i + 1 runs.
+``<out>/<base>_rlt.png``. f32, as the JAX CLI. The images are served by
+model 'sftgan' (``models/registry.py:SFTGANModel``, ``test_async(lr,
+seg)``; ``options``). ``--model`` is a reference ``.pth`` (loaded by the
+reference's names) or the port's ``.pt`` (an SFTNet state dict, or a train
+state's ``G``); an orbax directory is JAX-only. Image i is written while
+image i + 1 runs.
 """
 
 from __future__ import annotations
@@ -40,23 +42,12 @@ def load_seg(seg_dir: str, base: str):
     return np.ascontiguousarray(seg, dtype=np.float32)
 
 
-def load_sftnet(path: str, n_blocks: int = 16):
-    """SFTNet from a reference ``.pth`` or the port's ``.pt``."""
-    import torch
-
-    from dasr_tpu_torch.nn.sft import SFTNet
-    from dasr_tpu_torch.train.checkpoints import load_pth
-
-    net = SFTNet(n_blocks=n_blocks)
-    if os.path.isdir(path):
-        raise NotImplementedError(f"--model {path!r} is a directory: orbax checkpoints are "
-                                  "JAX-only (dasr_tpu.cli.sftgan_test reads them)")
-    if path.endswith(".pt"):
-        saved = torch.load(path, map_location="cpu", weights_only=True)
-        net.load_state_dict(saved["G"]["net"] if "G" in saved else saved)
-    else:
-        load_pth(net, path)
-    return net
+def options(model_path: str, n_blocks: int = 16) -> dict:
+    """Model 'sftgan''s options for SFTNet of ``n_blocks`` blocks from
+    ``model_path``, in f32."""
+    return {"model": "sftgan", "scale": 4, "bf16": False,
+            "network_G": {"which_model_G": "sft_arch", "nb": n_blocks},
+            "path": {"pretrain_model_G": model_path}}
 
 
 def main(argv=None):
@@ -74,17 +65,17 @@ def main(argv=None):
                    help="run on the GPU or on the CPU (plain PyTorch)")
     args = p.parse_args(argv)
 
-    import numpy as np
     import torch
 
     from dasr_tpu_torch.core.device import resolve_device
     from dasr_tpu_torch.data.io import list_images, read_img, save_img
+    from dasr_tpu_torch.models.registry import create_model
     from dasr_tpu_torch.ops.metrics import modcrop
     from dasr_tpu_torch.ops.resize import imresize_np
 
     device = resolve_device(args.device)
-    net = load_sftnet(args.model, args.n_blocks).to(device,
-                                                    memory_format=torch.channels_last).eval()
+    model = create_model(options(args.model, args.n_blocks), device).load()
+    model.g.to(device, memory_format=torch.channels_last).eval()
     os.makedirs(args.out, exist_ok=True)
     written = []
 
@@ -99,10 +90,7 @@ def main(argv=None):
         img = read_img(path)
         if not args.lr_input:
             img = imresize_np(modcrop(img, 8), 0.25)
-        x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].to(device)
-        seg = torch.from_numpy(load_seg(args.seg_dir, base))[None].to(device)
-        with torch.no_grad():
-            out = net(x, seg)[0].permute(1, 2, 0).float()
+        out = model.test_async(img, load_seg(args.seg_dir, base))
         prev, inflight = inflight, (os.path.join(args.out, base + "_rlt.png"), out)
         if prev is not None:
             finish(*prev)

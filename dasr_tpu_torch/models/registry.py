@@ -16,11 +16,12 @@ generator; and the paired-data trainers 'sr' (``SRModel``, with
 call, and 'srgan' / 'srragan' with G and D updated every step also in
 K-step windows, on host batches or drawn from paired banks on the device;
 and 'De_patch_wavelet_GAN' (``DePatchModel``), the wavelet GAN of
-the De_Resnet family, with its realness map. ``define_G`` also builds
-'DSGAN' and 'sft_arch', ``define_D`` 'dis_acd'; no model trains or serves
-them (``dsn_test`` runs the DSGAN generator, ``sftgan_test`` SFTNet).
-Any other model, or a generator the model does not feed, raises
-``NotImplementedError``.
+the De_Resnet family, with its realness map; and 'sftgan' (``SFTGANModel``),
+serving 'sft_arch' (SFTNet) on an LR image and its segmentation maps
+(``sftgan_test`` runs through it). ``define_G`` also builds 'DSGAN',
+``define_D`` 'dis_acd'; no model trains or serves them (``dsn_test`` runs
+the DSGAN generator), and only 'sftgan' takes 'sft_arch'. Any other model,
+or a generator the model does not feed, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ SHARD_HALO = 20  # spatially sharded inference's halo: forward_chop's shave (uti
 _RUNNERS = {
     DSGANGenerator: "a 1:1 generator no SRN trainer feeds; dsn_test runs it "
                     "(--generator DSGAN)",
-    SFTNet: "it takes segmentation maps, which no SRN dataset gives; sftgan_test runs it",
+    SFTNet: "it takes segmentation maps, which no SRN dataset gives; model [sftgan] "
+            "serves it, and sftgan_test runs that model",
 }
 
 
@@ -126,7 +128,7 @@ def define_G(opt: Dict) -> torch.nn.Module:
     if which == "DSGAN":
         return DSGANGenerator(dtype=widths["dtype"])
     if which == "sft_arch":
-        return SFTNet(dtype=widths["dtype"])
+        return SFTNet(n_blocks=net.get("nb") or 16, dtype=widths["dtype"])
     raise NotImplementedError(f"Generator model [{which}] not recognized")
 
 
@@ -247,12 +249,13 @@ class _InferenceModel:
 
     def load(self):
         """G from ``pretrain_model_G``: a reference-named ``.pth`` of the
-        port's generator, or the port's ``{iter}.pt`` train state."""
+        port's generator, or the port's ``.pt`` (a ``{iter}.pt`` train
+        state, or G's state dict alone)."""
         path = (self.opt.get("path") or {}).get("pretrain_model_G")
         if path:
             if path.endswith(".pt"):
                 saved = torch.load(path, map_location="cpu", weights_only=True)
-                self.g.load_state_dict(saved["G"]["net"])
+                self.g.load_state_dict(saved["G"]["net"] if "G" in saved else saved)
             elif path.endswith(".pth"):
                 checkpoints.load_pth(self.g, path)
             else:
@@ -262,8 +265,17 @@ class _InferenceModel:
                 )
         return self
 
-    def _apply_g(self, x):
-        return self.g(x)
+    def _apply_g(self, x, *cond):
+        return self.g(x, *cond)
+
+    def _cond_inputs(self, cond, h0: int, w0: int, n: int) -> tuple:
+        """The condition of an h0 x w0 LR image as G's further inputs on
+        the device, uploaded as the image's ``n``-th; a model whose G takes
+        none refuses one."""
+        if cond is not None:
+            raise ValueError(f"model [{self.opt.get('model')}] takes no condition beside "
+                             "the LR image")
+        return ()
 
     @contextlib.contextmanager
     def _g_in_eval_mode(self):
@@ -281,19 +293,22 @@ class _InferenceModel:
             with trace.span("serve.eval_mode"):
                 self.g.train(was_training)
 
-    def test(self, lr_img: np.ndarray) -> np.ndarray:
-        """One LR image (HWC, float [0, 1] or uint8) -> SR image (HWC float32)."""
-        return self.test_async(lr_img).cpu().numpy()
+    def test(self, lr_img: np.ndarray, cond: Optional[np.ndarray] = None) -> np.ndarray:
+        """One LR image (HWC, float [0, 1] or uint8), and its condition
+        where G takes one -> SR image (HWC float32)."""
+        return self.test_async(lr_img, cond).cpu().numpy()
 
     @torch.no_grad()
-    def test_async(self, lr_img: np.ndarray) -> torch.Tensor:
+    def test_async(self, lr_img: np.ndarray, cond: Optional[np.ndarray] = None) -> torch.Tensor:
         """``test``'s SR image as an f32 HWC tensor on the device, without
-        waiting for it (the CLIs read it back one image later). Counts
-        ``serve.images``, the LR pixels served (``serve.image_lr_px``) and
-        those forwarded, tile halos and pads included
-        (``serve.tile_lr_px``); with tracing on (``utils/trace.py``) its
-        parts are spans of the image's count: ``serve.upload`` (the copy to
-        the card, the cast and the bucket pad), ``serve.forward`` (each
+        waiting for it (the CLIs read it back one image later); ``cond``:
+        the image's condition, for a model whose G takes one
+        (``_cond_inputs``). Counts ``serve.images``, the LR pixels served
+        (``serve.image_lr_px``) and those forwarded, tile halos and pads
+        included (``serve.tile_lr_px``); with tracing on
+        (``utils/trace.py``) its parts are spans of the image's count:
+        ``serve.upload`` (the copy to the card, the cast and the bucket pad,
+        and the condition's upload nested in it), ``serve.forward`` (each
         forward's issue) and ``serve.crop``."""
         h0, w0 = lr_img.shape[0], lr_img.shape[1]
         n = trace.count("serve.images")
@@ -309,11 +324,12 @@ class _InferenceModel:
                 bh = math.ceil(h0 / bucket) * bucket
                 bw = math.ceil(w0 / bucket) * bucket
                 x = pad_reflect(x, 0, bh - h0, 0, bw - w0)
+            extra = self._cond_inputs(cond, h0, w0, n)
 
         def forward(t):
             trace.count("serve.tile_lr_px", t.shape[0] * t.shape[2] * t.shape[3])
             with trace.span("serve.forward", n):
-                return self._apply_g(t)
+                return self._apply_g(t, *extra)
 
         world = self._world
         with self._g_in_eval_mode():
@@ -921,6 +937,53 @@ class DASRAdaptiveModel(DASRModel):
         return self.g(x, self.patchd(x))
 
 
+class SFTGANModel(_InferenceModel):
+    """'sftgan' (reference: codes/SRN/test_sftgan.py; Wang et al., CVPR
+    2018): serves 'sft_arch' (``SFTNet``) on an LR image and its
+    segmentation probability maps, through the facade's one ``test_async``
+    (``test_async(lr_img, seg)``). The maps are uploaded in f32, as the
+    reference's test script hands them to the net, and cast on the device
+    to the working dtype (span ``serve.cond_upload``, nested in
+    ``serve.upload``; counter ``serve.cond_bytes``, the bytes copied).
+
+    Refused by name: ``is_train`` (DASR ships no SFTGAN trainer, and no
+    model trains 'dis_acd''s two heads), ``chop`` and ``pad_bucket`` (the
+    condition is not tiled or padded), and a ``scale`` other than SFTNet's
+    4. ``pretrain_model_G`` is a reference ``SFTGAN_*.pth`` (the
+    reference's names) or the port's ``.pt``."""
+
+    g_types = (SFTNet,)
+
+    def __init__(self, opt: Dict, device: torch.device):
+        for key, why in (("is_train", "DASR ships no SFTGAN trainer, and no model trains "
+                                      "dis_acd's two heads"),
+                         ("chop", "the segmentation maps are not tiled"),
+                         ("pad_bucket", "the segmentation maps are not padded")):
+            if opt.get(key):
+                raise ValueError(f"'{key}' is refused by model [sftgan]: {why}")
+        if opt.get("scale", 4) != 4:
+            raise ValueError(f"'scale' {opt['scale']}: SFTNet is x4")
+        super().__init__(opt, device)
+
+    def _cond_inputs(self, seg, h0: int, w0: int, n: int) -> tuple:
+        """The maps of an h0 x w0 LR image (CHW or HWC, at 4 h0 x 4 w0, as
+        ``sftgan_test.load_seg`` gives them) as SFTNet's NCHW ``seg`` on the
+        device in its working dtype."""
+        if seg is None:
+            raise ValueError("model [sftgan] serves an LR image with its segmentation maps: "
+                             "test_async(lr_img, seg)")
+        c, hw = self.g.CondNet[0].in_channels, (4 * h0, 4 * w0)
+        shape = tuple(seg.shape)
+        if shape not in ((c,) + hw, hw + (c,)):
+            raise ValueError(f"segmentation maps of shape {shape}: an LR image of {h0}x{w0} "
+                             f"takes ({c}, {hw[0]}, {hw[1]}) or ({hw[0]}, {hw[1]}, {c})")
+        with trace.span("serve.cond_upload", n):
+            t = torch.from_numpy(np.ascontiguousarray(seg))
+            trace.count("serve.cond_bytes", t.numel() * t.element_size())
+            t = t if shape[0] == c else t.permute(2, 0, 1)
+            return (t[None].to(self.device).to(self.g.dtype),)
+
+
 # the models whose training JAX shards over its mesh's 'data' axis
 # (dasr_tpu/models/registry.py:create_model); the others train on one rank
 SHARDED_MODELS = ("DASR", "DASR_Adaptive_Model", "srgan", "srragan")
@@ -948,4 +1011,6 @@ def create_model(opt: Dict, device: torch.device = torch.device("cpu")):
         return DegradationModel(opt, device)
     if model == "De_patch_wavelet_GAN":
         return DePatchModel(opt, device)
+    if model == "sftgan":
+        return SFTGANModel(opt, device)
     raise NotImplementedError(f"Model [{model}] not recognized.")

@@ -15,7 +15,8 @@ importer permutes for it.
 
 As in ``dasr_tpu``, ``SFTNet`` runs the full documented architecture: the
 reference's shipped forward bypasses the SFT branch (sft_arch.py:76-83 is
-commented out).
+commented out). With tracing on (``utils/trace.py``) its forward marks the
+device phases ``cond``, ``sft_branch`` and ``hr_branch``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dasr_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Linear, init_lecun_
+from dasr_tpu_torch.utils import trace
 
 
 def _lrelu01(x):
@@ -71,7 +73,10 @@ class SFTNet(nn.Module):
     brings to (B, 32, H, W) with a stride-4 conv; ``n_blocks`` SFT residual
     blocks, an SFT layer and a conv (``sft_branch``) with a long skip, then
     two pixel-shuffle x2 stages and two convs (``HR_branch``). Activations
-    run in ``dtype``; parameters stay f32."""
+    run in ``dtype``; parameters stay f32. The device phases (while tracing
+    is on): ``cond`` (the maps' cast and ``CondNet``), ``sft_branch`` (the
+    image's cast, ``conv0`` and the SFT branch) and ``hr_branch`` (the long
+    skip and the HR branch)."""
 
     def __init__(self, n_blocks: int = 16, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -98,13 +103,18 @@ class SFTNet(nn.Module):
 
     def forward(self, img, seg):
         cl = torch.channels_last
+        trace.phase("cond")
         cond = self.CondNet(seg.to(self.dtype).contiguous(memory_format=cl))
+        trace.phase("sft_branch")
         fea = self.conv0(img.to(self.dtype).contiguous(memory_format=cl))
         h = fea
         for block in self.sft_branch[:-2]:
             h = block(h, cond)
         h = self.sft_branch[-1](self.sft_branch[-2](h, cond))
-        return self.HR_branch(fea + h)
+        trace.phase("hr_branch")
+        out = self.HR_branch(fea + h)
+        trace.end_phases()
+        return out
 
 
 class ACDVGGBN96(nn.Module):

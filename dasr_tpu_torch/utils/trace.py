@@ -22,8 +22,14 @@
   launches); ``nn/layers.py:BatchNorm2d`` counts ``bn.layer_updates`` (a
   layer's forward that moved its running statistics) and
   ``SRGANTrainer._d`` ``bn.stat_updates`` (a D forward that moved any).
+  The serving facade (``models/registry.py:_InferenceModel.test_async``)
+  counts ``serve.images``, ``serve.image_lr_px`` and ``serve.tile_lr_px``;
+  'sftgan''s ``serve.cond_bytes`` (the segmentation maps' bytes copied to
+  the device), its upload a span ``serve.cond_upload`` nested in
+  ``serve.upload``.
 * **Device phases** (``phase(name)``, ``end_phases()``, ``phase_ms()``):
-  marks of where each part of a train step starts on the current stream,
+  marks of where each part of a train step (or of SFTNet's forward:
+  ``cond``, ``sft_branch``, ``hr_branch``) starts on the current stream,
   made only while tracing is on. In a process that has initialised CUDA a
   mark records a timing event with ``external=True``, which inside a CUDA
   graph's capture becomes an event-record node, so every replay records it

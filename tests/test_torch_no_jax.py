@@ -2,7 +2,8 @@
 tiny corpus through its srn_test CLI, training two steps through its
 srn_train CLI, two DASR Adaptive steps on the device bank through it, two
 'srragan' steps and one 'De_Resnet' step through it, one
-'De_patch_wavelet_GAN' step and one SFTNet forward, running the three
+'De_patch_wavelet_GAN' step, one SFTNet forward and one image served by
+model 'sftgan', running the three
 stages through its auto_reproduce CLI
 (dsn_train, dsn_create_dataset, srn_train), and its evaluate, dsn_test,
 auto_test and add_corruptions CLIs on those runs' outputs load neither jax
@@ -118,6 +119,9 @@ assert len(m) == 7 and all(np.isfinite(v) for v in m.values()), m
 sft = SFTNet(n_blocks=1).init_weights(torch.Generator().manual_seed(0))
 with torch.no_grad():
     assert sft(torch.rand(1, 3, 8, 8), torch.rand(1, 8, 32, 32)).shape == (1, 3, 32, 32)
+sftgan = create_model({"model": "sftgan", "network_G": {"which_model_G": "sft_arch", "nb": 1}})
+assert sftgan.init().test_async(np.zeros((8, 6, 3), np.uint8),
+                                np.full((8, 32, 24), 0.125, np.float32)).shape == (32, 24, 3)
 from PIL import Image
 from dasr_tpu_torch.cli import compute_dists, lpips_train, parity, test_dataloader
 from dasr_tpu_torch.scripts import misc_tools
